@@ -1,0 +1,153 @@
+"""Interaction dataset: TSV ingestion, id remap, bipartite graph build.
+
+Counterpart of ``textgcn_tpu/data/core.py`` on the ``csv`` module and
+numpy (no pandas).  The semantics are the JAX package's, field by field:
+
+* rows are sorted by (user_id, asin) as strings;
+* internal ids follow the first appearance in the sorted train table
+  (users therefore in string order, items in order of first use);
+* users that appear only in the test file are an error; items that appear
+  only there are dropped with a warning;
+* ``edge_weight = 1/sqrt(deg_u * deg_i)`` over the train edges,
+  duplicates included;
+* ``pos_padded[u, :deg_u]`` holds u's sorted train items, padded with
+  ``n_items``.
+"""
+
+from __future__ import annotations
+
+import csv
+import logging
+import os
+from dataclasses import dataclass
+
+import numpy as np
+
+log = logging.getLogger('textgcn_tpu_torch')
+
+
+@dataclass
+class Graph:
+    """Normalized bipartite interaction graph in edge-list form."""
+    n_users: int
+    n_items: int
+    edge_user: np.ndarray    # (E,) int32
+    edge_item: np.ndarray    # (E,) int32
+    edge_weight: np.ndarray  # (E,) float32, 1/sqrt(deg_u * deg_i)
+    user_degree: np.ndarray  # (n_users,) int32
+    item_degree: np.ndarray  # (n_items,) int32
+
+    @property
+    def n_edges(self) -> int:
+        return int(self.edge_user.shape[0])
+
+
+@dataclass
+class InteractionData:
+    """Loaded and remapped train/test interactions."""
+    n_users: int
+    n_items: int
+    n_train: int
+    n_test: int
+    graph: Graph
+    pos_padded: np.ndarray          # (n_users, max_degree) int32
+    pos_degree: np.ndarray          # (n_users,) int32
+    test_users: np.ndarray          # sorted unique test users, int32
+    true_test: list[list[int]]      # per test user, its test item ids
+    user_id_map: dict[int, str]     # internal -> external id
+    item_id_map: dict[int, str]
+
+
+def _read_interactions(path: str) -> list[tuple[str, str]]:
+    """(user_id, asin) string pairs of a TSV with a header, sorted."""
+    with open(path, newline='', encoding='utf-8') as f:
+        reader = csv.reader(f, delimiter='\t')
+        header = next(reader)
+        try:
+            ui, ai = header.index('user_id'), header.index('asin')
+        except ValueError:
+            raise ValueError(f'{path}: the header needs user_id and asin '
+                             f'columns, got {header}') from None
+        rows = []
+        for line_no, r in enumerate(reader, start=2):
+            if not r:
+                continue
+            if len(r) != len(header):
+                raise ValueError(f'{path}:{line_no}: expected '
+                                 f'{len(header)} fields, got {len(r)}')
+            rows.append((r[ui], r[ai]))
+    rows.sort()
+    return rows
+
+
+def load_interactions(data_dir: str, *, reshuffle: bool = False,
+                      seed: int = 0) -> InteractionData:
+    """Load ``train.tsv``/``test.tsv`` of ``data_dir`` and build the graph
+    and the per-user tables.  ``seed`` only seeds ``reshuffle``, which is
+    not ported yet."""
+    if reshuffle:
+        raise NotImplementedError(
+            '--reshuffle is not ported yet (its stratified split needs '
+            'scikit-learn)')
+    train = _read_interactions(os.path.join(data_dir, 'train.tsv'))
+    test = _read_interactions(os.path.join(data_dir, 'test.tsv'))
+
+    u_map: dict[str, int] = {}
+    i_map: dict[str, int] = {}
+    edge_user = np.empty(len(train), np.int32)
+    edge_item = np.empty(len(train), np.int32)
+    for n, (u, a) in enumerate(train):
+        edge_user[n] = u_map.setdefault(u, len(u_map))
+        edge_item[n] = i_map.setdefault(a, len(i_map))
+
+    test_only_users = {u for u, _ in test} - u_map.keys()
+    if test_only_users:
+        raise ValueError(f"users {test_only_users} from test set don't "
+                         'appear in train set')
+    test_only_items = {a for _, a in test} - i_map.keys()
+    if test_only_items:
+        log.warning("items %s from test set don't appear in train set, "
+                    'removing them', test_only_items)
+        test = [(u, a) for u, a in test if a not in test_only_items]
+
+    n_users, n_items, n_train = len(u_map), len(i_map), len(train)
+    user_degree = np.bincount(edge_user, minlength=n_users).astype(np.int32)
+    item_degree = np.bincount(edge_item, minlength=n_items).astype(np.int32)
+    with np.errstate(divide='ignore'):
+        du = 1.0 / np.sqrt(user_degree.astype(np.float64))
+        di = 1.0 / np.sqrt(item_degree.astype(np.float64))
+    du[~np.isfinite(du)] = 0.0
+    di[~np.isfinite(di)] = 0.0
+    edge_weight = (du[edge_user] * di[edge_item]).astype(np.float32)
+    graph = Graph(n_users, n_items, edge_user, edge_item, edge_weight,
+                  user_degree, item_degree)
+
+    # sorted positives per row; the pad value n_items sorts after all items
+    max_deg = max(int(user_degree.max(initial=0)), 1)
+    pos_padded = np.full((n_users, max_deg), n_items, dtype=np.int32)
+    order = np.lexsort((edge_item, edge_user))
+    sorted_u = edge_user[order]
+    sorted_i = edge_item[order]
+    row_starts = np.searchsorted(sorted_u, np.arange(n_users))
+    col_idx = np.arange(n_train) - row_starts[sorted_u]
+    pos_padded[sorted_u, col_idx] = sorted_i
+
+    # test items of each user in the order of the sorted test table
+    by_user: dict[int, list[int]] = {}
+    for u, a in test:
+        by_user.setdefault(u_map[u], []).append(i_map[a])
+    test_users = np.array(sorted(by_user), dtype=np.int32)
+    true_test = [by_user[u] for u in test_users.tolist()]
+
+    data = InteractionData(
+        n_users=n_users, n_items=n_items, n_train=n_train, n_test=len(test),
+        graph=graph, pos_padded=pos_padded, pos_degree=user_degree.copy(),
+        test_users=test_users, true_test=true_test,
+        user_id_map={v: k for k, v in u_map.items()},
+        item_id_map={v: k for k, v in i_map.items()},
+    )
+    log.info('n_train:    %7d', n_train)
+    log.info('n_test:     %7d', len(test))
+    log.info('n_users:    %7d', n_users)
+    log.info('n_items:    %7d', n_items)
+    return data
