@@ -111,12 +111,14 @@ def test_parse_args_matches_jax(argv):
 
 
 @pytest.mark.parametrize('argv, err', [
-    (['--model', 'gat', '--aggr', 'mean'], NotImplementedError),
+    (['--model', 'gatv2', '--aggr', 'mean'], NotImplementedError),
     (['--model', 'ltr_linear'], NotImplementedError),
     (['--model', 'lgcn', '--mesh', '2x4'], NotImplementedError),
     (['--model', 'lgcn', '--approx_topk', '0.95'], NotImplementedError),
     (['--model', 'lgcn', '--dropout', '1.5'], ValueError),
     (['--model', 'lgcn', '--load', 'a', '--load_base', 'b'], ValueError),
+    (['--model', 'lgcn', '--refresh_every', '4'], NotImplementedError),
+    (['--model', 'gat'], ValueError),
 ])
 def test_parse_args_refuses_what_is_not_ported(argv, err):
     with pytest.raises(err):

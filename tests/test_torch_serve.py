@@ -281,11 +281,29 @@ def test_no_cuda_means_an_error_not_a_cpu_run(tmp_path, monkeypatch,
 
 
 def test_cli_requires_no_train(tmp_path, monkeypatch, dummy_dir):
+    """``--no_train`` skips training: the loaded tables are served as they
+    are and nothing is checkpointed; without it the CLI trains.
+    ``--resume`` is still refused."""
     from textgcn_tpu_torch.cli import main as port_main
     monkeypatch.chdir(tmp_path)
     monkeypatch.setenv('TEXTGCN_TPU_PLATFORM', 'cpu')
-    with pytest.raises(NotImplementedError, match='--no_train'):
-        port_main(['--model', 'lgcn', '--data', dummy_dir, '--uid', 'x'])
+    data = load_interactions(dummy_dir)
+    ck = str(tmp_path / 'ck.pkl')
+    state = _write_padded_checkpoint(ck, data.n_users, data.n_items)
+    argv = ['--model', 'lgcn', '--data', dummy_dir, '--load', ck,
+            '--emb_size', str(D), '-k', '3', '--epochs', '1', '--quiet']
+    served = port_main(argv + ['--no_train', '--uid', 'x'])
+    np.testing.assert_array_equal(
+        served.model.user_emb.detach().numpy(),
+        state['params']['user_emb'][:data.n_users])
+    assert served.loss_history == []
+    assert not (tmp_path / 'runs/dummy/x/latest_checkpoint.pkl').exists()
+    trained = port_main(argv + ['--uid', 'y'])
+    assert len(trained.loss_history) == 1
+    assert (tmp_path / 'runs/dummy/y/best.pkl').exists()
+    with pytest.raises(NotImplementedError, match='--resume'):
+        port_main(['--model', 'lgcn', '--data', dummy_dir, '--resume',
+                   'runs/dummy/y', '--uid', 'z'])
 
 
 def test_model_init_is_seeded_normal(dummy_dir):

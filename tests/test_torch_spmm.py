@@ -152,16 +152,24 @@ def test_spmm_checks_its_arguments(graph, bad, err):
 
 
 def test_graph_op_refuses_gradients(graph):
+    """First-order gradients flow (K1 on the transpose CSR, here its
+    plain version); a second-order gradient is refused."""
     *_, port_op, _ = graph
     x = torch.randn(N_ITEMS, D, requires_grad=True)
-    with pytest.raises(NotImplementedError, match='backward'):
-        port_op.to_user(x, (0, 1.0))
+    out = port_op.to_user(x, (SALTS[4], 0.6))
+    g = torch.randn(N_USERS, D)
+    (dx,) = torch.autograd.grad(out, x, g, create_graph=True)
+    want = tspmm.spmm_plain(port_op.l_u2i, g, SALTS[4], 0.6)
+    np.testing.assert_allclose(dx.detach().numpy(), want.numpy(), atol=ATOL)
+    with pytest.raises(RuntimeError, match='twice|once_differentiable|grad'):
+        dx.sum().backward()
     with torch.no_grad():
         assert port_op.to_user(x, (0, 1.0)).shape == (N_USERS, D)
 
 
 def test_build_helper_names_sources_and_targets():
-    assert cuda_build.sources() == ['spmm_dropout.cu']
+    assert cuda_build.sources() == ['gat_bwd.cu', 'gat_fwd.cu',
+                                    'spmm_dropout.cu']
     path = cuda_build.library_path('spmm_dropout.cu')
     assert path.startswith(cuda_build.BUILD_DIR) and path.endswith('.so')
     assert path == cuda_build.library_path('spmm_dropout.cu')

@@ -1,12 +1,16 @@
-"""CLI entry point — the serving path of ``textgcn_tpu/cli.py``.
+"""CLI entry point — the training and serving paths of ``textgcn_tpu/cli.py``.
 
-    python -m textgcn_tpu_torch --model lgcn --data data/dummy --no_train \
-        --load runs/dummy/<uid> [--predict] [--export_reprs]
+    python -m textgcn_tpu_torch --model lgcn --data D --epochs N \
+        --evaluate_every M
+    python -m textgcn_tpu_torch --model gat --aggr mean --data D ...
+    python -m textgcn_tpu_torch --model lgcn --data D --no_train \
+        --load runs/<data>/<uid> [--predict] [--export_reprs]
 
 Drives: config parse -> dataset load -> model build -> ``--load`` (with
-its evaluation) -> ``--predict`` -> ``--export_reprs``.  Runs on the GPU;
-``TEXTGCN_TPU_PLATFORM=cpu`` asks for the CPU.  Training is not ported
-yet, so ``--no_train`` is required.
+its evaluation; before training it warm-starts the params) -> ``fit``
+unless ``--no_train`` -> ``--predict`` -> ``--export_reprs``.  Runs on
+the GPU; ``TEXTGCN_TPU_PLATFORM=cpu`` asks for the CPU.  ``--resume`` is
+not ported yet.
 """
 
 from __future__ import annotations
@@ -24,9 +28,6 @@ def main(argv: list[str] | None = None):
     if platform not in ('', 'cpu', 'cuda', 'gpu'):
         raise ValueError(f'{PLATFORM_ENV}={platform!r}: use cpu or cuda')
     device = resolve_device('cpu' if platform == 'cpu' else None)
-    if not cfg.no_train:
-        raise NotImplementedError(
-            'training (fit) is not ported yet: pass --no_train')
     if cfg.resume:
         raise NotImplementedError('--resume is not ported yet')
     logger = get_logger(cfg)
@@ -43,6 +44,8 @@ def main(argv: list[str] | None = None):
 
     if cfg.load or cfg.load_base:
         trainer.load(cfg.load or cfg.load_base)
+    if not cfg.no_train:
+        trainer.fit()
     if cfg.predict:
         trainer.predict(range(data.n_users), with_scores=True, save=True)
     if cfg.export_reprs:

@@ -8,9 +8,11 @@ port does not run yet is refused in ``validate`` with "not ported yet".
 Knobs that exist for the TPU:
 
 * ``--no_pallas`` and ``--steps_per_call`` are accepted and ignored: the
-  port has one SpMM (the CUDA kernel) and no device-call relay to bound.
-* ``--mesh`` and ``--approx_topk`` are refused when set: the port serves
+  port has one kernel per function and no device-call relay to bound.
+* ``--mesh`` and ``--approx_topk`` are refused when set: the port runs
   on one card with an exact top-k.
+* ``--refresh_every`` (cached propagation) is refused when non-zero: not
+  ported yet.
 
 ``resolve_device`` picks the device: CUDA unless the caller asks for the
 CPU, and an error, never a silent CPU run, when CUDA is absent.
@@ -33,7 +35,7 @@ MODEL_CHOICES = (
     'marcus', 'ltr_reviews', 'ltr_kg', 'ltr_simple', 'gcn', 'graphsage',
     'gat', 'gatv2',
 )
-PORTED_MODELS = ('lgcn',)
+PORTED_MODELS = ('lgcn', 'gat')
 CONV_MODELS = ('gcn', 'graphsage', 'gat', 'gatv2')
 
 LOGGER_NAME = 'textgcn_tpu_torch'
@@ -144,6 +146,12 @@ class Config:
         if self.epochs < 1 or self.batch_size < 1 or self.evaluate_every < 1:
             raise ValueError('epochs, batch_size and evaluate_every must be '
                              'positive')
+        if self.model in CONV_MODELS and self.aggr is None:
+            raise ValueError(f'--aggr is required for conv model '
+                             f'{self.model!r}: pass one of mean|sum|max')
+        if self.refresh_every:
+            raise NotImplementedError(
+                '--refresh_every (cached propagation) is not ported yet')
         if self.mesh:
             raise NotImplementedError('--mesh (multi-GPU) is not ported yet')
         if self.approx_topk:
@@ -221,7 +229,8 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument('--trace', type=str, default=d.trace)
     p.add_argument('--aggr', '--aggregator', dest='aggr', default=d.aggr,
                    choices=['mean', 'sum', 'max'])
-    p.add_argument('--refresh_every', type=int, default=d.refresh_every)
+    p.add_argument('--refresh_every', type=int, default=d.refresh_every,
+                   help='not ported yet: refused when non-zero')
     return p
 
 

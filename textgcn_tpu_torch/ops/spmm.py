@@ -21,6 +21,10 @@ direction is one destination-sorted CSR over the real rows.
   on-card comparison use it.
 * ``spmm`` picks by the tensor's device: the plain version for a CPU
   tensor, the kernel for a CUDA tensor; there is no fallback between them.
+* ``GraphOp.to_user``/``to_item`` are differentiable: the gradient of one
+  direction is the other direction's CSR run on the cotangent with the
+  forward's ``(salt, keep)`` (``_pgs_bwd`` in ``pallas_spmm.py``), so the
+  backward is K1 again and drops the same edges.
 """
 
 from __future__ import annotations
@@ -31,6 +35,7 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+from torch.autograd.function import once_differentiable
 
 _M1 = 2654435761
 _M2 = 2246822519
@@ -206,15 +211,32 @@ def spmm(csr: CSR, x: torch.Tensor, salt: int, keep: float) -> torch.Tensor:
     raise ValueError(f'no SpMM for device {x.device}')
 
 
+class _SpMM(torch.autograd.Function):
+    """One direction with its gradient: the backward runs ``spmm`` over
+    the transpose CSR with the forward's salt and keep.  The hash is a
+    function of the (user, item) pair, so both passes drop the same
+    edges."""
+
+    @staticmethod
+    def forward(ctx, x, fwd: CSR, bwd: CSR, salt: int, keep: float):
+        ctx.bwd, ctx.salt, ctx.keep = bwd, salt, keep
+        return spmm(fwd, x, salt, keep)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        return (spmm(ctx.bwd, g.contiguous(), ctx.salt, ctx.keep),
+                None, None, None, None)
+
+
 class GraphOp:
     """Both propagation directions of the bipartite graph.
 
     Same interface as the JAX package's graph ops: ``weights(generator,
     dropout)`` gives the per-direction ``(salt, keep)`` pairs, then
     ``to_user(item_emb, pair)`` and ``to_item(user_emb, pair)``.  Holds one
-    destination-sorted CSR per direction, built on the host.  Forward
-    only: the backward (the same kernel on the transpose CSR) is not
-    ported yet, so a tensor that needs a gradient is refused.
+    destination-sorted CSR per direction, built on the host; each is the
+    other's transpose, so a direction's backward runs on the other CSR.
     """
 
     def __init__(self, edge_user, edge_item, edge_weight, n_users: int,
@@ -230,19 +252,10 @@ class GraphOp:
                 dropout: float = 0.0):
         return hash_dropout_salts(generator, dropout)
 
-    @staticmethod
-    def _forward_only(x: torch.Tensor):
-        if torch.is_grad_enabled() and x.requires_grad:
-            raise NotImplementedError(
-                'the SpMM backward is not ported yet: propagate under '
-                'torch.no_grad()')
-
     def to_user(self, item_emb: torch.Tensor, w_pair) -> torch.Tensor:
         """users = R @ items."""
-        self._forward_only(item_emb)
-        return spmm(self.l_i2u, item_emb, *w_pair)
+        return _SpMM.apply(item_emb, self.l_i2u, self.l_u2i, *w_pair)
 
     def to_item(self, user_emb: torch.Tensor, w_pair) -> torch.Tensor:
         """items = R^T @ users."""
-        self._forward_only(user_emb)
-        return spmm(self.l_u2i, user_emb, *w_pair)
+        return _SpMM.apply(user_emb, self.l_u2i, self.l_i2u, *w_pair)

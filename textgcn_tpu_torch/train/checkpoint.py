@@ -1,16 +1,19 @@
-"""Checkpoint loading: the JAX package's pickle files.
+"""Checkpoints: the JAX package's pickle files, read and written.
 
 Counterpart of the pickle half of ``textgcn_tpu/train/checkpoint.py``.
 A checkpoint is ``{'params': {name: numpy array}, 'epoch', 'model'}``;
 given a run directory, ``best.pkl`` is read.  The unpickler admits numpy
 arrays and plain Python values only, so a crafted file cannot run code.
-The orbax backend and checkpoint writing are not ported yet.
+``save_latest`` writes ``latest_checkpoint.pkl`` atomically and
+``promote_best`` copies it to ``best.pkl``.  The orbax backend and the
+``resume_state.pkl`` of ``--resume`` are not ported yet.
 """
 
 from __future__ import annotations
 
 import os
 import pickle
+import shutil
 
 # the classes a numpy-array pickle needs (numpy 1.x and 2.x module names)
 _ALLOWED = {
@@ -35,7 +38,22 @@ class _ArrayUnpickler(pickle.Unpickler):
 
 
 class PickleCheckpointer:
+    latest_name = 'latest_checkpoint.pkl'
     best_name = 'best.pkl'
+
+    def save_latest(self, save_path: str, state: dict):
+        """Write ``state`` (its params already numpy) to a temporary file
+        and rename it, so a crash mid-write keeps the previous file."""
+        os.makedirs(save_path, exist_ok=True)
+        path = os.path.join(save_path, self.latest_name)
+        tmp = path + '.tmp'
+        with open(tmp, 'wb') as f:
+            pickle.dump(state, f)
+        os.replace(tmp, path)
+
+    def promote_best(self, save_path: str):
+        shutil.copyfile(os.path.join(save_path, self.latest_name),
+                        os.path.join(save_path, self.best_name))
 
     def load(self, path: str) -> dict:
         if os.path.isdir(path):
