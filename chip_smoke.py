@@ -7,7 +7,8 @@ Phases, each of which passes or ends the run with a non-zero exit:
 
 1. device: CUDA must be available; prints the card's name and power limit;
 2. build: compiles every CUDA source of the port with nvcc (in parallel):
-   ``spmm_dropout.cu`` (K1), ``gat_fwd.cu`` (K3), ``gat_bwd.cu`` (K4);
+   ``spmm_dropout.cu`` (K1), ``gat_fwd.cu`` (K3), ``gat_bwd.cu`` (K4),
+   ``gatv2_fwd.cu`` (K5), ``gatv2_bwd.cu`` (K6);
 3. kernel: holds K1 (``spmm_dropout``) against its plain torch version on
    the S1 graph, both directions, keep 1.0 and 0.6 with a salt whose high
    bit is set, within atol = rtol = 1e-5 (the summation order is the only
@@ -19,26 +20,34 @@ Phases, each of which passes or ends the run with a non-zero exit:
    float atomics in a changing order, and its sums run over up to ~100
    terms of magnitude ~10 here) on the S1 graph, both directions, keep 1.0
    and 0.6, with unit-scale random inputs, and times kernel and plain;
-5. small: serves ``data/dummy`` through the CLI on the card and on the
+5. gatv2 kernel: the same for K5 against ``gatv2_att_plain`` (atol = rtol
+   = 1e-5) and K6 against ``gatv2_bwd_plain`` (atol = rtol = 1e-4 for dhs
+   and dhd, summed with float atomics; da, a sum over every kept edge, to
+   1e-4 of its largest entry);
+6. small: serves ``data/dummy`` through the CLI on the card and on the
    CPU (the plain path the CPU tests tie to the JAX package): the metrics
-   agree within 1e-6 and the predictions up to ties;
-6. serve: S1 (60,000 users x 25,000 items, ~600k edges, d = 64, 3 layers)
+   agree within 1e-6 and the predictions up to ties; then the same for
+   ``graphsage --aggr max``, whose segment max is plain torch: it launches
+   no kernel;
+7. serve: S1 (60,000 users x 25,000 items, ~545k edges, d = 64, 3 layers)
    served through ``textgcn_tpu_torch.cli.main`` from a JAX-format pickle
    (tables padded to 4096 rows): K1 launches exactly 12 times (eval and
    predict, 3 layers x 2 directions each), ``predictions.tsv`` has one row
    per user, the metrics are finite, and the served top-40 of 256 users
    equals the top-40 of a plain-SpMM propagation on the card up to ties;
-7. train lgcn: S1 trained through ``cli.main`` for 2 epochs (batch 2048,
+8. train lgcn: S1 trained through ``cli.main`` for 2 epochs (batch 2048,
    dropout 0.4, eval every epoch): K1 launches exactly ``steps x 12 + 2
    evals x 6`` (6 forward and 6 backward a step), the loss sums are
    finite and fall, ``best.pkl`` serves through the CLI with the metrics
    of its epoch, and one step with the kernels agrees with one step with
    the plain versions on the card (same params, batch and salts: loss and
-   gradients within atol = rtol = 1e-4, the f32 reordering of ~600k-term
+   gradients within atol = rtol = 1e-4, the f32 reordering of ~545k-term
    sums through 3 layers forward and back);
-8. train gat: the same for ``--model gat --aggr mean``: K3 launches
-   ``steps x 6 + 6`` per eval, K4 ``steps x 6``;
-9. timing: ms per training step and examples/s of each model at S1, split
+9. train gcn, graphsage, gat, gatv2 (``--aggr mean``): the same; ``gcn``
+   and ``graphsage`` run K1 on the unit-weight op (``steps x 12 + 6`` per
+   eval), ``gat`` launches K3 ``steps x 6 + 6`` per eval and K4 ``steps x
+   6``, ``gatv2`` K5 and K6 the same;
+10. timing: ms per training step and examples/s of each model at S1, split
    into sampling, forward, backward and Adam (host clock around
    synchronised work), the host's enqueue share of an unsynchronised run
    of steps, and the device's busy time per step from a ``torch.profiler``
@@ -144,17 +153,25 @@ def write_dataset(root: str, n_users: int, n_items: int, avg_deg: int,
 
 
 def write_jax_checkpoint(path: str, n_users: int, n_items: int, d: int,
-                         seed: int = 0):
+                         seed: int = 0, model: str = 'lgcn',
+                         conv_keys: tuple[str, ...] = (), layers: int = 0):
     """A pickle in the JAX package's format: N(0, 0.1) tables padded to a
-    multiple of 4096 rows, as its Pallas backend writes them."""
+    multiple of 4096 rows, as its Pallas backend writes them; with
+    ``conv_keys``, ``layers`` conv layers of N(0, 0.2) weights, ``(d, d)``
+    for a ``w*`` key and ``(d,)`` for the others."""
     rng = np.random.RandomState(seed)
     pad = lambda n: -(-n // 4096) * 4096  # noqa: E731
     params = {
         'user_emb': (0.1 * rng.randn(pad(n_users), d)).astype(np.float32),
         'item_emb': (0.1 * rng.randn(pad(n_items), d)).astype(np.float32),
     }
+    if conv_keys:
+        params['convs'] = [
+            {k: (0.2 * rng.randn(*((d, d) if k.startswith('w') else (d,))))
+             .astype(np.float32) for k in conv_keys}
+            for _ in range(layers)]
     with open(path, 'wb') as f:
-        pickle.dump({'params': params, 'epoch': 0, 'model': 'lgcn'}, f)
+        pickle.dump({'params': params, 'epoch': 0, 'model': model}, f)
 
 
 def nvidia_smi(fields: str) -> str:
@@ -339,32 +356,50 @@ def same_up_to_ties(vals_a, items_a, vals_b, items_b, tol) -> bool:
     return True
 
 
-def small_phase(root: str):
-    """data/dummy served on the card and on the CPU: same metrics and
-    predictions."""
+def small_phase(root: str) -> dict[str, int]:
+    """data/dummy served on the card and on the CPU, as ``lgcn`` and as
+    ``graphsage --aggr max``: same metrics and predictions.  Returns the
+    kernel launches of the graphsage runs, which must be none."""
     import shutil
     dummy = os.path.join(root, 'dummy')
     shutil.copytree(os.path.join(REPO, 'data', 'dummy'), dummy)
-    ck = os.path.join(root, 'dummy_ck.pkl')
     from textgcn_tpu_torch.data.core import load_interactions
     data = load_interactions(dummy)
-    write_jax_checkpoint(ck, data.n_users, data.n_items, 16, seed=3)
-    argv = ['--load', ck, '--predict', '--emb_size', '16', '--batch_size',
-            '16', '-k', '3', '5']
-    runs = {}
-    for platform in ('cuda', 'cpu'):
-        trainer, run_dir = serve(dummy, f'small-{platform}', argv, platform)
-        runs[platform] = (trainer.last_metrics, read_predictions(
-            os.path.join(run_dir, 'predictions.tsv')))
-    (m_gpu, p_gpu), (m_cpu, p_cpu) = runs['cuda'], runs['cpu']
-    for name in m_cpu:
-        check(np.allclose(m_gpu[name], m_cpu[name], atol=1e-6, rtol=0),
-              f'dummy {name}: card {m_gpu[name]} vs CPU {m_cpu[name]}')
-    check([r[0] for r in p_gpu] == [r[0] for r in p_cpu], 'dummy users')
-    check(same_up_to_ties([r[2] for r in p_gpu], [r[1] for r in p_gpu],
-                          [r[2] for r in p_cpu], [r[1] for r in p_cpu],
-                          2e-4), 'dummy predictions differ beyond ties')
-    log(f'small: dummy metrics card == CPU: {m_gpu}')
+    common = ['--predict', '--emb_size', '16', '--batch_size', '16', '-k',
+              '3', '5']
+    for model, flags, conv_keys in (
+            ('lgcn', ('--model', 'lgcn'), ()),
+            ('graphsage-max', ('--model', 'graphsage', '--aggr', 'max',
+                               '--n_layers', '2'),
+             ('w_nbr', 'w_root', 'b'))):
+        ck = os.path.join(root, f'dummy_{model}.pkl')
+        write_jax_checkpoint(ck, data.n_users, data.n_items, 16, seed=3,
+                             model=flags[1], conv_keys=conv_keys, layers=2)
+        runs = {}
+        reset_counts()
+        for platform in ('cuda', 'cpu'):
+            trainer, run_dir = serve(dummy, f'small-{model}-{platform}',
+                                     ['--load', ck, *common], platform,
+                                     model=flags)
+            runs[platform] = (trainer.last_metrics, read_predictions(
+                os.path.join(run_dir, 'predictions.tsv')))
+        launches = counts()
+        (m_gpu, p_gpu), (m_cpu, p_cpu) = runs['cuda'], runs['cpu']
+        for name in m_cpu:
+            check(np.allclose(m_gpu[name], m_cpu[name], atol=1e-6, rtol=0),
+                  f'dummy {model} {name}: card {m_gpu[name]} vs CPU '
+                  f'{m_cpu[name]}')
+        check([r[0] for r in p_gpu] == [r[0] for r in p_cpu],
+              f'dummy {model} users')
+        check(same_up_to_ties([r[2] for r in p_gpu], [r[1] for r in p_gpu],
+                              [r[2] for r in p_cpu], [r[1] for r in p_cpu],
+                              2e-4),
+              f'dummy {model} predictions differ beyond ties')
+        log(f'small: dummy {model} metrics card == CPU: {m_gpu}; '
+            f'launches {launches}')
+    check(not any(launches.values()),
+          f'graphsage --aggr max launched kernels: {launches}')
+    return launches
 
 
 class PlainGraphOp:
@@ -399,8 +434,8 @@ def serve_phase(data_dir: str, ck: str) -> int:
     trainer, run_dir = serve(data_dir, 'smoke', argv, 'cuda')
     seconds = time.perf_counter() - t0
     launches = spmm_dropout_cuda.launches
-    check(counts()['gat_fwd'] == counts()['gat_bwd'] == 0,
-          f'serving lgcn launched GAT kernels: {counts()}')
+    check(sum(counts().values()) == launches,
+          f'serving lgcn launched attention kernels: {counts()}')
     log(f'serve: cli.main took {seconds:.3f} s; K1 launches {launches}')
     data, model = trainer.data, trainer.model
     check(launches == 2 * LAYERS * 2,
@@ -478,91 +513,141 @@ def serve_breakdown(trainer):
         f'{t_predict:.3f}')
 
 
-def gat_bound_ms(csr, d: int, n_kept: int, backward: bool):
-    """Least time for one K3 (``backward=False``) or K4 launch: every input
-    read once, every output written once, against the published peaks.
-    K3 reads h (n_src, d), s, d, the CSR and writes num (n_dst, d), den
-    and m; K4 (over the transpose CSR: n_dst here is the forward's n_src)
-    reads h and g_num, the CSR and five vectors and writes dh, ds and dd.
-    Operations: 2d (K3) or 4d (K4) per kept edge, ~8 per edge for the
-    hash, the logit and the exp."""
-    rows, cols = csr.n_dst, csr.n_src
-    csr_bytes = 4 * (csr.rowptr.numel() + csr.col.numel())
-    if backward:
-        nbytes = csr_bytes + 4 * (2 * rows * d + 2 * rows + cols * d
-                                  + 4 * cols)
-        ops = 4 * n_kept * d + 8 * csr.n_edges
-    else:
-        nbytes = csr_bytes + 4 * (cols * d + cols + rows * d + 3 * rows)
-        ops = 2 * n_kept * d + 8 * csr.n_edges
+OUTPUTS = {'gat_fwd': ('num', 'den', 'm'), 'gat_bwd': ('dh', 'ds', 'dd'),
+           'gatv2_fwd': ('num', 'den', 'm'),
+           'gatv2_bwd': ('dhs', 'dhd', 'da')}
+# per kernel: (floats read and written, operations per kept edge) of one
+# launch over ``rows`` x ``cols`` (see attention_bound_ms)
+ATTENTION_WORK = {
+    'gat_fwd': lambda rows, cols, d: (cols * d + cols + rows * d + 3 * rows,
+                                      2 * d),
+    'gat_bwd': lambda rows, cols, d: (2 * rows * d + 2 * rows + cols * d
+                                      + 4 * cols, 4 * d),
+    'gatv2_fwd': lambda rows, cols, d: (cols * d + 2 * rows * d + d
+                                        + 2 * rows, 6 * d),
+    'gatv2_bwd': lambda rows, cols, d: (2 * rows * d + 3 * cols * d + 2 * d
+                                        + 2 * cols, 13 * d),
+}
+
+
+def attention_bound_ms(name: str, csr, d: int, n_kept: int):
+    """Least time for one launch of an attention kernel: every input read
+    once, every output written once, against the published peaks.  Over
+    the forward CSR (rows = destinations j, cols = sources i):
+
+    * K3 ``gat_fwd`` reads h (cols, d), s, d and the CSR and writes num
+      (rows, d), den and m: 2d operations per kept edge;
+    * K5 ``gatv2_fwd`` reads hs (cols, d), hd (rows, d), a and the CSR and
+      writes num (rows, d), den and m: 6d per kept edge (u, leaky, a . lk,
+      num);
+
+    over the transpose CSR (rows = forward sources i, cols = forward
+    destinations j):
+
+    * K4 ``gat_bwd`` reads h (rows, d), s, g_num (cols, d), d, m, g_den and
+      the CSR and writes dh (rows, d), ds and dd: 4d per kept edge;
+    * K6 ``gatv2_bwd`` reads hs (rows, d), hd and g_num (cols, d), a, m,
+      g_den and the CSR and writes dhs (rows, d), dhd (cols, d) and da:
+      13d per kept edge (u, leaky, z, the dot, dhs, dhd, da).
+
+    Each adds ~8 operations per edge for the hash, the logit and the exp.
+    """
+    floats, per_kept = ATTENTION_WORK[name](csr.n_dst, csr.n_src, d)
+    nbytes = 4 * (csr.rowptr.numel() + csr.col.numel() + floats)
+    ops = per_kept * n_kept + 8 * csr.n_edges
     t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, ops / PEAK_F32_FLOP_PER_S
     return (max(t_bytes, t_ops) * 1e3,
             'bytes' if t_bytes >= t_ops else 'operations')
 
 
-def gat_kernel_phase(data, dev) -> dict:
-    """K3 and K4 against their plain versions on the S1 graph, then their
-    times at keep 1.0 (eval) and 0.6 (training)."""
+def attention_kernel_phase(data, dev, conv: str) -> dict:
+    """K3 and K4 (``conv='gat'``) or K5 and K6 (``'gatv2'``) against their
+    plain versions on the S1 graph, both directions, keep 1.0 and 0.6; then
+    their times at keep 0.6 (training) and 1.0 (eval), the plain versions'
+    at 0.6, and the bounds.
+
+    Forward outputs agree within atol = rtol = ``TOL``; backward ones
+    within ``GAT_BWD_TOL``, each entry, except GATv2's ``da``: a sum over
+    every kept edge of the direction, it is held to ``GAT_BWD_TOL`` times
+    its largest entry."""
     from textgcn_tpu_torch.ops import gat
-    from textgcn_tpu_torch.ops.spmm import GraphOp
+    from textgcn_tpu_torch.ops.spmm import GraphOp, edge_mask
     g = data.graph
     op = GraphOp(g.edge_user, g.edge_item, np.ones(g.n_edges, np.float32),
                  data.n_users, data.n_items, dev)
-    gen = torch.Generator().manual_seed(2)
+    gen = torch.Generator().manual_seed(2 if conv == 'gat' else 3)
+    names = (f'{conv}_fwd', f'{conv}_bwd')
+    kernels = (getattr(gat, f'{conv}_fwd_cuda'),
+               getattr(gat, f'{conv}_bwd_cuda'))
+    plains = (getattr(gat, f'{conv}_att_plain'),
+              getattr(gat, f'{conv}_bwd_plain'))
     res = {name: {'ms': 0.0, 'plain_ms': 0.0, 'bound_ms': 0.0,
-                  'ms_keep_1': 0.0, 'max_abs_err': 0.0, 'by': set()}
-           for name in ('gat_fwd', 'gat_bwd')}
+                  'ms_keep_1': 0.0, 'max_abs_err': 0.0,
+                  'max_abs_err_by_output': {}, 'by': set()}
+           for name in names}
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=gen).to(dev)
+
+    def agree(got, want, tol, whole):
+        if whole:
+            return float((got - want).abs().max()) <= tol * float(
+                want.abs().max())
+        return torch.allclose(got, want, atol=tol, rtol=tol)
+
     for direction, fwd, bwd in (('to_user', op.l_i2u, op.l_u2i),
                                 ('to_item', op.l_u2i, op.l_i2u)):
         n_src, n_dst = fwd.n_src, fwd.n_dst
-        h = torch.randn(n_src, D, generator=gen).to(dev)
-        s = torch.randn(n_src, generator=gen).to(dev)
-        d = torch.randn(n_dst, generator=gen).to(dev)
-        g_num = torch.randn(n_dst, D, generator=gen).to(dev)
-        g_den = torch.randn(n_dst, generator=gen).to(dev)
+        if conv == 'gat':      # h, s, d
+            ins = (rand(n_src, D), rand(n_src), rand(n_dst))
+        else:                  # hs, hd, a
+            ins = (rand(n_src, D), rand(n_dst, D), 0.5 * rand(D))
+        g_num, g_den = rand(n_dst, D), rand(n_dst)
         for keep in (1.0, KEEP_DROPOUT):
-            got = gat.gat_fwd_cuda(fwd, h, s, d, SALT, keep)
-            want = gat.gat_att_plain(fwd, h, s, d, SALT, keep)
+            got = kernels[0](fwd, *ins, SALT, keep)
+            want = plains[0](fwd, *ins, SALT, keep)
             m = want[2]
-            got_b = gat.gat_bwd_cuda(bwd, h, s, d, m, g_num, g_den, SALT,
-                                     keep)
-            want_b = gat.gat_bwd_plain(bwd, h, s, d, m, g_num, g_den, SALT,
-                                       keep)
+            got_b = kernels[1](bwd, *ins, m, g_num, g_den, SALT, keep)
+            want_b = plains[1](bwd, *ins, m, g_num, g_den, SALT, keep)
             torch.cuda.synchronize()
-            for name, a, b, tol in (('gat_fwd', got, want, TOL),
-                                    ('gat_bwd', got_b, want_b,
-                                     GAT_BWD_TOL)):
-                err = max(float((x - y).abs().max()) for x, y in zip(a, b))
-                res[name]['max_abs_err'] = max(res[name]['max_abs_err'],
-                                               err)
+            for name, a, b, tol in ((names[0], got, want, TOL),
+                                    (names[1], got_b, want_b, GAT_BWD_TOL)):
+                errs = [float((x - y).abs().max()) for x, y in zip(a, b)]
+                err = max(errs)
+                r = res[name]
+                r['max_abs_err'] = max(r['max_abs_err'], err)
+                r['max_abs_err_by_output'] = {
+                    out: max(e, r['max_abs_err_by_output'].get(out, 0.0))
+                    for out, e in zip(OUTPUTS[name], errs)}
                 log(f'{name} {direction} keep={keep:.7g}: '
-                    f'max_abs_err={err:.3e} (outputs {", ".join(f"{float(y.abs().max()):.3g}" for y in b)} at most)')
-                check(all(torch.allclose(x, y, atol=tol, rtol=tol)
-                          for x, y in zip(a, b)),
+                    f'max_abs_err={err:.3e} (by output '
+                    + ', '.join(f'{out} {e:.3e} of {float(y.abs().max()):.3g}'
+                                for out, e, y in zip(OUTPUTS[name], errs, b))
+                    + ')')
+                whole = (False, False, name == 'gatv2_bwd')
+                check(all(agree(x, y, tol, w)
+                          for x, y, w in zip(a, b, whole)),
                       f'{name} {direction} keep={keep} disagrees with its '
                       f'plain version (max abs err {err:.3e})')
-        n_kept = int((gat._edges(fwd, SALT, KEEP_DROPOUT)[2]).sum())
-        for name, csr, backward in (('gat_fwd', fwd, False),
-                                    ('gat_bwd', bwd, True)):
-            if backward:
-                kern = lambda keep: gat.gat_bwd_cuda(  # noqa: E731
-                    bwd, h, s, d, m, g_num, g_den, SALT, keep)
-                plain = lambda: gat.gat_bwd_plain(  # noqa: E731
-                    bwd, h, s, d, m, g_num, g_den, SALT, KEEP_DROPOUT)
-            else:
-                kern = lambda keep: gat.gat_fwd_cuda(  # noqa: E731
-                    fwd, h, s, d, SALT, keep)
-                plain = lambda: gat.gat_att_plain(  # noqa: E731
-                    fwd, h, s, d, SALT, KEEP_DROPOUT)
+        n_kept = int(edge_mask(fwd, SALT, KEEP_DROPOUT)[2].sum())
+        for name, csr, kernel, plain, extra in (
+                (names[0], fwd, kernels[0], plains[0], ()),
+                (names[1], bwd, kernels[1], plains[1], (m, g_num, g_den))):
+            def kern(keep, csr=csr, kernel=kernel, extra=extra):
+                return kernel(csr, *ins, *extra, SALT, keep)
+
+            def plain_call(csr=csr, plain=plain, extra=extra):
+                return plain(csr, *ins, *extra, SALT, KEEP_DROPOUT)
+
             t = time_ms({'kernel': lambda: kern(KEEP_DROPOUT),
                          'kernel_keep_1': lambda: kern(1.0)},
                         ['kernel', 'kernel_keep_1', 'kernel_keep_1',
                          'kernel'], strict=('kernel', 'kernel_keep_1'))
             # the plain version launches ~50 kernels a call: 5 a round
             # keep the launch queue from filling up behind the spin
-            t.update(time_ms({'plain': plain}, ['plain', 'plain'],
+            t.update(time_ms({'plain': plain_call}, ['plain', 'plain'],
                              strict=(), reps=5))
-            b, by = gat_bound_ms(csr, D, n_kept, backward)
+            b, by = attention_bound_ms(name, csr, D, n_kept)
             log(f'timing {name} {direction} (E={csr.n_edges}, kept '
                 f'{n_kept}, {csr.n_dst}x{csr.n_src}, d={D}): kernel keep=0.6 '
                 f'{t["kernel"]:.4f} ms, keep=1 {t["kernel_keep_1"]:.4f} ms, '
@@ -580,20 +665,24 @@ def gat_kernel_phase(data, dev) -> dict:
     return res
 
 
+def _wrappers():
+    """``{kernel name: (module, wrapper attribute, plain attribute)}``."""
+    from textgcn_tpu_torch.ops import gat, spmm
+    return {'spmm_dropout': (spmm, 'spmm_dropout_cuda', 'spmm_plain'),
+            'gat_fwd': (gat, 'gat_fwd_cuda', 'gat_att_plain'),
+            'gat_bwd': (gat, 'gat_bwd_cuda', 'gat_bwd_plain'),
+            'gatv2_fwd': (gat, 'gatv2_fwd_cuda', 'gatv2_att_plain'),
+            'gatv2_bwd': (gat, 'gatv2_bwd_cuda', 'gatv2_bwd_plain')}
+
+
 def counts() -> dict[str, int]:
-    from textgcn_tpu_torch.ops import gat
-    from textgcn_tpu_torch.ops.spmm import spmm_dropout_cuda
-    return {'spmm_dropout': spmm_dropout_cuda.launches,
-            'gat_fwd': gat.gat_fwd_cuda.launches,
-            'gat_bwd': gat.gat_bwd_cuda.launches}
+    return {name: getattr(mod, attr).launches
+            for name, (mod, attr, _) in _wrappers().items()}
 
 
 def reset_counts():
-    from textgcn_tpu_torch.ops import gat
-    from textgcn_tpu_torch.ops.spmm import spmm_dropout_cuda
-    spmm_dropout_cuda.launches = 0
-    gat.gat_fwd_cuda.launches = 0
-    gat.gat_bwd_cuda.launches = 0
+    for mod, attr, _ in _wrappers().values():
+        getattr(mod, attr).launches = 0
 
 
 def best_row(recall_first_k: np.ndarray) -> int:
@@ -609,14 +698,15 @@ def best_row(recall_first_k: np.ndarray) -> int:
 def plain_kernels():
     """Swap every kernel wrapper for its plain version (same signature),
     for a run on the card that goes through no kernel; returns the undo."""
-    from textgcn_tpu_torch.ops import gat, spmm
-    saved = (spmm.spmm_dropout_cuda, gat.gat_fwd_cuda, gat.gat_bwd_cuda)
-    spmm.spmm_dropout_cuda = spmm.spmm_plain
-    gat.gat_fwd_cuda = gat.gat_att_plain
-    gat.gat_bwd_cuda = gat.gat_bwd_plain
+    wrappers = _wrappers()
+    saved = {name: getattr(mod, attr)
+             for name, (mod, attr, _) in wrappers.items()}
+    for mod, attr, plain in wrappers.values():
+        setattr(mod, attr, getattr(mod, plain))
 
     def undo():
-        spmm.spmm_dropout_cuda, gat.gat_fwd_cuda, gat.gat_bwd_cuda = saved
+        for name, (mod, attr, _) in wrappers.items():
+            setattr(mod, attr, saved[name])
     return undo
 
 
@@ -659,11 +749,36 @@ def step_vs_plain(trainer) -> float:
     return err
 
 
+# the training paths: CLI flags, and the kernels that run a layer's two
+# directions forward (and backward, with ``_bwd`` kernels)
+MODEL_FLAGS = {
+    'lgcn': ('--model', 'lgcn'),
+    'gcn': ('--model', 'gcn', '--aggr', 'mean'),
+    'graphsage': ('--model', 'graphsage', '--aggr', 'mean'),
+    'gat': ('--model', 'gat', '--aggr', 'mean'),
+    'gatv2': ('--model', 'gatv2', '--aggr', 'mean'),
+}
+
+
+def expected_launches(model: str, steps: int, evals: int) -> dict[str, int]:
+    """Each kernel's launches in ``steps`` training steps and ``evals``
+    evaluations: a layer runs both directions once forward and, in a step,
+    once backward.  K1 serves as its own backward; the attention kernels
+    have a backward kernel each."""
+    per_pass = 2 * LAYERS
+    want = dict.fromkeys(_wrappers(), 0)
+    if model in ('lgcn', 'gcn', 'graphsage'):
+        want['spmm_dropout'] = steps * 2 * per_pass + evals * per_pass
+    else:
+        want[f'{model}_fwd'] = steps * per_pass + evals * per_pass
+        want[f'{model}_bwd'] = steps * per_pass
+    return want
+
+
 def train_phase(data_dir: str, model: str) -> dict:
     """S1 trained through the CLI for ``TRAIN_EPOCHS`` epochs, eval every
     epoch; the kernel launches of that run, read just after it."""
-    flags = ('--model', 'gat', '--aggr', 'mean') if model == 'gat' else (
-        '--model', 'lgcn')
+    flags = MODEL_FLAGS[model]
     argv = [*flags, '--epochs', str(TRAIN_EPOCHS), '--evaluate_every', '1',
             '--emb_size', str(D), '--n_layers', str(LAYERS), '--batch_size',
             str(BATCH), '--dropout', '0.4', '-k', *map(str, KS), '--uid',
@@ -680,14 +795,7 @@ def train_phase(data_dir: str, model: str) -> dict:
         f'launches {launches}')
     check(steps == -(-m.bucket_len * m.n_users // BATCH) == 264,
           f'{steps} steps an epoch, expected ceil(9 * 60000 / 2048) = 264')
-    total = steps * TRAIN_EPOCHS
-    if model == 'lgcn':
-        want = {'spmm_dropout': total * 4 * LAYERS
-                + TRAIN_EPOCHS * 2 * LAYERS, 'gat_fwd': 0, 'gat_bwd': 0}
-    else:
-        want = {'spmm_dropout': 0,
-                'gat_fwd': total * 2 * LAYERS + TRAIN_EPOCHS * 2 * LAYERS,
-                'gat_bwd': total * 2 * LAYERS}
+    want = expected_launches(model, steps * TRAIN_EPOCHS, TRAIN_EPOCHS)
     check(launches == want, f'train {model}: launches {launches}, expected '
           f'{want}')
     hist = trainer.loss_history
@@ -858,9 +966,11 @@ def main():
         k1 = kernel_phase(data, dev)
         log(f'phase kernel: {time.perf_counter() - t:.3f} s')
 
-        t = time.perf_counter()
-        gat_k = gat_kernel_phase(data, dev)
-        log(f'phase gat kernel: {time.perf_counter() - t:.3f} s')
+        att = {}
+        for conv in ('gat', 'gatv2'):
+            t = time.perf_counter()
+            att.update(attention_kernel_phase(data, dev, conv))
+            log(f'phase {conv} kernel: {time.perf_counter() - t:.3f} s')
 
         t = time.perf_counter()
         small_phase(root)
@@ -871,32 +981,37 @@ def main():
         log(f'phase serve: {time.perf_counter() - t:.3f} s')
 
         trained, timing = {}, {}
-        for model in ('lgcn', 'gat'):
+        for model in MODEL_FLAGS:
             t = time.perf_counter()
             trained[model] = train_phase(data_dir, model)
             log(f'phase train {model}: {time.perf_counter() - t:.3f} s')
-        for model in ('lgcn', 'gat'):
+        for model in MODEL_FLAGS:
             t = time.perf_counter()
             timing[model] = timing_phase(trained[model].pop('trainer'), card,
                                          root)
             log(f'phase timing {model}: {time.perf_counter() - t:.3f} s')
 
-    by_path = {path: {name: trained[path]['launches'][name]
-                      for name in ('spmm_dropout', 'gat_fwd', 'gat_bwd')}
-               for path in trained}
+    # each path's launches, counted from 0 just before its run
+    by_path = {'serve_lgcn': {'spmm_dropout': launches}}
+    by_path.update({f'train_{m}': {k: n for k, n in r['launches'].items()
+                                   if n}
+                    for m, r in trained.items()})
+
+    def launch_fields(name, model):
+        paths = {p: c[name] for p, c in by_path.items() if name in c}
+        return {'launches': sum(paths.values()),
+                'launches_by_path': paths,
+                'launches_per_step': {
+                    part: timing[model]['launches_per_step'][part][name]
+                    for part in ('forward', 'backward')}}
+
     kernels = [{
         'name': 'spmm_dropout',
         'route': 'cuda',
         'source': 'textgcn_tpu_torch/csrc/spmm_dropout.cu',
         'replaces': 'textgcn_tpu/ops/pallas_spmm.py:103',
-        # the serving path's and the lgcn training path's launches, each
-        # counted from 0 just before its run (forward and backward)
-        'launches': launches + by_path['lgcn']['spmm_dropout'],
-        'launches_by_path': {'serve_lgcn': launches,
-                             'train_lgcn': by_path['lgcn']['spmm_dropout']},
-        'launches_per_step': {
-            part: timing['lgcn']['launches_per_step'][part]['spmm_dropout']
-            for part in ('forward', 'backward')},
+        # serve lgcn, train lgcn, gcn and graphsage (forward and backward)
+        **launch_fields('spmm_dropout', 'lgcn'),
         'max_abs_err': k1['max_abs_err'],
         # times and bound: one layer, i.e. the to_user + to_item launches
         # at keep = 1 on S1, d = 64 (ms_keep_0_6: the same at keep 0.6)
@@ -907,19 +1022,17 @@ def main():
         'bound_by': k1['bound_by'],
         'library_ms': k1['library_ms'],
     }]
-    for name, replaces in (('gat_fwd', 'textgcn_tpu/ops/pallas_gat.py:201'),
-                           ('gat_bwd', 'textgcn_tpu/ops/pallas_gat.py:293')):
-        r = gat_k[name]
+    for name, line in (('gat_fwd', 201), ('gat_bwd', 293),
+                       ('gatv2_fwd', 647), ('gatv2_bwd', 715)):
+        r = att[name]
         kernels.append({
             'name': name,
             'route': 'cuda',
             'source': f'textgcn_tpu_torch/csrc/{name}.cu',
-            'replaces': replaces,
-            'launches': by_path['gat'][name],
-            'launches_per_step': {
-                part: timing['gat']['launches_per_step'][part][name]
-                for part in ('forward', 'backward')},
+            'replaces': f'textgcn_tpu/ops/pallas_gat.py:{line}',
+            **launch_fields(name, name.split('_')[0]),
             'max_abs_err': r['max_abs_err'],
+            'max_abs_err_by_output': r['max_abs_err_by_output'],
             # times, plain and bound: one layer (to_user + to_item) at
             # keep 0.6, the training path, on S1, d = 64
             'ms': r['ms'],

@@ -111,7 +111,7 @@ def test_parse_args_matches_jax(argv):
 
 
 @pytest.mark.parametrize('argv, err', [
-    (['--model', 'gatv2', '--aggr', 'mean'], NotImplementedError),
+    (['--model', 'adv_sampling'], NotImplementedError),
     (['--model', 'ltr_linear'], NotImplementedError),
     (['--model', 'lgcn', '--mesh', '2x4'], NotImplementedError),
     (['--model', 'lgcn', '--approx_topk', '0.95'], NotImplementedError),

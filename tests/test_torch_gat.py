@@ -276,12 +276,17 @@ def test_conv_model_init_and_refusals(dummy_dir):
     assert (a.convs[0]['b'] == 0).all()
     tree = a.param_tree()
     assert sorted(tree) == ['convs', 'item_emb', 'user_emb']
-    for name in ('gcn', 'graphsage', 'gatv2'):
-        bad = tconfig.Config(model=name, aggr='mean', data=dummy_dir)
-        with pytest.raises(NotImplementedError, match='not ported'):
-            ConvModel(bad.finalize(), data, device='cpu')
+    bad = tconfig.Config(model='lgcn', aggr='mean', data=dummy_dir)
+    with pytest.raises(ValueError, match='not a conv model'):
+        ConvModel(bad.finalize(), data, device='cpu')
+    no_aggr = tconfig.Config(model='gat', data=dummy_dir)
     with pytest.raises(ValueError, match='--aggr'):
-        tconfig.parse_args(['--model', 'gat'])
+        ConvModel(no_aggr.finalize(), data, device='cpu')
+    for name in ('gcn', 'graphsage', 'gat', 'gatv2'):
+        with pytest.raises(ValueError, match='--aggr'):
+            tconfig.parse_args(['--model', name])
+    with pytest.raises(NotImplementedError, match='not ported'):
+        tconfig.parse_args(['--model', 'ltr_linear'])
 
 
 def test_cli_trains_gat_and_jax_loads_it(tmp_path, monkeypatch, dummy_dir):

@@ -169,6 +169,7 @@ def test_graph_op_refuses_gradients(graph):
 
 def test_build_helper_names_sources_and_targets():
     assert cuda_build.sources() == ['gat_bwd.cu', 'gat_fwd.cu',
+                                    'gatv2_bwd.cu', 'gatv2_fwd.cu',
                                     'spmm_dropout.cu']
     path = cuda_build.library_path('spmm_dropout.cu')
     assert path.startswith(cuda_build.BUILD_DIR) and path.endswith('.so')

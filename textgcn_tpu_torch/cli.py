@@ -2,7 +2,8 @@
 
     python -m textgcn_tpu_torch --model lgcn --data D --epochs N \
         --evaluate_every M
-    python -m textgcn_tpu_torch --model gat --aggr mean --data D ...
+    python -m textgcn_tpu_torch --model gat|gatv2|gcn --aggr mean --data D ...
+    python -m textgcn_tpu_torch --model graphsage --aggr mean|sum|max ...
     python -m textgcn_tpu_torch --model lgcn --data D --no_train \
         --load runs/<data>/<uid> [--predict] [--export_reprs]
 

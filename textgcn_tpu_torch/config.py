@@ -35,7 +35,7 @@ MODEL_CHOICES = (
     'marcus', 'ltr_reviews', 'ltr_kg', 'ltr_simple', 'gcn', 'graphsage',
     'gat', 'gatv2',
 )
-PORTED_MODELS = ('lgcn', 'gat')
+PORTED_MODELS = ('lgcn', 'gcn', 'graphsage', 'gat', 'gatv2')
 CONV_MODELS = ('gcn', 'graphsage', 'gat', 'gatv2')
 
 LOGGER_NAME = 'textgcn_tpu_torch'

@@ -10,6 +10,7 @@ after one full-graph propagation with hash edge dropout;
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -54,8 +55,9 @@ class LightGCN(nn.Module):
             (0.1 * torch.randn(self.n_items, d, generator=generator,
                                device=generator.device)).to(self.device))
         g = data.graph
-        self.graph_op = GraphOp(g.edge_user, g.edge_item, g.edge_weight,
-                                self.n_users, self.n_items, self.device)
+        self.graph_op = GraphOp(g.edge_user, g.edge_item,
+                                self.graph_edge_weight(g), self.n_users,
+                                self.n_items, self.device)
         for name, value in (('pos_padded', data.pos_padded),
                             ('pos_degree', data.pos_degree)):
             self.register_buffer(name, torch.from_numpy(value).to(
@@ -63,6 +65,10 @@ class LightGCN(nn.Module):
         self.register_buffer(
             'pos_keys', positive_keys(self.pos_padded, self.n_items),
             persistent=False)
+
+    def graph_edge_weight(self, graph) -> np.ndarray:
+        """The edge weights of ``graph_op``: LightGCN's normalisation."""
+        return graph.edge_weight
 
     # --- parameters --------------------------------------------------------
 

@@ -121,6 +121,35 @@ def edge_dropout_scale(user_ids: torch.Tensor, item_ids: torch.Tensor,
         torch.float32)
 
 
+def _edges(csr: CSR):
+    """Per edge of ``csr``: destination row, source row and the (user,
+    item) pair the hash takes, int64."""
+    counts = (csr.rowptr[1:] - csr.rowptr[:-1]).to(torch.int64)
+    rows = torch.repeat_interleave(
+        torch.arange(csr.n_dst, device=csr.col.device), counts,
+        output_size=csr.n_edges)
+    col = csr.col.to(torch.int64)
+    user, item = (rows, col) if csr.dst_is_user else (col, rows)
+    return rows, col, user, item
+
+
+def edge_mask(csr: CSR, salt: int, keep: float):
+    """Per edge of ``csr``: destination row, source row (int64) and the
+    hash's {0, 1} keep mask as a bool."""
+    rows, col, user, item = _edges(csr)
+    return rows, col, edge_dropout_scale(user, item, salt, keep) > 0.0
+
+
+def kept_degree(csr: CSR, salt: int, keep: float) -> torch.Tensor:
+    """Each destination's number of edges the hash keeps, float32
+    ``(n_dst,)``: the mask-dependent degree of the conv layers."""
+    if keep >= 1.0:
+        return (csr.rowptr[1:] - csr.rowptr[:-1]).to(torch.float32)
+    rows, _, kept = edge_mask(csr, salt, keep)
+    deg = torch.zeros(csr.n_dst, dtype=torch.float32, device=csr.col.device)
+    return deg.index_add_(0, rows, kept.to(torch.float32))
+
+
 def _check_args(csr: CSR, x: torch.Tensor, salt: int, keep: float):
     if x.dim() != 2 or x.shape[0] != csr.n_src:
         raise ValueError(f'x must be ({csr.n_src}, d), got {tuple(x.shape)}')
@@ -140,12 +169,7 @@ def spmm_plain(csr: CSR, x: torch.Tensor, salt: int,
                keep: float) -> torch.Tensor:
     """The plain torch version of K1: hash, gather, scale, ``index_add_``."""
     _check_args(csr, x, salt, keep)
-    counts = (csr.rowptr[1:] - csr.rowptr[:-1]).to(torch.int64)
-    rows = torch.repeat_interleave(
-        torch.arange(csr.n_dst, device=x.device), counts,
-        output_size=csr.n_edges)
-    col = csr.col.to(torch.int64)
-    user, item = (rows, col) if csr.dst_is_user else (col, rows)
+    rows, col, user, item = _edges(csr)
     w = csr.w * edge_dropout_scale(user, item, salt, keep)
     out = torch.zeros((csr.n_dst, x.shape[1]), dtype=torch.float32,
                       device=x.device)

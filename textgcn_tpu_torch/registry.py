@@ -1,7 +1,8 @@
 """Model registry: name -> (dataset loader, model class).
 
-Counterpart of ``textgcn_tpu/registry.py``; ``lgcn`` and ``gat`` are
-ported.
+Counterpart of ``textgcn_tpu/registry.py``; ``lgcn`` (``LightGCN``) and
+the conv family ``gcn``, ``graphsage``, ``gat`` and ``gatv2``
+(``ConvModel``) are ported.
 """
 
 from __future__ import annotations

@@ -1,8 +1,9 @@
 """Checkpoints: the JAX package's pickle files, read and written.
 
 Counterpart of the pickle half of ``textgcn_tpu/train/checkpoint.py``.
-A checkpoint is ``{'params': {name: numpy array}, 'epoch', 'model'}``;
-given a run directory, ``best.pkl`` is read.  The unpickler admits numpy
+A checkpoint is ``{'params': {name: numpy array}, 'epoch', 'model'}``,
+the conv models' params with their ``convs`` list of per-layer dicts
+(``weights.py``); given a run directory, ``best.pkl`` is read.  The unpickler admits numpy
 arrays and plain Python values only, so a crafted file cannot run code.
 ``save_latest`` writes ``latest_checkpoint.pkl`` atomically and
 ``promote_best`` copies it to ``best.pkl``.  The orbax backend and the

@@ -5,8 +5,10 @@ exceed the real one: its TPU kernel pads them to a multiple of 4096
 (``textgcn_tpu/models/lightgcn.py:72-80``) and a mesh run to a multiple
 of the mesh size.  The phantom rows carry no edges and are never scored,
 so the port slices them off.  Conv models add ``convs``, a list with one
-dict of arrays per layer (``w`` shaped ``(d_in, d_out)``, ``a_src``,
-``a_dst``, ``b``), in the same layout in both packages.
+dict of arrays per layer, in the same layout in both packages (``w*``
+shaped ``(d_in, d_out)``, vectors ``(d,)``): ``gcn`` {``w``, ``b``},
+``graphsage`` {``w_nbr``, ``w_root``, ``b``}, ``gat`` {``w``, ``a_src``,
+``a_dst``, ``b``}, ``gatv2`` {``w_src``, ``w_dst``, ``a``, ``b``}.
 """
 
 from __future__ import annotations
