@@ -7,14 +7,23 @@ Phases, each of which passes or ends the run with a non-zero exit:
 
 1. device: CUDA must be available; prints the card's name and power limit;
 2. build: compiles every CUDA source of the port with nvcc (in parallel):
-   ``spmm_dropout.cu`` (K1), ``gat_fwd.cu`` (K3), ``gat_bwd.cu`` (K4),
-   ``gatv2_fwd.cu`` (K5), ``gatv2_bwd.cu`` (K6);
+   ``spmm_dropout.cu`` (K1), ``spmm_weighted.cu`` (K2), ``gat_fwd.cu``
+   (K3), ``gat_bwd.cu`` (K4), ``gatv2_fwd.cu`` (K5), ``gatv2_bwd.cu`` (K6);
 3. kernel: holds K1 (``spmm_dropout``) against its plain torch version on
    the S1 graph, both directions, keep 1.0 and 0.6 with a salt whose high
    bit is set, within atol = rtol = 1e-5 (the summation order is the only
    difference; one flipped mask bit is ~0.1), and times the kernel, the
    plain version and ``torch.sparse.mm`` (a yardstick the port never
    calls) with CUDA events;
+3b. K2 kernel: partitions each direction of the S1 graph by source range
+   into W = 1 and W = 4 shards on the one card, as the mesh path does
+   (``parallel.sharded_spmm.build_shard``), and holds K2
+   (``spmm_weighted``) against ``spmm_weighted_plain`` on every shard at
+   keep 1.0 and 0.6 (the hash mask multiplied into the weights), and the
+   sum of the four shards' outputs against K1 on the full CSR with the
+   same salt, all within atol = rtol = 1e-5; times K2 on one layer at W =
+   1 and per shard at W = 4, the plain version and ``torch.sparse.mm``
+   with the same weights (a yardstick the port never calls);
 4. gat kernel: holds K3 against ``gat_att_plain`` (atol = rtol = 1e-5) and
    K4 against ``gat_bwd_plain`` (atol = rtol = 1e-4: K4 sums dd with
    float atomics in a changing order, and its sums run over up to ~100
@@ -46,16 +55,26 @@ Phases, each of which passes or ends the run with a non-zero exit:
 9. train gcn, graphsage, gat, gatv2 (``--aggr mean``): the same; ``gcn``
    and ``graphsage`` run K1 on the unit-weight op (``steps x 12 + 6`` per
    eval), ``gat`` launches K3 ``steps x 6 + 6`` per eval and K4 ``steps x
-   6``, ``gatv2`` K5 and K6 the same;
+   6``, ``gatv2`` K5 and K6 the same; no single-card path launches K2;
+9b. mesh: ``lgcn --mesh 1x1`` trained through ``cli.main`` with the
+   ``lgcn`` phase's flags and seed (a one-rank NCCL group that the CLI
+   starts and destroys): K2 launches exactly ``steps x 12 + evals x 6`` and
+   K1 none, the loss sums equal phase 8's within 1e-5 relative and every
+   eval's metrics within 1e-6 (same batches and salts), and its
+   ``best.pkl`` serves through the non-mesh CLI with its epoch's metrics;
+   then ``--mesh 1x1 --no_train --load --predict`` in a group this script
+   starts serves S1 with 12 K2 launches and those metrics, and that
+   trainer is timed as in phase 10;
 10. timing: ms per training step and examples/s of each model at S1, split
    into sampling, forward, backward and Adam (host clock around
    synchronised work), the host's enqueue share of an unsynchronised run
    of steps, and the device's busy time per step from a ``torch.profiler``
    trace of 10 more.
 
-The line before the last is ``{"kernels": [...]}`` with each ported
-kernel's launches on the main paths, error, times and bound; the last
-line is ``{"ok": true, "device": {...}}``.
+A log line gives the bounds of the TPU lab kernels still to port, from
+their shapes (``lab_bounds``). The line before the last is ``{"kernels":
+[...]}`` with each ported kernel's launches on the main paths, error,
+times and bound; the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -241,6 +260,29 @@ def bound_ms(csr, d: int) -> tuple[float, str]:
             'bytes' if t_bytes >= t_ops else 'operations')
 
 
+def lab_bounds() -> dict[str, float]:
+    """The least time of each TPU lab kernel still to port, in ms, from
+    the shapes in its source (not measured; ``bound_ms``'s counting, f32,
+    every input read once and every output written once):
+
+    * L1 ``tools/kernel_lab.py:129``: one S1-shaped SpMM direction, E =
+      600,000 edges, x (25,000, 64), out (60,000, 64), packed ids and
+      weights one int32/f32 each an edge; 2 E d operations;
+    * L2 ``tools/gather_lab.py:85``: 600,064 ids gathering rows of a
+      (25,000, 64) table into a (600,064, 64) output;
+    * L3 ``tools/gather_lab.py:150``: 131,072 ids gathering rows of a
+      (25,000, 128) table into a (131,072, 128) output.
+    """
+    def ms(nbytes, ops=0):
+        return max(nbytes / PEAK_BYTES_PER_S, ops / PEAK_F32_FLOP_PER_S) * 1e3
+    e, n_src, n_dst, d = 600_000, 25_000, 60_000, 64
+    return {
+        'L1': ms(4 * (n_src * d + 2 * e + n_dst * d), 2 * e * d),
+        'L2': ms(4 * (600_064 + n_src * d + 600_064 * d)),
+        'L3': ms(4 * (131_072 + n_src * 128 + 131_072 * 128)),
+    }
+
+
 def kernel_phase(data, dev) -> dict:
     """K1 against spmm_plain on the S1 graph, then its times."""
     from textgcn_tpu_torch.ops.spmm import (GraphOp, spmm_dropout_cuda,
@@ -295,6 +337,117 @@ def kernel_phase(data, dev) -> dict:
     result['max_abs_err'] = max_err
     result['bound_by'] = 'bytes' if bytes_bound else 'operations'
     return result
+
+
+def k2_phase(data, dev) -> dict:
+    """K2 against spmm_weighted_plain on W = 1 and W = 4 source-range
+    shards of the S1 graph, the four shards' sum against K1, then times.
+
+    Returns one layer's (to_user + to_item) times and bound at W = 1, and
+    the same per shard at W = 4 (the mean over the four shards)."""
+    from textgcn_tpu_torch.ops.spmm import (GraphOp, edge_dropout_scale,
+                                            spmm_dropout_cuda,
+                                            spmm_weighted_cuda,
+                                            spmm_weighted_plain)
+    from textgcn_tpu_torch.parallel.sharded_spmm import build_shard
+    g = data.graph
+    op = GraphOp(g.edge_user, g.edge_item, g.edge_weight, data.n_users,
+                 data.n_items, dev)
+    gen = torch.Generator().manual_seed(4)
+    res = {'max_abs_err': 0.0, 'max_abs_err_vs_k1': 0.0, 'w1_equals_k1': True,
+           'ms': 0.0, 'plain_ms': 0.0, 'library_ms': 0.0, 'bound_ms': 0.0,
+           'ms_w4_per_shard': 0.0, 'plain_ms_w4_per_shard': 0.0,
+           'bound_ms_w4_per_shard': 0.0}
+    by = set()
+    for direction, full, src, dst, n_src, n_dst, dst_is_user in (
+            ('to_user', op.l_i2u, g.edge_item, g.edge_user, data.n_items,
+             data.n_users, True),
+            ('to_item', op.l_u2i, g.edge_user, g.edge_item, data.n_users,
+             data.n_items, False)):
+        for n_ranks in (1, 4):
+            n_src_p = -(-n_src // n_ranks) * n_ranks
+            n_dst_p = -(-n_dst // n_ranks) * n_ranks
+            x = torch.zeros(n_src_p, D)
+            x[:n_src] = torch.randn(n_src, D, generator=gen)
+            x = x.to(dev)
+            per = n_src_p // n_ranks
+            shards = [build_shard(src, dst, g.edge_weight, n_src_p, n_dst_p,
+                                  n_ranks, r, dst_is_user, dev)
+                      for r in range(n_ranks)]
+            weights = {}
+            for keep in (1.0, KEEP_DROPOUT):
+                total = torch.zeros(n_dst_p, D, device=dev)
+                for r, sh in enumerate(shards):
+                    w = sh.csr.w if keep >= 1.0 else sh.csr.w * \
+                        edge_dropout_scale(sh.users, sh.items, SALT, keep)
+                    weights[r, keep] = w
+                    xr = x[r * per:(r + 1) * per]
+                    got = spmm_weighted_cuda(sh.csr, w, xr)
+                    want = spmm_weighted_plain(sh.csr, w, xr)
+                    torch.cuda.synchronize()
+                    err = float((got - want).abs().max())
+                    res['max_abs_err'] = max(res['max_abs_err'], err)
+                    check(torch.allclose(got, want, atol=TOL, rtol=TOL),
+                          f'K2 {direction} W={n_ranks} shard {r} keep={keep}'
+                          f' disagrees with spmm_weighted_plain (max abs err '
+                          f'{err:.3e})')
+                    total += got
+                k1 = spmm_dropout_cuda(full, x[:n_src], SALT, keep)
+                torch.cuda.synchronize()
+                err_k1 = float((total[:n_dst] - k1).abs().max())
+                log(f'K2 {direction} W={n_ranks} keep={keep:.7g}: max_abs_err '
+                    f'vs plain {res["max_abs_err"]:.3e}, sum of shards vs K1 '
+                    f'{err_k1:.3e}')
+                check(torch.allclose(total[:n_dst], k1, atol=TOL, rtol=TOL)
+                      and not total[n_dst:].any(),
+                      f'K2 {direction} W={n_ranks} keep={keep}: the sum of '
+                      f'the shards disagrees with K1 ({err_k1:.3e})')
+                if n_ranks == 1:
+                    res['w1_equals_k1'] &= bool(torch.equal(total, k1))
+                else:
+                    res['max_abs_err_vs_k1'] = max(res['max_abs_err_vs_k1'],
+                                                   err_k1)
+            if n_ranks == 1:
+                csr, w = shards[0].csr, weights[0, 1.0]
+                with warnings.catch_warnings():   # "sparse CSR is in beta"
+                    warnings.simplefilter('ignore', UserWarning)
+                    lib = torch.sparse_csr_tensor(csr.rowptr, csr.col, w,
+                                                  size=(csr.n_dst, csr.n_src))
+                t = time_ms({'plain': lambda: spmm_weighted_plain(csr, w, x),
+                             'kernel': lambda: spmm_weighted_cuda(csr, w, x),
+                             'library': lambda: torch.sparse.mm(lib, x)},
+                            ['plain', 'kernel', 'library', 'library',
+                             'kernel', 'plain'])
+                b, b_by = bound_ms(csr, D)
+                by.add(b_by)
+                log(f'timing K2 {direction} W=1 (E={csr.n_edges}, '
+                    f'{csr.n_dst}x{csr.n_src}, d={D}): kernel '
+                    f'{t["kernel"]:.4f} ms, plain {t["plain"]:.4f} ms, '
+                    f'torch.sparse.mm {t["library"]:.4f} ms, bound '
+                    f'{b:.4f} ms ({b_by})')
+                res['ms'] += t['kernel']
+                res['plain_ms'] += t['plain']
+                res['library_ms'] += t['library']
+                res['bound_ms'] += b
+                continue
+            for r, sh in enumerate(shards):
+                xr, w = x[r * per:(r + 1) * per], weights[r, 1.0]
+                t = time_ms(
+                    {'kernel': lambda: spmm_weighted_cuda(sh.csr, w, xr),
+                     'plain': lambda: spmm_weighted_plain(sh.csr, w, xr)},
+                    ['plain', 'kernel', 'kernel', 'plain'])
+                b, _ = bound_ms(sh.csr, D)
+                log(f'timing K2 {direction} W=4 shard {r} (E='
+                    f'{sh.csr.n_edges}, {sh.csr.n_dst}x{sh.csr.n_src}): '
+                    f'kernel {t["kernel"]:.4f} ms, plain {t["plain"]:.4f} ms, '
+                    f'bound {b:.4f} ms')
+                res['ms_w4_per_shard'] += t['kernel'] / n_ranks
+                res['plain_ms_w4_per_shard'] += t['plain'] / n_ranks
+                res['bound_ms_w4_per_shard'] += b / n_ranks
+    log('clocks after timing (sm, max sm, power, temperature): '
+        + nvidia_smi('clocks.sm,clocks.max.sm,power.draw,temperature.gpu'))
+    res['bound_by'] = 'bytes' if by == {'bytes'} else 'operations'
+    return res
 
 
 def cli_run(data_dir: str, argv: list[str], platform: str):
@@ -669,6 +822,8 @@ def _wrappers():
     """``{kernel name: (module, wrapper attribute, plain attribute)}``."""
     from textgcn_tpu_torch.ops import gat, spmm
     return {'spmm_dropout': (spmm, 'spmm_dropout_cuda', 'spmm_plain'),
+            'spmm_weighted': (spmm, 'spmm_weighted_cuda',
+                              'spmm_weighted_plain'),
             'gat_fwd': (gat, 'gat_fwd_cuda', 'gat_att_plain'),
             'gat_bwd': (gat, 'gat_bwd_cuda', 'gat_bwd_plain'),
             'gatv2_fwd': (gat, 'gatv2_fwd_cuda', 'gatv2_att_plain'),
@@ -764,11 +919,14 @@ def expected_launches(model: str, steps: int, evals: int) -> dict[str, int]:
     """Each kernel's launches in ``steps`` training steps and ``evals``
     evaluations: a layer runs both directions once forward and, in a step,
     once backward.  K1 serves as its own backward; the attention kernels
-    have a backward kernel each."""
+    have a backward kernel each; on the mesh path (``lgcn_mesh``) K2 takes
+    K1's place."""
     per_pass = 2 * LAYERS
     want = dict.fromkeys(_wrappers(), 0)
     if model in ('lgcn', 'gcn', 'graphsage'):
         want['spmm_dropout'] = steps * 2 * per_pass + evals * per_pass
+    elif model == 'lgcn_mesh':
+        want['spmm_weighted'] = steps * 2 * per_pass + evals * per_pass
     else:
         want[f'{model}_fwd'] = steps * per_pass + evals * per_pass
         want[f'{model}_bwd'] = steps * per_pass
@@ -821,6 +979,82 @@ def train_phase(data_dir: str, model: str) -> dict:
         f'metrics: {json.dumps(served.last_metrics)}')
     return {'trainer': trainer, 'launches': launches, 'seconds': seconds,
             'step_err': step_vs_plain(trainer)}
+
+
+def mesh_phase(data_dir: str, single, card: str, trace_dir: str,
+               dev) -> dict:
+    """``lgcn --mesh 1x1`` trained through the CLI against the single-card
+    ``lgcn`` run ``single`` (phase 8), its ``best.pkl`` re-served through
+    the non-mesh CLI, then ``--mesh 1x1`` serving in a group started here,
+    and the timing of that trainer."""
+    import torch.distributed as dist
+
+    from textgcn_tpu_torch.parallel import multihost
+    flags = MODEL_FLAGS['lgcn']
+    common = ['--emb_size', str(D), '--n_layers', str(LAYERS),
+              '--batch_size', str(BATCH), '-k', *map(str, KS)]
+    argv = [*flags, '--epochs', str(TRAIN_EPOCHS), '--evaluate_every', '1',
+            '--dropout', '0.4', *common, '--uid', 'train-lgcn-mesh',
+            '--quiet', '--mesh', '1x1']
+    reset_counts()
+    t0 = time.perf_counter()
+    trainer, run_dir = cli_run(data_dir, argv, 'cuda')
+    seconds = time.perf_counter() - t0
+    launches = counts()
+    check(not dist.is_initialized(),
+          'the CLI left its process group behind')
+    steps = trainer.model.num_batches(BATCH)
+    want = expected_launches('lgcn_mesh', steps * TRAIN_EPOCHS, TRAIN_EPOCHS)
+    log(f'mesh lgcn 1x1: cli.main took {seconds:.3f} s; launches {launches}')
+    check(launches == want, f'mesh lgcn: launches {launches}, expected '
+          f'{want}')
+    got = [h['loss'] for h in trainer.loss_history]
+    ref = [h['loss'] for h in single.loss_history]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(got, ref))
+    log(f'mesh lgcn: loss sums {got} vs single card {ref} (largest relative '
+        f'difference {rel:.3e})')
+    check(len(got) == len(ref) and rel <= TOL,
+          f'mesh lgcn loss sums {got} vs single card {ref}')
+    rows = trainer.metrics_logger
+    for name, v in rows.items():
+        check(np.allclose(v, single.metrics_logger[name], atol=1e-6, rtol=0),
+              f'mesh lgcn {name} by eval {v.tolist()} vs single card '
+              f'{single.metrics_logger[name].tolist()}')
+    best = best_row(rows['recall'][:, 0])
+    served, _ = serve(data_dir, 'best-lgcn-mesh',
+                      ['--load', run_dir, *common], 'cuda', model=flags)
+    for name, v in served.last_metrics.items():
+        check(np.allclose(v, rows[name][best], atol=1e-6, rtol=0),
+              f'mesh best.pkl serves {name} {v} through the non-mesh CLI, '
+              f'its epoch {best + 1} measured {rows[name][best]}')
+    log(f'mesh lgcn: metrics equal the single card run\'s at every eval; '
+        f'best.pkl (epoch {best + 1}) serves them through the non-mesh CLI')
+
+    created = multihost.maybe_initialize(multihost.local_device(dev.type))
+    try:
+        reset_counts()
+        mesh_served, serve_dir = serve(
+            data_dir, 'serve-lgcn-mesh',
+            ['--load', run_dir, '--predict', *common, '--mesh', '1x1'],
+            'cuda', model=flags)
+        serve_launches = counts()
+        want = expected_launches('lgcn_mesh', 0, 2)
+        check(serve_launches == want, f'mesh serving launched '
+              f'{serve_launches}, expected {want}')
+        for name, v in mesh_served.last_metrics.items():
+            check(np.allclose(v, rows[name][best], atol=1e-6, rtol=0),
+                  f'mesh serving {name} {v} vs {rows[name][best]}')
+        preds = read_predictions(os.path.join(serve_dir, 'predictions.tsv'))
+        check(len(preds) == S1_USERS
+              and all(len(p[1]) == max(KS) for p in preds),
+              'mesh predictions.tsv: one row of top-40 per user')
+        log(f'mesh serve 1x1: launches {serve_launches}, metrics as trained')
+        timing = timing_phase(mesh_served, card, trace_dir)
+    finally:
+        if created:
+            dist.destroy_process_group()
+    return {'launches': launches, 'serve_launches': serve_launches,
+            'seconds': seconds, 'timing': timing}
 
 
 def device_ms_per_step(trainer, batches, trace_dir: str) -> tuple:
@@ -966,6 +1200,10 @@ def main():
         k1 = kernel_phase(data, dev)
         log(f'phase kernel: {time.perf_counter() - t:.3f} s')
 
+        t = time.perf_counter()
+        k2 = k2_phase(data, dev)
+        log(f'phase K2 kernel: {time.perf_counter() - t:.3f} s')
+
         att = {}
         for conv in ('gat', 'gatv2'):
             t = time.perf_counter()
@@ -985,6 +1223,11 @@ def main():
             t = time.perf_counter()
             trained[model] = train_phase(data_dir, model)
             log(f'phase train {model}: {time.perf_counter() - t:.3f} s')
+        t = time.perf_counter()
+        mesh = mesh_phase(data_dir, trained['lgcn']['trainer'], card, root,
+                          dev)
+        timing['lgcn_mesh'] = mesh['timing']
+        log(f'phase mesh: {time.perf_counter() - t:.3f} s')
         for model in MODEL_FLAGS:
             t = time.perf_counter()
             timing[model] = timing_phase(trained[model].pop('trainer'), card,
@@ -996,6 +1239,10 @@ def main():
     by_path.update({f'train_{m}': {k: n for k, n in r['launches'].items()
                                    if n}
                     for m, r in trained.items()})
+    by_path['train_lgcn_mesh'] = {'spmm_weighted':
+                                  mesh['launches']['spmm_weighted']}
+    by_path['serve_lgcn_mesh'] = {'spmm_weighted':
+                                  mesh['serve_launches']['spmm_weighted']}
 
     def launch_fields(name, model):
         paths = {p: c[name] for p, c in by_path.items() if name in c}
@@ -1021,6 +1268,28 @@ def main():
         'bound_ms': k1['bound_ms'],
         'bound_by': k1['bound_by'],
         'library_ms': k1['library_ms'],
+    }, {
+        'name': 'spmm_weighted',
+        'route': 'cuda',
+        'source': 'textgcn_tpu_torch/csrc/spmm_weighted.cu',
+        'replaces': 'textgcn_tpu/ops/pallas_spmm.py:61',
+        # train and serve lgcn --mesh 1x1 (forward and backward)
+        **launch_fields('spmm_weighted', 'lgcn_mesh'),
+        'max_abs_err': k2['max_abs_err'],
+        'max_abs_err_4_shards_vs_k1': k2['max_abs_err_vs_k1'],
+        'w1_bitwise_equals_k1': k2['w1_equals_k1'],
+        # times and bound: one layer (to_user + to_item) on S1, d = 64, at
+        # W = 1; the *_w4_per_shard keys: one layer of one shard at W = 4
+        # (mean over the four), which reads a quarter of the edges and
+        # writes the whole padded destination range
+        'ms': k2['ms'],
+        'plain_ms': k2['plain_ms'],
+        'bound_ms': k2['bound_ms'],
+        'bound_by': k2['bound_by'],
+        'library_ms': k2['library_ms'],
+        'ms_w4_per_shard': k2['ms_w4_per_shard'],
+        'plain_ms_w4_per_shard': k2['plain_ms_w4_per_shard'],
+        'bound_ms_w4_per_shard': k2['bound_ms_w4_per_shard'],
     }]
     for name, line in (('gat_fwd', 201), ('gat_bwd', 293),
                        ('gatv2_fwd', 647), ('gatv2_bwd', 715)):
@@ -1049,9 +1318,11 @@ def main():
                  'host_enqueue_share': timing[m]['host_enqueue_share'],
                  'device_ms_per_step': timing[m]['device'],
                  'device_busy_share': timing[m]['device_busy_share'],
-                 'step_vs_plain_max_abs_err': trained[m]['step_err']}
+                 'step_vs_plain_max_abs_err': trained.get(m, {}).get(
+                     'step_err')}
              for m in timing}
     log(json.dumps({'training_at_s1': steps, 'card': card}))
+    log(json.dumps({'lab_kernel_bounds_ms_from_the_code': lab_bounds()}))
     print(json.dumps({'kernels': kernels}), flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -81,6 +81,20 @@ def test_every_module_imports_without_jax_or_pandas():
     assert out.stdout.strip() == 'ok'
 
 
+def test_the_mesh_path_imports_without_jax():
+    """``textgcn_tpu_torch.parallel`` (the mesh path) and the modules it
+    reaches, in an interpreter where the JAX package cannot be imported."""
+    block = '; '.join(f"sys.modules[{m!r}] = None" for m in FORBIDDEN)
+    code = (f'import sys; {block}; sys.path.insert(0, {REPO!r}); '
+            'import textgcn_tpu_torch.parallel as p; '
+            'from textgcn_tpu_torch.parallel import multihost, sharded, '
+            'sharded_spmm; print(sorted(p.__all__))')
+    out = subprocess.run([sys.executable, '-c', code], capture_output=True,
+                         text=True, timeout=120, cwd=REPO)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "['Mesh', 'make_mesh', 'shard_model']"
+
+
 def test_chip_smoke_refuses_to_run_without_cuda(tmp_path):
     """No card: a non-zero exit and no result line, from the checkout and
     from a directory holding chip_smoke.py alone."""

@@ -8,11 +8,14 @@ LightGCN, GCN and GraphSAGE mean|sum, forward and backward;
 ``csrc/gat_fwd.cu``/``gat_bwd.cu`` for GAT's attention and
 ``csrc/gatv2_fwd.cu``/``gatv2_bwd.cu`` for GATv2's; GraphSAGE max is a
 plain segment max), take Adam steps, evaluate, checkpoint in the JAX
-package's pickle format, and serve the top-k with ``predictions.tsv``.  Module names mirror the JAX
-package so every counterpart is found by name.
+package's pickle format, and serve the top-k with ``predictions.tsv``.
+``lgcn`` also runs row-sharded over ``torch.distributed`` ranks, one per
+GPU (``--mesh``, ``parallel/``), each rank's propagation on
+``csrc/spmm_weighted.cu``.  Module names mirror the JAX package so every
+counterpart is found by name.
 
 Imports torch, numpy and the standard library only: never ``jax`` and
 never the JAX package.
 """
 
-__version__ = '0.3.0'
+__version__ = '0.4.0'

@@ -9,8 +9,9 @@ Knobs that exist for the TPU:
 
 * ``--no_pallas`` and ``--steps_per_call`` are accepted and ignored: the
   port has one kernel per function and no device-call relay to bound.
-* ``--mesh`` and ``--approx_topk`` are refused when set: the port runs
-  on one card with an exact top-k.
+* ``--mesh DATAxMODEL|auto`` runs ``lgcn`` over ``torch.distributed``
+  ranks, one per GPU (``parallel/``); the other models refuse it.
+  ``--approx_topk`` is refused when set: the port serves an exact top-k.
 * ``--refresh_every`` (cached propagation) is refused when non-zero: not
   ported yet.
 
@@ -128,6 +129,20 @@ class Config:
             cfg.evaluate_every = cfg.epochs
         return cfg
 
+    @property
+    def mesh_shape(self) -> tuple[int, int]:
+        """``--mesh AxB`` as ``(data, model)`` sizes; ``(0, 0)`` for
+        ``auto`` (the shape is derived from the number of ranks, see
+        ``parallel.mesh.auto_shape``) and when no mesh is asked for."""
+        if not self.mesh or self.mesh.lower() == 'auto':
+            return (0, 0)
+        parts = self.mesh.lower().split('x')
+        if len(parts) != 2 or not all(p.isdigit() and int(p) > 0
+                                      for p in parts):
+            raise ValueError(f'--mesh must be DATAxMODEL with positive '
+                             f'sizes, or auto; got {self.mesh!r}')
+        return (int(parts[0]), int(parts[1]))
+
     def validate(self) -> None:
         if self.model not in MODEL_CHOICES:
             raise ValueError(f'unknown model {self.model!r}')
@@ -153,7 +168,11 @@ class Config:
             raise NotImplementedError(
                 '--refresh_every (cached propagation) is not ported yet')
         if self.mesh:
-            raise NotImplementedError('--mesh (multi-GPU) is not ported yet')
+            if self.model != 'lgcn':
+                raise NotImplementedError(
+                    f'--mesh for {self.model!r} is not ported yet (ported: '
+                    'lgcn)')
+            self.mesh_shape  # raises on a malformed shape
         if self.approx_topk:
             raise NotImplementedError(
                 '--approx_topk is not ported yet: the port serves exact '
@@ -214,7 +233,8 @@ def build_argparser() -> argparse.ArgumentParser:
                    choices=['debug', 'info', 'warn', 'error'])
     p.add_argument('--slurm', action='store_true')
     p.add_argument('--mesh', type=str, default=d.mesh,
-                   help='not ported yet: refused when set')
+                   help='DATAxMODEL or auto: lgcn over torch.distributed '
+                        'ranks, one per GPU (torchrun for more than one)')
     p.add_argument('--no_pallas', action='store_true',
                    help='accepted and ignored (TPU kernel switch)')
     p.add_argument('--ckpt_backend', default=d.ckpt_backend,
@@ -281,13 +301,14 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
-def get_logger(cfg: Config) -> logging.Logger:
+def get_logger(cfg: Config, primary: bool = True) -> logging.Logger:
     """File + stream logger: ``log.log`` (mode='w') in the run directory,
-    mirrored to stderr, in the JAX package's format."""
-    os.makedirs(cfg.save_path, exist_ok=True)
+    mirrored to stderr, in the JAX package's format.  A rank other than
+    the primary one of a mesh run writes no file and logs errors only."""
     level_map = {'debug': logging.DEBUG, 'info': logging.INFO,
                  'warn': logging.WARNING, 'error': logging.ERROR}
-    level = logging.ERROR if cfg.quiet else level_map[cfg.logging_level]
+    level = logging.ERROR if cfg.quiet or not primary \
+        else level_map[cfg.logging_level]
     logger = logging.getLogger(LOGGER_NAME)
     logger.setLevel(level)
     for h in list(logger.handlers):
@@ -295,11 +316,13 @@ def get_logger(cfg: Config) -> logging.Logger:
     logger.handlers.clear()
     fmt = logging.Formatter('%(asctime)-10s - %(levelname)s: %(message)s',
                             datefmt='%d/%m/%y %H:%M')
-    fh = logging.FileHandler(os.path.join(cfg.save_path, 'log.log'), mode='w')
-    fh.setFormatter(fmt)
-    sh = logging.StreamHandler()
-    sh.setFormatter(fmt)
-    logger.addHandler(fh)
-    logger.addHandler(sh)
+    handlers = [logging.StreamHandler()]
+    if primary:
+        os.makedirs(cfg.save_path, exist_ok=True)
+        handlers.append(logging.FileHandler(
+            os.path.join(cfg.save_path, 'log.log'), mode='w'))
+    for h in handlers:
+        h.setFormatter(fmt)
+        logger.addHandler(h)
     logger.propagate = False
     return logger

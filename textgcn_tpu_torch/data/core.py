@@ -17,6 +17,7 @@ numpy (no pandas).  The semantics are the JAX package's, field by field:
 from __future__ import annotations
 
 import csv
+import dataclasses
 import logging
 import os
 from dataclasses import dataclass
@@ -56,6 +57,22 @@ class InteractionData:
     true_test: list[list[int]]      # per test user, its test item ids
     user_id_map: dict[int, str]     # internal -> external id
     item_id_map: dict[int, str]
+    # table sizes rounded up for row-sharded tables on a mesh: phantom rows
+    # have no edges, are never sampled and are never scored (the real
+    # counts when there is no mesh)
+    n_users_padded: int = 0
+    n_items_padded: int = 0
+
+    def __post_init__(self):
+        self.n_users_padded = self.n_users_padded or self.n_users
+        self.n_items_padded = self.n_items_padded or self.n_items
+
+    def padded_to(self, multiple: int) -> 'InteractionData':
+        """A copy whose table sizes are rounded up to ``multiple`` (the
+        number of ranks the tables are row-sharded over)."""
+        return dataclasses.replace(
+            self, n_users_padded=-(-self.n_users // multiple) * multiple,
+            n_items_padded=-(-self.n_items // multiple) * multiple)
 
 
 def _read_interactions(path: str) -> list[tuple[str, str]]:

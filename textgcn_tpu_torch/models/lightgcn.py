@@ -6,6 +6,14 @@ rows for its TPU kernel, the port does not (``weights.params_from_jax``
 slices a padded checkpoint).  ``loss`` is the BPR + L2 loss of one batch
 after one full-graph propagation with hash edge dropout;
 ``sample_batches`` draws an epoch of batches on the device.
+
+On a mesh (``parallel.mesh.shard_model``) ``mesh`` is set, the tables
+hold this rank's rows of the zero-padded tables and ``graph_op`` is a
+``MeshGraphOp``.  Every rank draws the same epochs; ``loss`` takes this
+rank's part of each batch, gathers the rows it needs from all ranks and
+divides by the whole batch, so the ranks' losses sum to the single-card
+loss and the gradient of each rank's rows is the single-card gradient of
+those rows.  Scoring runs the catalogue-sharded top-k.
 """
 
 from __future__ import annotations
@@ -21,6 +29,7 @@ from ..ops.retrieval import score_and_topk
 from ..ops.sampling import (batch_epoch, num_batches, positive_keys,
                             sample_epoch)
 from ..ops.spmm import GraphOp
+from ..parallel.sharded import all_gather_rows, sharded_topk
 from .losses import bpr_loss, reg_loss
 
 
@@ -54,10 +63,11 @@ class LightGCN(nn.Module):
         self.item_emb = nn.Parameter(
             (0.1 * torch.randn(self.n_items, d, generator=generator,
                                device=generator.device)).to(self.device))
-        g = data.graph
-        self.graph_op = GraphOp(g.edge_user, g.edge_item,
-                                self.graph_edge_weight(g), self.n_users,
-                                self.n_items, self.device)
+        # the single-card op is built at first use: shard_model replaces
+        # it on a mesh before any, so it is never built there
+        self._graph = data.graph
+        self._graph_op = None
+        self.mesh = None
         for name, value in (('pos_padded', data.pos_padded),
                             ('pos_degree', data.pos_degree)):
             self.register_buffer(name, torch.from_numpy(value).to(
@@ -70,23 +80,51 @@ class LightGCN(nn.Module):
         """The edge weights of ``graph_op``: LightGCN's normalisation."""
         return graph.edge_weight
 
+    @property
+    def graph_op(self):
+        if self._graph_op is None:
+            g = self._graph
+            self._graph_op = GraphOp(g.edge_user, g.edge_item,
+                                     self.graph_edge_weight(g), self.n_users,
+                                     self.n_items, self.device)
+        return self._graph_op
+
+    @graph_op.setter
+    def graph_op(self, op):
+        self._graph_op = op
+
+    def gathered(self, table: torch.Tensor, n: int) -> torch.Tensor:
+        """The first ``n`` rows of a whole table: on a mesh gathered from
+        every rank's rows (a collective), else ``table`` itself."""
+        if self.mesh is None:
+            return table
+        return all_gather_rows(table, self.mesh)[:n]
+
     # --- parameters --------------------------------------------------------
 
     def param_tree(self) -> dict:
-        """The parameters in the JAX package's tree."""
-        return {'user_emb': self.user_emb, 'item_emb': self.item_emb}
+        """The parameters in the JAX package's tree (on a mesh, the whole
+        real tables: every rank must call it)."""
+        return {'user_emb': self.gathered(self.user_emb, self.n_users),
+                'item_emb': self.gathered(self.item_emb, self.n_items)}
 
     @torch.no_grad()
     def load_params(self, params: dict):
         """Copy loaded ``(n_users, d)``/``(n_items, d)`` tables in (other
-        keys of ``params`` are the subclasses')."""
-        for param, name in ((self.user_emb, 'user_emb'),
-                            (self.item_emb, 'item_emb')):
+        keys of ``params`` are the subclasses'); on a mesh, this rank's
+        rows of them, zero-padded."""
+        for param, name, n in ((self.user_emb, 'user_emb', self.n_users),
+                               (self.item_emb, 'item_emb', self.n_items)):
             value = params[name]
-            if tuple(value.shape) != tuple(param.shape):
+            if tuple(value.shape) != (n, param.shape[1]):
                 raise ValueError(f'{name}: checkpoint table '
                                  f'{tuple(value.shape)} does not fit '
-                                 f'{tuple(param.shape)}')
+                                 f'{(n, param.shape[1])}')
+            if self.mesh is not None:
+                n_padded = param.shape[0] * self.mesh.size
+                padded = value.new_zeros((n_padded, param.shape[1]))
+                padded[:n] = value
+                value = padded[self.mesh.rows(n_padded)]
             param.copy_(value)
 
     # --- representation ----------------------------------------------------
@@ -105,14 +143,26 @@ class LightGCN(nn.Module):
 
     # --- scoring -----------------------------------------------------------
 
+    def scoring_reprs(self):
+        """The propagated tables as ``topk_for_users`` takes them: on a
+        mesh the whole user table (one gather) and this rank's items."""
+        users_repr, items_repr = self.representation()
+        return self.gathered(users_repr, self.n_users), items_repr
+
     def score_batchwise(self, reprs, users: torch.Tensor) -> torch.Tensor:
         """(B, n_items) scores of a user batch against the catalogue."""
         users_repr, items_repr = reprs
         return users_repr[users] @ items_repr.T
 
     def topk_for_users(self, reprs, batch_users: torch.Tensor, k: int):
-        """Train-masked full-catalogue top-k for a batch of users."""
+        """Train-masked full-catalogue top-k for a batch of users, from
+        ``scoring_reprs``; on a mesh catalogue-sharded and the same on
+        every rank."""
         users_repr, items_repr = reprs
+        if self.mesh is not None:
+            return sharded_topk(self.mesh, users_repr[batch_users],
+                                items_repr, self.pos_padded[batch_users], k,
+                                self.n_items)
         return score_and_topk(users_repr[batch_users], items_repr,
                               self.pos_padded[batch_users], k=k,
                               n_items=self.n_items)
@@ -123,17 +173,29 @@ class LightGCN(nn.Module):
              w_pairs=None):
         """``(loss, {'bpr', 'reg'})`` of one batch ``(users, pos, negs[,
         mask])``: one full-graph propagation with edge dropout, BPR over
-        ``selu(neg - pos)`` and L2 on the layer-0 rows."""
+        ``selu(neg - pos)`` and L2 on the layer-0 rows.  On a mesh, this
+        rank's share of the batch's loss (see the module docstring)."""
         users, pos, negs = batch[:3]
         mask = batch[3] if len(batch) > 3 else None
         users_repr, items_repr = self.representation(
             training=True, generator=generator, w_pairs=w_pairs)
+        tables = (users_repr, items_repr, self.user_emb, self.item_emb)
+        count = None
+        if self.mesh is not None:
+            if mask is not None:
+                raise ValueError('a mesh step takes ragged batches, not '
+                                 'masked ones')
+            count = users.shape[0]
+            users, pos, negs = (t.tensor_split(self.mesh.size)[self.mesh.rank]
+                                for t in (users, pos, negs))
+            tables = tuple(all_gather_rows(t, self.mesh) for t in tables)
+        users_repr, items_repr, user_emb, item_emb = tables
         u = users_repr[users]
         pos_scores = (u * items_repr[pos]).sum(dim=-1)
         neg_scores = (u[:, None, :] * items_repr[negs]).sum(dim=-1)
-        l_bpr = bpr_loss(pos_scores, neg_scores, mask)
-        l_reg = reg_loss(self.user_emb, self.item_emb, users, pos, negs,
-                         self.reg_lambda, mask)
+        l_bpr = bpr_loss(pos_scores, neg_scores, mask, count)
+        l_reg = reg_loss(user_emb, item_emb, users, pos, negs,
+                         self.reg_lambda, mask, count)
         return l_bpr + l_reg, {'bpr': l_bpr, 'reg': l_reg}
 
     # --- epoch sampling -----------------------------------------------------

@@ -1,8 +1,9 @@
-"""Bipartite SpMM with fused hash edge dropout: kernel K1 and its plain twin.
+"""Bipartite SpMM: kernels K1 (hash edge dropout fused) and K2 (weights
+given per call), with their plain twins.
 
 Counterpart of ``textgcn_tpu/ops/pallas_spmm.py`` (``TiledSpMM``,
-``PallasGraphOp``, ``edge_dropout_scale``, ``hash_dropout_salts``).  One
-propagation direction computes
+``PallasGraphOp``, ``pallas_spmm``, ``edge_dropout_scale``,
+``hash_dropout_salts``).  One propagation direction computes
 
     out[dst] = sum_e w_e * s_e * x[src_e]
 
@@ -21,6 +22,12 @@ direction is one destination-sorted CSR over the real rows.
   on-card comparison use it.
 * ``spmm`` picks by the tensor's device: the plain version for a CPU
   tensor, the kernel for a CUDA tensor; there is no fallback between them.
+* ``spmm_weighted_cuda`` launches K2 (``csrc/spmm_weighted.cu``):
+  ``out[dst] = sum_e w_e * x[src_e]`` with the caller's per-edge weights
+  ``w`` in CSR order, as ``pallas_spmm(..., w, x)`` takes them; the mesh
+  path (``parallel/sharded_spmm.py``) runs it on a rank's shard.
+  ``spmm_weighted_plain`` is its plain version and ``spmm_weighted`` picks
+  between them by device, as ``spmm`` does.
 * ``GraphOp.to_user``/``to_item`` are differentiable: the gradient of one
   direction is the other direction's CSR run on the cotangent with the
   forward's ``(salt, keep)`` (``_pgs_bwd`` in ``pallas_spmm.py``), so the
@@ -43,6 +50,7 @@ _F1 = 0x7FEB352D
 _F2 = 0x846CA68B
 _U32 = 0xFFFFFFFF
 KERNEL_SOURCE = 'spmm_dropout.cu'
+WEIGHTED_SOURCE = 'spmm_weighted.cu'
 
 
 @dataclass(frozen=True)
@@ -232,6 +240,86 @@ def spmm(csr: CSR, x: torch.Tensor, salt: int, keep: float) -> torch.Tensor:
         return spmm_plain(csr, x, salt, keep)
     if x.device.type == 'cuda':
         return spmm_dropout_cuda(csr, x, salt, keep)
+    raise ValueError(f'no SpMM for device {x.device}')
+
+
+def _check_weighted_args(csr: CSR, w: torch.Tensor, x: torch.Tensor):
+    _check_args(csr, x, 0, 1.0)
+    if w.shape != (csr.n_edges,) or w.dtype != torch.float32:
+        raise ValueError(f'w must be float32 ({csr.n_edges},), got '
+                         f'{w.dtype} {tuple(w.shape)}')
+    if w.device != x.device:
+        raise ValueError(f'w on {w.device}, x on {x.device}')
+
+
+def spmm_weighted_plain(csr: CSR, w: torch.Tensor,
+                        x: torch.Tensor) -> torch.Tensor:
+    """The plain torch version of K2: gather, scale by ``w``,
+    ``index_add_``."""
+    _check_weighted_args(csr, w, x)
+    rows, col, _, _ = _edges(csr)
+    out = torch.zeros((csr.n_dst, x.shape[1]), dtype=torch.float32,
+                      device=x.device)
+    return out.index_add_(0, rows, x[col] * w[:, None])
+
+
+@functools.cache
+def _weighted_fn():
+    """K2's C entry point, built and bound at first use."""
+    from .. import cuda_build
+    fn = cuda_build.load(WEIGHTED_SOURCE).spmm_weighted_f32
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, vp]
+    fn.restype = ci
+    return fn
+
+
+def spmm_weighted_cuda(csr: CSR, w: torch.Tensor,
+                       x: torch.Tensor) -> torch.Tensor:
+    """Launch K2 on PyTorch's current stream; ``out`` is allocated here.
+
+    ``w`` holds one float32 weight per edge of ``csr``, in CSR order
+    (``csr.w`` is not read).  Raises on anything the kernel does not take,
+    as ``spmm_dropout_cuda`` does.
+    """
+    _check_weighted_args(csr, w, x)
+    if x.device.type != 'cuda':
+        raise ValueError(f'spmm_weighted_cuda needs CUDA tensors, x is on '
+                         f'{x.device}')
+    d = x.shape[1]
+    if d == 0 or d % 2:
+        raise ValueError(f'the kernel takes an even d > 0, got d={d}')
+    if not x.is_contiguous() or x.data_ptr() % 8:
+        raise ValueError('x must be contiguous and 8-byte aligned')
+    if not w.is_contiguous():
+        raise ValueError('w must be contiguous')
+    if (csr.rowptr.dtype, csr.col.dtype) != (torch.int32, torch.int32):
+        raise TypeError('CSR must be int32 rowptr/col')
+    out = torch.empty((csr.n_dst, d), dtype=torch.float32, device=x.device)
+    if csr.n_dst == 0:
+        return out
+    fn = _weighted_fn()
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    rc = fn(csr.rowptr.data_ptr(), csr.col.data_ptr(), w.data_ptr(),
+            x.data_ptr(), out.data_ptr(), csr.n_dst, d, x.device.index or 0,
+            stream)
+    if rc:
+        raise RuntimeError(f'spmm_weighted kernel launch failed: CUDA error '
+                           f'{rc}')
+    spmm_weighted_cuda.launches += 1
+    return out
+
+
+spmm_weighted_cuda.launches = 0
+
+
+def spmm_weighted(csr: CSR, w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """One direction with the caller's weights: the plain version for a CPU
+    tensor, K2 for a CUDA tensor."""
+    if x.device.type == 'cpu':
+        return spmm_weighted_plain(csr, w, x)
+    if x.device.type == 'cuda':
+        return spmm_weighted_cuda(csr, w, x)
     raise ValueError(f'no SpMM for device {x.device}')
 
 

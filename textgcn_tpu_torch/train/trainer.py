@@ -24,9 +24,18 @@ Counterpart of ``textgcn_tpu/train/trainer.py`` on one device:
 * ``export_reprs``: the propagated tables as ``.npy``.
 
 Each ``evaluate``/``predict``/``export_reprs`` call propagates once, as
-the JAX package's eval function does.  Not ported yet: ``--resume`` (its
-``resume_state.pkl``), the SIGTERM stop, cached propagation
-(``--refresh_every``) and ``--steps_per_call``.
+the JAX package's eval function does.
+
+On a mesh (``model.mesh``) every rank runs the same loop: the same epochs
+and salts from the same seeds, its part of each batch (``model.loss``),
+Adam on its rows (elementwise, so it is the global Adam), the loss sums
+all-reduced once an epoch, the catalogue-sharded top-k.  Every rank
+computes the metrics; logs, ``predictions.tsv``, exports and checkpoints
+come from rank 0 only, after the collectives that gather the tables
+(``trainer.py:244, 407, 499, 527, 577`` in the JAX package).
+
+Not ported yet: ``--resume`` (its ``resume_state.pkl``), the SIGTERM
+stop, cached propagation (``--refresh_every``) and ``--steps_per_call``.
 """
 
 from __future__ import annotations
@@ -42,6 +51,8 @@ import torch
 from ..config import Config
 from ..data.core import InteractionData
 from ..ops import metrics as metrics_mod
+from ..parallel.multihost import is_primary
+from ..parallel.sharded import all_reduce_sum
 from ..weights import params_from_jax, params_to_jax
 from .checkpoint import make_checkpointer
 
@@ -72,6 +83,7 @@ class Trainer:
             cfg.seed)
         self.salt_generator = torch.Generator().manual_seed(cfg.seed + 1)
         self._checkpointer = make_checkpointer(cfg.ckpt_backend)
+        self.primary = is_primary()
         # the epoch whose metrics row describes the params as they are
         # now: best.pkl is promoted only from a checkpoint at that epoch
         self._last_eval_epoch: int | None = None
@@ -104,6 +116,10 @@ class Trainer:
                 comps[c].append(aux[c])
         sums = {c: torch.stack(v).sum() for c, v in comps.items()}
         sums['loss'] = torch.stack(losses).sum()
+        if model.mesh is not None:
+            # each rank's losses are its share of each batch's
+            summed = all_reduce_sum(torch.stack(list(sums.values())))
+            sums = dict(zip(sums, summed))
         return sums
 
     def _finish_epoch(self, epoch: int, sums) -> dict[str, float]:
@@ -155,6 +171,8 @@ class Trainer:
             return
         state = {'params': params_to_jax(self.model.param_tree()),
                  'epoch': epoch, 'model': self.cfg.model}
+        if not self.primary:
+            return
         self._checkpointer.save_latest(self.cfg.save_path, state)
         first = self.metrics_logger[self.metrics_names[0]]
         if len(first) and first[:, 0].max() == first[-1][0] \
@@ -189,7 +207,7 @@ class Trainer:
                                 device=self.model.device)
         vals, idx = [], []
         with torch.no_grad():
-            reprs = self.model.representation()
+            reprs = self.model.scoring_reprs()
             for start in range(0, len(users), bs):
                 v, i = self.model.topk_for_users(
                     reprs, users[start:start + bs], max_k)
@@ -208,7 +226,7 @@ class Trainer:
         idx, vals = self._predict_users(users)
         predictions = idx.tolist()
         scores = np.round(vals, 4).tolist()
-        if save:
+        if save and self.primary:
             item_ids, user_ids = self.data.item_id_map, self.data.user_id_map
             os.makedirs(self.cfg.save_path, exist_ok=True)
             out = os.path.join(self.cfg.save_path, 'predictions.tsv')
@@ -227,14 +245,18 @@ class Trainer:
     def export_reprs(self) -> dict[str, str]:
         """Write the eval-mode propagated tables as ``users_repr.npy`` and
         ``items_repr.npy`` in the run directory; returns {name: path}."""
+        model = self.model
         with torch.no_grad():
-            users_repr, items_repr = self.model.representation()
-        os.makedirs(self.cfg.save_path, exist_ok=True)
+            users_repr, items_repr = model.representation()
+            users_repr = model.gathered(users_repr, model.n_users)
+            items_repr = model.gathered(items_repr, model.n_items)
         paths = {}
         for name, arr in (('users_repr', users_repr),
                           ('items_repr', items_repr)):
             path = os.path.join(self.cfg.save_path, f'{name}.npy')
-            np.save(path, arr.cpu().numpy())
+            if self.primary:
+                os.makedirs(self.cfg.save_path, exist_ok=True)
+                np.save(path, arr.cpu().numpy())
             paths[name] = path
         log.info('Exported representations to %s: items_repr, users_repr',
                  self.cfg.save_path)
