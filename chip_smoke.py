@@ -8,7 +8,8 @@ Phases, each of which passes or ends the run with a non-zero exit:
 1. device: CUDA must be available; prints the card's name and power limit;
 2. build: compiles every CUDA source of the port with nvcc (in parallel):
    ``spmm_dropout.cu`` (K1), ``spmm_weighted.cu`` (K2), ``gat_fwd.cu``
-   (K3), ``gat_bwd.cu`` (K4), ``gatv2_fwd.cu`` (K5), ``gatv2_bwd.cu`` (K6);
+   (K3), ``gat_bwd.cu`` (K4), ``gatv2_fwd.cu`` (K5), ``gatv2_bwd.cu`` (K6),
+   ``spmm_lab.cu`` (L1), ``gather_lab.cu`` (L2, L3);
 3. kernel: holds K1 (``spmm_dropout``) against its plain torch version on
    the S1 graph, both directions, keep 1.0 and 0.6 with a salt whose high
    bit is set, within atol = rtol = 1e-5 (the summation order is the only
@@ -33,6 +34,15 @@ Phases, each of which passes or ends the run with a non-zero exit:
    = 1e-5) and K6 against ``gatv2_bwd_plain`` (atol = rtol = 1e-4 for dhs
    and dhd, summed with float atomics; da, a sum over every kept edge, to
    1e-4 of its largest entry);
+5b. labs: runs the two lab entry points at the JAX labs' full shapes, as
+   a user runs them (``textgcn_tpu_torch.tools.kernel_lab.main`` with all
+   five modes at bf16 and at f32 x, ``gather_lab.main`` with both modes):
+   L1 (``spmm_lab``), L2 (``gather_rows``) and L3 (``gather_rows_bulk``)
+   launch exactly as often as their timing takes; then holds L1 in every
+   mode, dtype and column slice against ``spmm_lab_plain`` (atol = rtol =
+   1e-5), ``full`` against ``torch.sparse.mm`` and K2 over the same edges
+   as a CSR, and L2 and L3 bit for bit against ``index_select``, and times
+   each with its plain version and its library yardstick;
 6. small: serves ``data/dummy`` through the CLI on the card and on the
    CPU (the plain path the CPU tests tie to the JAX package): the metrics
    agree within 1e-6 and the predictions up to ties; then the same for
@@ -71,9 +81,8 @@ Phases, each of which passes or ends the run with a non-zero exit:
    of steps, and the device's busy time per step from a ``torch.profiler``
    trace of 10 more.
 
-A log line gives the bounds of the TPU lab kernels still to port, from
-their shapes (``lab_bounds``). The line before the last is ``{"kernels":
-[...]}`` with each ported kernel's launches on the main paths, error,
+The line before the last is ``{"kernels": [...]}`` with each kernel's
+launches on the main paths (K1-K6) or the lab paths (L1-L3), error,
 times and bound; the last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -85,7 +94,6 @@ import json
 import os
 import pickle
 import re
-import subprocess
 import sys
 import tempfile
 import time
@@ -107,11 +115,6 @@ GAT_BWD_TOL = 1e-4
 STEP_TOL = 1e-4
 TRAIN_EPOCHS = 2
 N_CHECK_USERS = 256
-TIMED_LAUNCHES = 20
-SPIN_CYCLES = 200_000_000    # ~0.1 s at the H100's 1.98 GHz SM clock
-# H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s, f32 FLOP/s
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_F32_FLOP_PER_S = 67e12
 
 
 def log(msg: str):
@@ -194,58 +197,19 @@ def write_jax_checkpoint(path: str, n_users: int, n_items: int, d: int,
 
 
 def nvidia_smi(fields: str) -> str:
-    out = subprocess.run(
-        ['nvidia-smi', f'--query-gpu={fields}', '--format=csv,noheader'],
-        check=True, capture_output=True, text=True, timeout=60).stdout
-    return out.strip().splitlines()[0]
+    from textgcn_tpu_torch.tools import timing
+    return timing.nvidia_smi(fields)
 
 
 def card_name_and_power() -> str:
     return nvidia_smi('name,power.limit')
 
 
-def time_ms(fns: dict, order: list[str], strict=('kernel',),
-            reps: int = TIMED_LAUNCHES, warmup: int = 25) -> dict[str, float]:
-    """Median device ms of single launches, timed with CUDA events, the
-    variants run in turns (``order``, e.g. plain, kernel, kernel, plain).
-
-    Each round starts with ``warmup`` untimed launches (clocks up, the
-    round's working set back in L2).  Then a spin kernel holds the stream
-    while the host enqueues the whole round, so every event pair brackets
-    the launch's device time and not the host's launch overhead; the
-    round of ``strict`` variants fails if the host took longer than the
-    spin; for the others (a library call may synchronise) it is logged.
-    """
-    samples = {name: [] for name in fns}
-    for name in order:
-        fn = fns[name]
-        for _ in range(warmup):
-            fn()
-        events = [(torch.cuda.Event(enable_timing=True),
-                   torch.cuda.Event(enable_timing=True))
-                  for _ in range(reps + 1)]
-        torch.cuda.synchronize()
-        spin_start, spin_end = events.pop()
-        spin_start.record()
-        torch.cuda._sleep(SPIN_CYCLES)
-        spin_end.record()
-        t0 = time.perf_counter()
-        for start, end in events:
-            start.record()
-            fn()
-            end.record()
-        host_ms = (time.perf_counter() - t0) * 1e3
-        torch.cuda.synchronize()
-        spin_ms = spin_start.elapsed_time(spin_end)
-        log(f'timing {name}: host enqueue {host_ms / reps * 1e3:.1f} us per '
-            f'launch')
-        if host_ms >= spin_ms:
-            msg = (f'timing {name}: enqueueing {reps} launches took '
-                   f'{host_ms:.1f} ms, longer than the {spin_ms:.1f} ms spin')
-            check(name not in strict, msg)
-            log(msg + ': its time includes host overhead')
-        samples[name] += [s.elapsed_time(e) for s, e in events]
-    return {name: float(np.median(v)) for name, v in samples.items()}
+def time_ms(*args, **kwargs) -> dict[str, float]:
+    """``textgcn_tpu_torch.tools.timing.time_ms``: median device ms of
+    single launches behind a spin kernel, variants in turns."""
+    from textgcn_tpu_torch.tools import timing
+    return timing.time_ms(*args, **kwargs)
 
 
 def bound_ms(csr, d: int) -> tuple[float, str]:
@@ -254,33 +218,8 @@ def bound_ms(csr, d: int) -> tuple[float, str]:
     against the published peaks."""
     nbytes = 4 * (csr.n_src * d + csr.rowptr.numel() + csr.col.numel()
                   + csr.w.numel() + csr.n_dst * d)
-    ops = 2 * csr.n_edges * d
-    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, ops / PEAK_F32_FLOP_PER_S
-    return (max(t_bytes, t_ops) * 1e3,
-            'bytes' if t_bytes >= t_ops else 'operations')
-
-
-def lab_bounds() -> dict[str, float]:
-    """The least time of each TPU lab kernel still to port, in ms, from
-    the shapes in its source (not measured; ``bound_ms``'s counting, f32,
-    every input read once and every output written once):
-
-    * L1 ``tools/kernel_lab.py:129``: one S1-shaped SpMM direction, E =
-      600,000 edges, x (25,000, 64), out (60,000, 64), packed ids and
-      weights one int32/f32 each an edge; 2 E d operations;
-    * L2 ``tools/gather_lab.py:85``: 600,064 ids gathering rows of a
-      (25,000, 64) table into a (600,064, 64) output;
-    * L3 ``tools/gather_lab.py:150``: 131,072 ids gathering rows of a
-      (25,000, 128) table into a (131,072, 128) output.
-    """
-    def ms(nbytes, ops=0):
-        return max(nbytes / PEAK_BYTES_PER_S, ops / PEAK_F32_FLOP_PER_S) * 1e3
-    e, n_src, n_dst, d = 600_000, 25_000, 60_000, 64
-    return {
-        'L1': ms(4 * (n_src * d + 2 * e + n_dst * d), 2 * e * d),
-        'L2': ms(4 * (600_064 + n_src * d + 600_064 * d)),
-        'L3': ms(4 * (131_072 + n_src * 128 + 131_072 * 128)),
-    }
+    from textgcn_tpu_torch.tools import timing
+    return timing.bound_ms(nbytes, 2 * csr.n_edges * d)
 
 
 def kernel_phase(data, dev) -> dict:
@@ -447,6 +386,158 @@ def k2_phase(data, dev) -> dict:
     log('clocks after timing (sm, max sm, power, temperature): '
         + nvidia_smi('clocks.sm,clocks.max.sm,power.draw,temperature.gpu'))
     res['bound_by'] = 'bytes' if by == {'bytes'} else 'operations'
+    return res
+
+
+def lab_phase(dev) -> dict:
+    """L1-L3 through the two lab entry points, counted from 0 (every L1
+    mode at bf16 and f32 x, both gathers), then each kernel held against
+    its plain version at the labs' full shapes and timed in turns with it
+    and with a library yardstick.  Returns the rows' numbers."""
+    from textgcn_tpu_torch.ops.spmm import build_csr, spmm_weighted_cuda
+    from textgcn_tpu_torch.tools import gather_lab, kernel_lab, timing
+    from textgcn_tpu_torch.tools.lab_layout import tile_layout
+    l1, l2, l3 = (kernel_lab.spmm_lab_cuda, gather_lab.gather_rows_cuda,
+                  gather_lab.gather_rows_bulk_cuda)
+    dtypes = {'bf16': torch.bfloat16, 'f32': torch.float32}
+
+    reset_counts()
+    t = time.perf_counter()
+    entry = {}
+    old = os.environ.get(kernel_lab.XDTYPE_ENV)
+    try:
+        for xd in dtypes:
+            os.environ[kernel_lab.XDTYPE_ENV] = xd
+            entry[xd] = kernel_lab.main(list(kernel_lab.MODES))
+    finally:
+        if old is None:
+            os.environ.pop(kernel_lab.XDTYPE_ENV, None)
+        else:
+            os.environ[kernel_lab.XDTYPE_ENV] = old
+    entry['gather'] = gather_lab.main(list(gather_lab.MODES))
+    launches = counts()
+    per_mode = 2 * (timing.WARMUP + timing.TIMED_LAUNCHES)
+    want = dict.fromkeys(launches, 0)
+    want.update(spmm_lab=per_mode * len(kernel_lab.MODES) * len(dtypes),
+                gather_rows=per_mode, gather_rows_bulk=per_mode)
+    log(f'labs: the entry points took {time.perf_counter() - t:.3f} s; '
+        f'launches {launches}')
+    check(launches == want, f'labs: launches {launches}, expected {want}')
+
+    # L1: every mode at both dtypes and both column slices vs plain
+    src, dst, w, rng = kernel_lab.lab_graph()
+    layout = tile_layout(src, dst, w, kernel_lab.NI, kernel_lab.NU).to(dev)
+    x32 = kernel_lab.lab_x(rng, layout.n_src_padded, torch.float32).to(dev)
+    xs = {xd: x32.to(dt) for xd, dt in dtypes.items()}
+    l1_err, full_out = 0.0, None
+    for xd, x in xs.items():
+        for mode in kernel_lab.MODES:
+            want_out = kernel_lab.spmm_lab_plain(layout, x, mode)
+            errs = []
+            for cols in kernel_lab.SLICES:
+                got = l1(layout, x, mode, cols)
+                torch.cuda.synchronize()
+                errs.append(float((got - want_out).abs().max()))
+                check(torch.allclose(got, want_out, atol=TOL, rtol=TOL),
+                      f'L1 {mode} x={xd} slice {cols} disagrees with '
+                      f'spmm_lab_plain (max abs err {errs[-1]:.3e})')
+            l1_err = max(l1_err, *errs)
+            log(f'L1 {mode} x={xd}: max_abs_err {errs[0]:.3e} (64-column '
+                f'slices), {errs[1]:.3e} (32)')
+            if (xd, mode) == ('f32', 'full'):
+                full_out = got
+
+    # the same edges as a destination-sorted CSR: torch.sparse.mm with
+    # duplicates summed (the yardstick), and K2, the port's own SpMM
+    n_dst_p = layout.n_dst_blocks * layout.dst_block
+    k2_csr = build_csr(dst, src, w, n_dst_p, layout.n_src_padded, True, dev)
+    with warnings.catch_warnings():   # "sparse CSR is in beta"
+        warnings.simplefilter('ignore', UserWarning)
+        lib = torch.sparse_coo_tensor(
+            torch.from_numpy(np.stack([dst, src]).astype(np.int64)),
+            torch.from_numpy(w), (n_dst_p, layout.n_src_padded)) \
+            .coalesce().to_sparse_csr().to(dev)
+    k2_out = spmm_weighted_cuda(k2_csr, k2_csr.w, x32)
+    lib_out = torch.sparse.mm(lib, x32)
+    torch.cuda.synchronize()
+    for name, other in (('K2', k2_out), ('torch.sparse.mm', lib_out)):
+        err = float((other - full_out).abs().max())
+        log(f'L1 full f32 vs {name} on the same edges: max_abs_err {err:.3e}')
+        check(torch.allclose(other, full_out, atol=TOL, rtol=TOL),
+              f'L1 full disagrees with {name} ({err:.3e})')
+
+    t_full = time_ms({'plain': lambda: kernel_lab.spmm_lab_plain(
+                          layout, x32, 'full'),
+                      'kernel': lambda: l1(layout, x32, 'full'),
+                      'kernel_slice32': lambda: l1(layout, x32, 'full', 32),
+                      'library': lambda: torch.sparse.mm(lib, x32),
+                      'k2': lambda: spmm_weighted_cuda(k2_csr, k2_csr.w,
+                                                       x32)},
+                     ['plain', 'kernel', 'kernel_slice32', 'library', 'k2',
+                      'k2', 'library', 'kernel_slice32', 'kernel', 'plain'],
+                     strict=('kernel', 'kernel_slice32', 'k2'))
+    t_bf16 = time_ms({'plain': lambda: kernel_lab.spmm_lab_plain(
+                          layout, xs['bf16'], 'full'),
+                      'kernel_slice32': lambda: l1(layout, xs['bf16'], 'full',
+                                                   32)},
+                     ['plain', 'kernel_slice32', 'kernel_slice32', 'plain'],
+                     strict=('kernel_slice32',))
+    bound, by, nbytes = kernel_lab.spmm_lab_bound(layout, x32, 'full')
+    ms_by_mode = {xd: {m: r['ms'] for m, r in entry[xd].items()}
+                  for xd in dtypes}
+    bound_by_mode = {xd: {m: r['bound_ms'] for m, r in entry[xd].items()}
+                     for xd in dtypes}
+    log(f'timing L1 full x=f32 (845,824 slots, out ({n_dst_p}, '
+        f'{kernel_lab.D})): kernel {t_full["kernel"]:.4f} ms, 32-column '
+        f'slices {t_full["kernel_slice32"]:.4f} ms, plain '
+        f'{t_full["plain"]:.4f} ms, torch.sparse.mm {t_full["library"]:.4f}'
+        f' ms, K2 on the CSR {t_full["k2"]:.4f} ms, bound {bound:.4f} ms '
+        f'({by}, {nbytes / 1e6:.1f} MB); x=bf16: 32-column slices '
+        f'{t_bf16["kernel_slice32"]:.4f} ms, plain {t_bf16["plain"]:.4f} ms;'
+        f' entry point ms by mode {json.dumps(ms_by_mode)}')
+    res = {'L1': {
+        'launches': launches['spmm_lab'], 'max_abs_err': l1_err,
+        'ms': t_full['kernel'], 'plain_ms': t_full['plain'],
+        'bound_ms': bound, 'bound_by': by, 'library_ms': t_full['library'],
+        'ms_by_mode': ms_by_mode, 'bound_ms_by_mode': bound_by_mode,
+        'ms_slice32': {'f32': t_full['kernel_slice32'],
+                       'bf16': t_bf16['kernel_slice32']},
+        'plain_ms_bf16': t_bf16['plain'], 'k2_csr_ms': t_full['k2']}}
+
+    # L2 and L3: bitwise against index_select, then timed in turns with it
+    # and with the other gather kernel on the same ids and table
+    ids_all, rng = gather_lab.lab_ids()
+    for row, name, mode, kernel, other, width in (
+            ('L2', 'gather_rows', 'onehot', l2, l3, gather_lab.D),
+            ('L3', 'gather_rows_bulk', 'dma', l3, l2, gather_lab.DMA_D)):
+        ids = torch.from_numpy(gather_lab.mode_ids(ids_all, mode)).to(dev)
+        x = gather_lab.lab_x(rng, width).to(dev)
+        got, got_other = kernel(x, ids), other(x, ids)
+        want_out = gather_lab.gather_rows_plain(x, ids)
+        torch.cuda.synchronize()
+        err = float((got - want_out).abs().max())
+        check(torch.equal(got, want_out) and torch.equal(got_other, want_out),
+              f'{row} ({mode}) differs from index_select ({err:.3e})')
+        tm = time_ms({'plain': lambda: gather_lab.gather_rows_plain(x, ids),
+                      'kernel': lambda: kernel(x, ids),
+                      'other': lambda: other(x, ids)},
+                     ['plain', 'kernel', 'other', 'other', 'kernel',
+                      'plain'], strict=('kernel', 'other'))
+        bound, by, nbytes = gather_lab.gather_bound(x, ids)
+        n = ids.numel()
+        log(f'timing {row} ({mode}, {n} rows of {width}): kernel '
+            f'{tm["kernel"]:.4f} ms ({n / tm["kernel"] / 1e3:.1f}k rows/ms),'
+            f' the other gather kernel {tm["other"]:.4f} ms, index_select '
+            f'{tm["plain"]:.4f} ms, bound {bound:.4f} ms ({nbytes / 1e6:.1f}'
+            f' MB); entry point {entry["gather"][mode]["ms"]:.4f} ms')
+        res[row] = {'launches': launches[name], 'max_abs_err': err,
+                    'ms': tm['kernel'], 'plain_ms': tm['plain'],
+                    'bound_ms': bound, 'bound_by': by,
+                    'library_ms': tm['plain'], 'rows': n,
+                    'ms_entry_point': entry['gather'][mode]['ms'],
+                    'other_gather_kernel_ms': tm['other']}
+    log('clocks after timing (sm, max sm, power, temperature): '
+        + nvidia_smi('clocks.sm,clocks.max.sm,power.draw,temperature.gpu'))
     return res
 
 
@@ -707,10 +798,8 @@ def attention_bound_ms(name: str, csr, d: int, n_kept: int):
     """
     floats, per_kept = ATTENTION_WORK[name](csr.n_dst, csr.n_src, d)
     nbytes = 4 * (csr.rowptr.numel() + csr.col.numel() + floats)
-    ops = per_kept * n_kept + 8 * csr.n_edges
-    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, ops / PEAK_F32_FLOP_PER_S
-    return (max(t_bytes, t_ops) * 1e3,
-            'bytes' if t_bytes >= t_ops else 'operations')
+    from textgcn_tpu_torch.tools import timing
+    return timing.bound_ms(nbytes, per_kept * n_kept + 8 * csr.n_edges)
 
 
 def attention_kernel_phase(data, dev, conv: str) -> dict:
@@ -821,13 +910,19 @@ def attention_kernel_phase(data, dev, conv: str) -> dict:
 def _wrappers():
     """``{kernel name: (module, wrapper attribute, plain attribute)}``."""
     from textgcn_tpu_torch.ops import gat, spmm
+    from textgcn_tpu_torch.tools import gather_lab, kernel_lab
     return {'spmm_dropout': (spmm, 'spmm_dropout_cuda', 'spmm_plain'),
             'spmm_weighted': (spmm, 'spmm_weighted_cuda',
                               'spmm_weighted_plain'),
             'gat_fwd': (gat, 'gat_fwd_cuda', 'gat_att_plain'),
             'gat_bwd': (gat, 'gat_bwd_cuda', 'gat_bwd_plain'),
             'gatv2_fwd': (gat, 'gatv2_fwd_cuda', 'gatv2_att_plain'),
-            'gatv2_bwd': (gat, 'gatv2_bwd_cuda', 'gatv2_bwd_plain')}
+            'gatv2_bwd': (gat, 'gatv2_bwd_cuda', 'gatv2_bwd_plain'),
+            'spmm_lab': (kernel_lab, 'spmm_lab_cuda', 'spmm_lab_plain'),
+            'gather_rows': (gather_lab, 'gather_rows_cuda',
+                            'gather_rows_plain'),
+            'gather_rows_bulk': (gather_lab, 'gather_rows_bulk_cuda',
+                                 'gather_rows_plain')}
 
 
 def counts() -> dict[str, int]:
@@ -1211,6 +1306,10 @@ def main():
             log(f'phase {conv} kernel: {time.perf_counter() - t:.3f} s')
 
         t = time.perf_counter()
+        labs = lab_phase(dev)
+        log(f'phase labs: {time.perf_counter() - t:.3f} s')
+
+        t = time.perf_counter()
         small_phase(root)
         log(f'phase small: {time.perf_counter() - t:.3f} s')
 
@@ -1313,6 +1412,31 @@ def main():
             'library_note': 'no single PyTorch call computes the masked '
                             'edge-softmax aggregation or its gradient',
         })
+    for row, name, source, replaces, path in (
+            ('L1', 'spmm_lab', 'spmm_lab.cu', 'tools/kernel_lab.py:129',
+             'lab_kernel_lab'),
+            ('L2', 'gather_rows', 'gather_lab.cu', 'tools/gather_lab.py:85',
+             'lab_gather_lab'),
+            ('L3', 'gather_rows_bulk', 'gather_lab.cu',
+             'tools/gather_lab.py:150', 'lab_gather_lab')):
+        r = labs[row]
+        kernels.append({
+            'name': name,
+            'route': 'cuda',
+            'source': f'textgcn_tpu_torch/csrc/{source}',
+            'replaces': replaces,
+            # all five L1 modes at bf16 and f32 x, or both gathers, run
+            # through the lab entry points (python -m
+            # textgcn_tpu_torch.tools.kernel_lab / gather_lab)
+            'launches': r['launches'],
+            'launches_by_path': {path: r['launches']},
+            'max_abs_err': r['max_abs_err'],
+            # L1: mode full, f32 x (the function torch.sparse.mm computes),
+            # at the lab's full shape; L2/L3: the lab's gathers, whose
+            # plain version is the one-call yardstick index_select
+            **{k: v for k, v in r.items()
+               if k not in ('launches', 'max_abs_err')},
+        })
     steps = {m: {'step_ms': timing[m]['step'],
                  'examples_per_s': timing[m]['examples_per_s'],
                  'host_enqueue_share': timing[m]['host_enqueue_share'],
@@ -1322,7 +1446,6 @@ def main():
                      'step_err')}
              for m in timing}
     log(json.dumps({'training_at_s1': steps, 'card': card}))
-    log(json.dumps({'lab_kernel_bounds_ms_from_the_code': lab_bounds()}))
     print(json.dumps({'kernels': kernels}), flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -23,19 +23,14 @@ yet.
 
 from __future__ import annotations
 
-import os
-
-from .config import PLATFORM_ENV, get_logger, parse_args, resolve_device
+from .config import get_logger, parse_args, platform_device
 from .registry import get_class
 from .train.trainer import Trainer
 
 
 def main(argv: list[str] | None = None):
     cfg = parse_args(argv)
-    platform = os.environ.get(PLATFORM_ENV, '').lower()
-    if platform not in ('', 'cpu', 'cuda', 'gpu'):
-        raise ValueError(f'{PLATFORM_ENV}={platform!r}: use cpu or cuda')
-    device = resolve_device('cpu' if platform == 'cpu' else None)
+    device = platform_device()
     if cfg.resume:
         raise NotImplementedError('--resume is not ported yet')
     if not cfg.mesh:

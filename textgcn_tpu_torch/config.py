@@ -301,6 +301,15 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+def platform_device() -> torch.device:
+    """The device of a command-line entry point: the card, or the CPU
+    when ``TEXTGCN_TPU_PLATFORM=cpu`` asks for it."""
+    platform = os.environ.get(PLATFORM_ENV, '').lower()
+    if platform not in ('', 'cpu', 'cuda', 'gpu'):
+        raise ValueError(f'{PLATFORM_ENV}={platform!r}: use cpu or cuda')
+    return resolve_device('cpu' if platform == 'cpu' else None)
+
+
 def get_logger(cfg: Config, primary: bool = True) -> logging.Logger:
     """File + stream logger: ``log.log`` (mode='w') in the run directory,
     mirrored to stderr, in the JAX package's format.  A rank other than
