@@ -39,7 +39,7 @@ Phases, each of which passes or ends the run with a non-zero exit:
    five modes at bf16 and at f32 x, ``gather_lab.main`` with both modes):
    L1 (``spmm_lab``), L2 (``gather_rows``) and L3 (``gather_rows_bulk``)
    launch exactly as often as their timing takes; then holds L1 in every
-   mode, dtype and column slice against ``spmm_lab_plain`` (atol = rtol =
+   mode and dtype against ``spmm_lab_plain`` (atol = rtol =
    1e-5), ``full`` against ``torch.sparse.mm`` and K2 over the same edges
    as a CSR, and L2 and L3 bit for bit against ``index_select``, and times
    each with its plain version and its library yardstick;
@@ -424,7 +424,7 @@ def lab_phase(dev) -> dict:
         f'launches {launches}')
     check(launches == want, f'labs: launches {launches}, expected {want}')
 
-    # L1: every mode at both dtypes and both column slices vs plain
+    # L1: every mode at both dtypes vs plain
     src, dst, w, rng = kernel_lab.lab_graph()
     layout = tile_layout(src, dst, w, kernel_lab.NI, kernel_lab.NU).to(dev)
     x32 = kernel_lab.lab_x(rng, layout.n_src_padded, torch.float32).to(dev)
@@ -433,17 +433,14 @@ def lab_phase(dev) -> dict:
     for xd, x in xs.items():
         for mode in kernel_lab.MODES:
             want_out = kernel_lab.spmm_lab_plain(layout, x, mode)
-            errs = []
-            for cols in kernel_lab.SLICES:
-                got = l1(layout, x, mode, cols)
-                torch.cuda.synchronize()
-                errs.append(float((got - want_out).abs().max()))
-                check(torch.allclose(got, want_out, atol=TOL, rtol=TOL),
-                      f'L1 {mode} x={xd} slice {cols} disagrees with '
-                      f'spmm_lab_plain (max abs err {errs[-1]:.3e})')
-            l1_err = max(l1_err, *errs)
-            log(f'L1 {mode} x={xd}: max_abs_err {errs[0]:.3e} (64-column '
-                f'slices), {errs[1]:.3e} (32)')
+            got = l1(layout, x, mode)
+            torch.cuda.synchronize()
+            err = float((got - want_out).abs().max())
+            check(torch.allclose(got, want_out, atol=TOL, rtol=TOL),
+                  f'L1 {mode} x={xd} disagrees with spmm_lab_plain (max abs '
+                  f'err {err:.3e})')
+            l1_err = max(l1_err, err)
+            log(f'L1 {mode} x={xd}: max_abs_err {err:.3e}')
             if (xd, mode) == ('f32', 'full'):
                 full_out = got
 
@@ -469,40 +466,34 @@ def lab_phase(dev) -> dict:
     t_full = time_ms({'plain': lambda: kernel_lab.spmm_lab_plain(
                           layout, x32, 'full'),
                       'kernel': lambda: l1(layout, x32, 'full'),
-                      'kernel_slice32': lambda: l1(layout, x32, 'full', 32),
                       'library': lambda: torch.sparse.mm(lib, x32),
                       'k2': lambda: spmm_weighted_cuda(k2_csr, k2_csr.w,
                                                        x32)},
-                     ['plain', 'kernel', 'kernel_slice32', 'library', 'k2',
-                      'k2', 'library', 'kernel_slice32', 'kernel', 'plain'],
-                     strict=('kernel', 'kernel_slice32', 'k2'))
-    t_bf16 = time_ms({'plain': lambda: kernel_lab.spmm_lab_plain(
-                          layout, xs['bf16'], 'full'),
-                      'kernel_slice32': lambda: l1(layout, xs['bf16'], 'full',
-                                                   32)},
-                     ['plain', 'kernel_slice32', 'kernel_slice32', 'plain'],
-                     strict=('kernel_slice32',))
+                     ['plain', 'kernel', 'library', 'k2', 'k2', 'library',
+                      'kernel', 'plain'],
+                     strict=('kernel', 'k2'))
     bound, by, nbytes = kernel_lab.spmm_lab_bound(layout, x32, 'full')
+    # the same bound over the real edges alone: what the padding slots cost
+    edge_bound, _ = timing.bound_ms(
+        nbytes - 8 * (layout.n_slots - kernel_lab.E),
+        2 * kernel_lab.E * kernel_lab.D)
     ms_by_mode = {xd: {m: r['ms'] for m, r in entry[xd].items()}
                   for xd in dtypes}
     bound_by_mode = {xd: {m: r['bound_ms'] for m, r in entry[xd].items()}
                      for xd in dtypes}
     log(f'timing L1 full x=f32 (845,824 slots, out ({n_dst_p}, '
-        f'{kernel_lab.D})): kernel {t_full["kernel"]:.4f} ms, 32-column '
-        f'slices {t_full["kernel_slice32"]:.4f} ms, plain '
+        f'{kernel_lab.D})): kernel {t_full["kernel"]:.4f} ms, plain '
         f'{t_full["plain"]:.4f} ms, torch.sparse.mm {t_full["library"]:.4f}'
         f' ms, K2 on the CSR {t_full["k2"]:.4f} ms, bound {bound:.4f} ms '
-        f'({by}, {nbytes / 1e6:.1f} MB); x=bf16: 32-column slices '
-        f'{t_bf16["kernel_slice32"]:.4f} ms, plain {t_bf16["plain"]:.4f} ms;'
-        f' entry point ms by mode {json.dumps(ms_by_mode)}')
+        f'({by}, {nbytes / 1e6:.1f} MB; over the {kernel_lab.E} real edges '
+        f'alone {edge_bound:.4f} ms); entry point ms by mode '
+        f'{json.dumps(ms_by_mode)}')
     res = {'L1': {
         'launches': launches['spmm_lab'], 'max_abs_err': l1_err,
         'ms': t_full['kernel'], 'plain_ms': t_full['plain'],
         'bound_ms': bound, 'bound_by': by, 'library_ms': t_full['library'],
         'ms_by_mode': ms_by_mode, 'bound_ms_by_mode': bound_by_mode,
-        'ms_slice32': {'f32': t_full['kernel_slice32'],
-                       'bf16': t_bf16['kernel_slice32']},
-        'plain_ms_bf16': t_bf16['plain'], 'k2_csr_ms': t_full['k2']}}
+        'bound_ms_real_edges': edge_bound, 'k2_csr_ms': t_full['k2']}}
 
     # L2 and L3: bitwise against index_select, then timed in turns with it
     # and with the other gather kernel on the same ids and table

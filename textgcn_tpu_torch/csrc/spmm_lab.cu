@@ -28,20 +28,19 @@
 // and weights (6.8 MB) and x (3.2 MB in bf16) and write out (15.5 MB):
 // ~7.6 us at 3.35 TB/s, against 0.1 GFLOP (~1.6 us at 67 TFLOP/s f32).
 // The design, kept simple for a first port:
-//   * one thread block per (destination block, column slice): its output
-//     tile of 512 rows x kSlice columns lives in dynamic shared memory
-//     (133 KB at kSlice = 64, 67 KB at 32: above the 48 KB default, so the
-//     launcher opts in first), is zeroed, summed into with shared-memory
-//     float atomics (warps walk different chunks and may hit one row), and
-//     written out once;
+//   * one thread block per (destination block, 64-column slice): its
+//     output tile of 512 rows x 64 columns lives in dynamic shared memory
+//     (133 KB: above the 48 KB default, so the launcher opts in first), is
+//     zeroed, summed into with shared-memory float atomics (warps walk
+//     different chunks and may hit one row), and written out once;
 //   * a warp takes 32 slots at a time (a quarter chunk): each lane loads
 //     one slot's packed id and weight, coalesced, and the warp broadcasts
-//     them by shuffle; kSlice / 2 lanes cover one slot's columns, two
-//     each, so one 8-byte (f32) or 4-byte (bf16) load per lane gathers the
-//     row's slice, eight slots' gathers are in flight before their adds;
+//     them by shuffle; the 32 lanes cover one slot's 64 columns, two each,
+//     so one 8-byte (f32) or 4-byte (bf16) load per lane gathers the row's
+//     slice, eight slots' gathers are in flight before their adds;
 //   * a lane's two columns c, c + 1 sit at tile columns c / 2 and c / 2 +
-//     kSlice / 2 in rows of kSlice + 1 floats, so each atomic instruction
-//     of a warp hits 32 distinct banks;
+//     32 in rows of 65 floats, so each atomic instruction of a warp hits 32
+//     distinct banks;
 //   * every slot is processed, padding included (w = 0), as on the TPU.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared.
@@ -58,6 +57,8 @@ constexpr int kChunk = 128;      // slots of a chunk
 constexpr int kUnit = 32;        // slots a warp takes at a time
 constexpr int kUnitsPerChunk = kChunk / kUnit;
 constexpr int kBatch = 8;        // gathers in flight per lane
+constexpr int kSlice = 64;       // columns of a block's output tile
+constexpr int kStride = kSlice + 1;  // floats per tile row
 constexpr int kThreads = 1024;
 constexpr int kWarps = kThreads / 32;
 constexpr unsigned kFullMask = 0xffffffffu;
@@ -83,7 +84,7 @@ __device__ __forceinline__ float finish(float v) {
   return v;
 }
 
-template <typename T, int kMode, int kSlice>
+template <typename T, int kMode>
 __global__ void __launch_bounds__(kThreads)
 spmm_lab_kernel(const int32_t* __restrict__ group_ptr,
                 const int32_t* __restrict__ chunk_sb,
@@ -92,17 +93,12 @@ spmm_lab_kernel(const int32_t* __restrict__ group_ptr,
                 const T* __restrict__ x,
                 float* __restrict__ out,
                 int group, int d) {
-  constexpr int kStride = kSlice + 1;                // floats per tile row
-  constexpr int kLanesPerSlot = kSlice / 2;          // 32 or 16
-  constexpr int kSlotsPerStep = 32 / kLanesPerSlot;  // 1 or 2
-  extern __shared__ float tile[];                    // (kBlockRows, kStride)
+  extern __shared__ float tile[];  // (kBlockRows, kStride)
 
   const int b = blockIdx.x;
   const int col0 = blockIdx.y * kSlice;
   const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int sub = lane / kLanesPerSlot;  // which slot of a step
-  const int pair = lane % kLanesPerSlot;  // columns col0 + 2 pair, + 1
+  const int lane = threadIdx.x & 31;  // owns columns col0 + 2 lane, + 1
 
   for (int i = threadIdx.x; i < kBlockRows * kStride; i += kThreads) {
     tile[i] = 0.0f;
@@ -121,23 +117,23 @@ spmm_lab_kernel(const int32_t* __restrict__ group_ptr,
     const int row_out = kMode == kNoScatter ? slot : (p >> 16);
 
 #pragma unroll
-    for (int k0 = 0; k0 < kUnit; k0 += kBatch * kSlotsPerStep) {
+    for (int k0 = 0; k0 < kUnit; k0 += kBatch) {
       float2 v[kBatch];
       float wj[kBatch];
       int rj[kBatch];
 #pragma unroll
       for (int j = 0; j < kBatch; ++j) {
-        const int from = k0 + j * kSlotsPerStep + sub;
+        const int from = k0 + j;
         const int r = __shfl_sync(kFullMask, row_in, from);
         wj[j] = __shfl_sync(kFullMask, ws, from);
         rj[j] = __shfl_sync(kFullMask, row_out, from);
-        v[j] = load_pair(x, static_cast<size_t>(r) * d + col0 + 2 * pair);
+        v[j] = load_pair(x, static_cast<size_t>(r) * d + col0 + 2 * lane);
       }
 #pragma unroll
       for (int j = 0; j < kBatch; ++j) {
         float* row = tile + rj[j] * kStride;
-        atomicAdd(row + pair, finish<kMode>(v[j].x * wj[j]));
-        atomicAdd(row + pair + kSlice / 2, finish<kMode>(v[j].y * wj[j]));
+        atomicAdd(row + lane, finish<kMode>(v[j].x * wj[j]));
+        atomicAdd(row + lane + kSlice / 2, finish<kMode>(v[j].y * wj[j]));
       }
     }
   }
@@ -152,24 +148,24 @@ spmm_lab_kernel(const int32_t* __restrict__ group_ptr,
   }
 }
 
-template <typename T, int kMode, int kSlice>
+template <typename T, int kMode>
 cudaError_t launch(const int32_t* group_ptr, const int32_t* chunk_sb,
                    const int32_t* packed, const float* w, const void* x,
                    float* out, int n_dst_blocks, int group, int d,
                    cudaStream_t stream) {
-  const int smem = kBlockRows * (kSlice + 1) * static_cast<int>(sizeof(float));
+  const int smem = kBlockRows * kStride * static_cast<int>(sizeof(float));
   cudaError_t err = cudaFuncSetAttribute(
-      spmm_lab_kernel<T, kMode, kSlice>,
+      spmm_lab_kernel<T, kMode>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(n_dst_blocks, d / kSlice);
-  spmm_lab_kernel<T, kMode, kSlice><<<grid, kThreads, smem, stream>>>(
+  spmm_lab_kernel<T, kMode><<<grid, kThreads, smem, stream>>>(
       group_ptr, chunk_sb, packed, w, static_cast<const T*>(x), out, group,
       d);
   return cudaGetLastError();
 }
 
-template <typename T, int kSlice>
+template <typename T>
 cudaError_t by_mode(int mode, const int32_t* group_ptr,
                     const int32_t* chunk_sb, const int32_t* packed,
                     const float* w, const void* x, float* out,
@@ -177,20 +173,17 @@ cudaError_t by_mode(int mode, const int32_t* group_ptr,
                     cudaStream_t stream) {
   switch (mode) {
     case kFull:
-      return launch<T, kFull, kSlice>(group_ptr, chunk_sb, packed, w, x,
-                                      out, n_dst_blocks, group, d, stream);
+      return launch<T, kFull>(group_ptr, chunk_sb, packed, w, x, out,
+                              n_dst_blocks, group, d, stream);
     case kNoGather:
-      return launch<T, kNoGather, kSlice>(group_ptr, chunk_sb, packed, w, x,
-                                          out, n_dst_blocks, group, d,
-                                          stream);
+      return launch<T, kNoGather>(group_ptr, chunk_sb, packed, w, x, out,
+                                  n_dst_blocks, group, d, stream);
     case kNoScatter:
-      return launch<T, kNoScatter, kSlice>(group_ptr, chunk_sb, packed, w,
-                                           x, out, n_dst_blocks, group, d,
-                                           stream);
+      return launch<T, kNoScatter>(group_ptr, chunk_sb, packed, w, x, out,
+                                   n_dst_blocks, group, d, stream);
     case kScatBf16:
-      return launch<T, kScatBf16, kSlice>(group_ptr, chunk_sb, packed, w, x,
-                                          out, n_dst_blocks, group, d,
-                                          stream);
+      return launch<T, kScatBf16>(group_ptr, chunk_sb, packed, w, x, out,
+                                  n_dst_blocks, group, d, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -204,29 +197,17 @@ cudaError_t by_mode(int mode, const int32_t* group_ptr,
 // the shapes: group_ptr (n_dst_blocks + 1), chunk_sb (n_groups * group),
 // packed and w (n_groups * group * 128), x (n_src_padded, d) float32
 // (x_bf16 = 0) or bfloat16 (x_bf16 = 1), out (n_dst_blocks * 512, d), all
-// contiguous on `device`; slice is 64 or 32 and divides d.
+// contiguous on `device`; 64 divides d.
 extern "C" int spmm_lab(const int32_t* group_ptr, const int32_t* chunk_sb,
                         const int32_t* packed, const float* w, const void* x,
                         float* out, int n_dst_blocks, int group, int d,
-                        int x_bf16, int mode, int slice, int device,
-                        void* stream) {
+                        int x_bf16, int mode, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const auto s = static_cast<cudaStream_t>(stream);
-  if (x_bf16 && slice == 64) {
-    err = by_mode<__nv_bfloat16, 64>(mode, group_ptr, chunk_sb, packed, w, x,
-                                     out, n_dst_blocks, group, d, s);
-  } else if (x_bf16 && slice == 32) {
-    err = by_mode<__nv_bfloat16, 32>(mode, group_ptr, chunk_sb, packed, w, x,
-                                     out, n_dst_blocks, group, d, s);
-  } else if (slice == 64) {
-    err = by_mode<float, 64>(mode, group_ptr, chunk_sb, packed, w, x, out,
-                             n_dst_blocks, group, d, s);
-  } else if (slice == 32) {
-    err = by_mode<float, 32>(mode, group_ptr, chunk_sb, packed, w, x, out,
-                             n_dst_blocks, group, d, s);
-  } else {
-    err = cudaErrorInvalidValue;
-  }
+  err = x_bf16 ? by_mode<__nv_bfloat16>(mode, group_ptr, chunk_sb, packed, w,
+                                        x, out, n_dst_blocks, group, d, s)
+               : by_mode<float>(mode, group_ptr, chunk_sb, packed, w, x, out,
+                                n_dst_blocks, group, d, s);
   return static_cast<int>(err);
 }

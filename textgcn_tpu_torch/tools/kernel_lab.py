@@ -56,7 +56,7 @@ DEFAULT_MODES = MODES[:4]
 # the kernel's mode argument: merged_scatter is full on the card
 MODE_IDS = {'full': 0, 'no_gather': 1, 'no_scatter': 2,
             'merged_scatter': 0, 'scat_bf16': 3}
-SLICES = (64, 32)
+SLICE = 64   # columns of the output tile a thread block owns
 KERNEL_SOURCE = 'spmm_lab.cu'
 XDTYPE_ENV = 'TEXTGCN_TPU_LAB_XDTYPE'
 GROUP_ENV = 'TEXTGCN_TPU_LAB_GROUP'
@@ -148,29 +148,27 @@ def _kernel_fn():
     from .. import cuda_build
     fn = cuda_build.load(KERNEL_SOURCE).spmm_lab
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, vp]
+    fn.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, vp]
     fn.restype = ci
     return fn
 
 
-def spmm_lab_cuda(layout: TileLayout, x: torch.Tensor, mode: str,
-                  slice_cols: int = 64) -> torch.Tensor:
+def spmm_lab_cuda(layout: TileLayout, x: torch.Tensor,
+                  mode: str) -> torch.Tensor:
     """Launch L1 in ``mode`` on PyTorch's current stream; ``out`` is
-    allocated here.  ``slice_cols`` (64 or 32) is the width of the
-    output tile a thread block owns: 32 gives twice the blocks.
+    allocated here.
 
     Raises on anything the kernel does not take: a tensor off the card,
-    another dtype or layout shape, a d that ``slice_cols`` does not
-    divide, or a refused launch.
+    another dtype or layout shape, a d that is not a multiple of 64, or a
+    refused launch.
     """
     _check_args(layout, x, mode)
     if x.device.type != 'cuda':
         raise ValueError(f'spmm_lab_cuda needs CUDA tensors, x is on '
                          f'{x.device}')
     d = x.shape[1]
-    if slice_cols not in SLICES or d % slice_cols:
-        raise ValueError(f'slice_cols must be 64 or 32 and divide d={d}, '
-                         f'got {slice_cols}')
+    if d % SLICE:
+        raise ValueError(f'd must be a multiple of {SLICE}, got {d}')
     if (layout.src_block, layout.dst_block, layout.chunk) != (512, 512, 128):
         raise ValueError('the kernel takes 512-row blocks and 128-slot '
                          'chunks')
@@ -194,7 +192,7 @@ def spmm_lab_cuda(layout: TileLayout, x: torch.Tensor, mode: str,
     rc = fn(layout.group_ptr.data_ptr(), layout.chunk_sb.data_ptr(),
             layout.packed.data_ptr(), layout.w.data_ptr(), x.data_ptr(),
             out.data_ptr(), layout.n_dst_blocks, gs, d,
-            int(x.dtype == torch.bfloat16), MODE_IDS[mode], slice_cols,
+            int(x.dtype == torch.bfloat16), MODE_IDS[mode],
             x.device.index or 0, stream)
     if rc:
         raise RuntimeError(f'spmm_lab kernel launch failed: CUDA error {rc}')
