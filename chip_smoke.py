@@ -15,7 +15,9 @@ Phases, each of which passes or ends the run with a non-zero exit:
    bit is set, within atol = rtol = 1e-5 (the summation order is the only
    difference; one flipped mask bit is ~0.1), and times the kernel, the
    plain version and ``torch.sparse.mm`` (a yardstick the port never
-   calls) with CUDA events;
+   calls) with CUDA events; then holds K1 against ``spmm_plain`` at the
+   widths that take its other instances (``K1_WIDTHS``: float4 rows of 8,
+   16 and 32 lanes, float2 rows, two column strips), to_user at keep 0.6;
 3b. K2 kernel: partitions each direction of the S1 graph by source range
    into W = 1 and W = 4 shards on the one card, as the mesh path does
    (``parallel.sharded_spmm.build_shard``), and holds K2
@@ -24,7 +26,8 @@ Phases, each of which passes or ends the run with a non-zero exit:
    sum of the four shards' outputs against K1 on the full CSR with the
    same salt, all within atol = rtol = 1e-5; times K2 on one layer at W =
    1 and per shard at W = 4, the plain version and ``torch.sparse.mm``
-   with the same weights (a yardstick the port never calls);
+   with the same weights (a yardstick the port never calls); K2 at W = 1
+   must give K1's bits at both keeps (same weights, same order of sums);
 4. gat kernel: holds K3 against ``gat_att_plain`` (atol = rtol = 1e-5) and
    K4 against ``gat_bwd_plain`` (atol = rtol = 1e-4: K4 sums dd with
    float atomics in a changing order, and its sums run over up to ~100
@@ -33,7 +36,10 @@ Phases, each of which passes or ends the run with a non-zero exit:
 5. gatv2 kernel: the same for K5 against ``gatv2_att_plain`` (atol = rtol
    = 1e-5) and K6 against ``gatv2_bwd_plain`` (atol = rtol = 1e-4 for dhs
    and dhd, summed with float atomics; da, a sum over every kept edge, to
-   1e-4 of its largest entry);
+   1e-4 of its largest entry), then K6 at the widths that take its other
+   instances (``K6_WIDTHS``: float2 vectors, two and four float4 a lane),
+   to_user at keep 0.6, with ``a`` and ``g_num`` scaled by sqrt(64 / d) so
+   that the logits spread as at d = 64;
 5b. labs: runs the two lab entry points at the JAX labs' full shapes, as
    a user runs them (``textgcn_tpu_torch.tools.kernel_lab.main`` with all
    five modes at bf16 and at f32 x, ``gather_lab.main`` with both modes):
@@ -112,6 +118,13 @@ SALT = 0x9E3779B9            # high bit set: exercises the uint32 hash path
 KEEP_DROPOUT = float(np.float32(1.0 - 0.4))   # float32(1 - p), p = 0.4
 TOL = 1e-5
 GAT_BWD_TOL = 1e-4
+# widths that take the redesigned kernels' other instances, held against
+# their plain versions on one direction at keep 0.6: K1 (vec, lanes)
+# (ops/spmm.k1_layout) (4, 8), (4, 16) with idle lanes, (2, 32), (4, 32)
+# and (4, 32) over two column strips; K6 (vec, per) (ops/gat.k6_layout)
+# (2, 2), (4, 2) and (4, 4)
+K1_WIDTHS = (32, 48, 62, 128, 256)
+K6_WIDTHS = (62, 128, 256)
 STEP_TOL = 1e-4
 TRAIN_EPOCHS = 2
 N_CHECK_USERS = 256
@@ -275,6 +288,19 @@ def kernel_phase(data, dev) -> dict:
         + nvidia_smi('clocks.sm,clocks.max.sm,power.draw,temperature.gpu'))
     result['max_abs_err'] = max_err
     result['bound_by'] = 'bytes' if bytes_bound else 'operations'
+    result['max_abs_err_by_width'] = {}
+    for d in K1_WIDTHS:
+        x = torch.randn(op.n_items, d, generator=gen).to(dev)
+        got = spmm_dropout_cuda(op.l_i2u, x, SALT, KEEP_DROPOUT)
+        want = spmm_plain(op.l_i2u, x, SALT, KEEP_DROPOUT)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        result['max_abs_err_by_width'][d] = err
+        log(f'kernel to_user d={d} keep={KEEP_DROPOUT:.7g}: max_abs_err='
+            f'{err:.3e}')
+        check(torch.allclose(got, want, atol=TOL, rtol=TOL),
+              f'K1 at d={d} disagrees with spmm_plain (max abs err '
+              f'{err:.3e})')
     return result
 
 
@@ -293,8 +319,8 @@ def k2_phase(data, dev) -> dict:
     op = GraphOp(g.edge_user, g.edge_item, g.edge_weight, data.n_users,
                  data.n_items, dev)
     gen = torch.Generator().manual_seed(4)
-    res = {'max_abs_err': 0.0, 'max_abs_err_vs_k1': 0.0, 'w1_equals_k1': True,
-           'ms': 0.0, 'plain_ms': 0.0, 'library_ms': 0.0, 'bound_ms': 0.0,
+    res = {'max_abs_err': 0.0, 'max_abs_err_vs_k1': 0.0, 'ms': 0.0,
+           'plain_ms': 0.0, 'library_ms': 0.0, 'bound_ms': 0.0,
            'ms_w4_per_shard': 0.0, 'plain_ms_w4_per_shard': 0.0,
            'bound_ms_w4_per_shard': 0.0}
     by = set()
@@ -342,7 +368,10 @@ def k2_phase(data, dev) -> dict:
                       f'K2 {direction} W={n_ranks} keep={keep}: the sum of '
                       f'the shards disagrees with K1 ({err_k1:.3e})')
                 if n_ranks == 1:
-                    res['w1_equals_k1'] &= bool(torch.equal(total, k1))
+                    # the same weights in the same order: K1's bits
+                    check(torch.equal(total, k1),
+                          f'K2 {direction} W=1 keep={keep} is not bit-equal '
+                          f'to K1')
                 else:
                     res['max_abs_err_vs_k1'] = max(res['max_abs_err_vs_k1'],
                                                    err_k1)
@@ -793,6 +822,15 @@ def attention_bound_ms(name: str, csr, d: int, n_kept: int):
     return timing.bound_ms(nbytes, per_kept * n_kept + 8 * csr.n_edges)
 
 
+def agree(got, want, tol: float, whole: bool) -> bool:
+    """Within ``tol`` entry by entry (atol = rtol), or, for a ``whole``
+    sum such as GATv2's ``da``, within ``tol`` times its largest entry."""
+    if whole:
+        return float((got - want).abs().max()) <= tol * float(
+            want.abs().max())
+    return torch.allclose(got, want, atol=tol, rtol=tol)
+
+
 def attention_kernel_phase(data, dev, conv: str) -> dict:
     """K3 and K4 (``conv='gat'``) or K5 and K6 (``'gatv2'``) against their
     plain versions on the S1 graph, both directions, keep 1.0 and 0.6; then
@@ -821,12 +859,6 @@ def attention_kernel_phase(data, dev, conv: str) -> dict:
 
     def rand(*shape):
         return torch.randn(*shape, generator=gen).to(dev)
-
-    def agree(got, want, tol, whole):
-        if whole:
-            return float((got - want).abs().max()) <= tol * float(
-                want.abs().max())
-        return torch.allclose(got, want, atol=tol, rtol=tol)
 
     for direction, fwd, bwd in (('to_user', op.l_i2u, op.l_u2i),
                                 ('to_item', op.l_u2i, op.l_i2u)):
@@ -895,7 +927,43 @@ def attention_kernel_phase(data, dev, conv: str) -> dict:
     for r in res.values():
         by = r.pop('by')
         r['bound_by'] = 'bytes' if by == {'bytes'} else 'operations'
+    if conv == 'gatv2':
+        res['gatv2_bwd']['max_abs_err_by_width'] = gatv2_bwd_widths(op, dev,
+                                                                   gen)
     return res
+
+
+def gatv2_bwd_widths(op, dev, gen) -> dict[int, list[float]]:
+    """K6 against ``gatv2_bwd_plain`` at ``K6_WIDTHS``, to_user at keep
+    0.6, within phase 5's tolerances.  ``a`` and ``g_num`` are scaled by
+    sqrt(D / d), so that the logits and ``g_num . hs`` spread as at d = D:
+    unscaled they grow with sqrt(d), and so do the sums' rounding errors."""
+    from textgcn_tpu_torch.ops import gat
+    fwd, bwd = op.l_i2u, op.l_u2i
+    errs = {}
+    for d in K6_WIDTHS:
+        scale = (D / d) ** 0.5
+        hs = torch.randn(fwd.n_src, d, generator=gen).to(dev)
+        hd = torch.randn(fwd.n_dst, d, generator=gen).to(dev)
+        a = (0.5 * scale * torch.randn(d, generator=gen)).to(dev)
+        g_num = (scale * torch.randn(fwd.n_dst, d, generator=gen)).to(dev)
+        g_den = torch.randn(fwd.n_dst, generator=gen).to(dev)
+        m = gat.gatv2_att_plain(fwd, hs, hd, a, SALT, KEEP_DROPOUT)[2]
+        got = gat.gatv2_bwd_cuda(bwd, hs, hd, a, m, g_num, g_den, SALT,
+                                 KEEP_DROPOUT)
+        want = gat.gatv2_bwd_plain(bwd, hs, hd, a, m, g_num, g_den, SALT,
+                                   KEEP_DROPOUT)
+        torch.cuda.synchronize()
+        errs[d] = [float((x - y).abs().max()) for x, y in zip(got, want)]
+        log(f'gatv2_bwd to_user d={d} keep={KEEP_DROPOUT:.7g}: max_abs_err '
+            + ', '.join(f'{out} {e:.3e} of {float(y.abs().max()):.3g}'
+                        for out, e, y in zip(OUTPUTS['gatv2_bwd'], errs[d],
+                                             want)))
+        check(all(agree(x, y, GAT_BWD_TOL, w)
+                  for x, y, w in zip(got, want, (False, False, True))),
+              f'gatv2_bwd at d={d} disagrees with its plain version '
+              f'({errs[d]})')
+    return errs
 
 
 def _wrappers():
@@ -1350,6 +1418,7 @@ def main():
         # serve lgcn, train lgcn, gcn and graphsage (forward and backward)
         **launch_fields('spmm_dropout', 'lgcn'),
         'max_abs_err': k1['max_abs_err'],
+        'max_abs_err_by_width': k1['max_abs_err_by_width'],
         # times and bound: one layer, i.e. the to_user + to_item launches
         # at keep = 1 on S1, d = 64 (ms_keep_0_6: the same at keep 0.6)
         'ms': k1['ms'],
@@ -1367,7 +1436,6 @@ def main():
         **launch_fields('spmm_weighted', 'lgcn_mesh'),
         'max_abs_err': k2['max_abs_err'],
         'max_abs_err_4_shards_vs_k1': k2['max_abs_err_vs_k1'],
-        'w1_bitwise_equals_k1': k2['w1_equals_k1'],
         # times and bound: one layer (to_user + to_item) on S1, d = 64, at
         # W = 1; the *_w4_per_shard keys: one layer of one shard at W = 4
         # (mean over the four), which reads a quarter of the edges and
@@ -1392,6 +1460,8 @@ def main():
             **launch_fields(name, name.split('_')[0]),
             'max_abs_err': r['max_abs_err'],
             'max_abs_err_by_output': r['max_abs_err_by_output'],
+            **({'max_abs_err_by_width': r['max_abs_err_by_width']}
+               if 'max_abs_err_by_width' in r else {}),
             # times, plain and bound: one layer (to_user + to_item) at
             # keep 0.6, the training path, on S1, d = 64
             'ms': r['ms'],

@@ -119,6 +119,7 @@ def test_parse_args_matches_jax(argv):
     (['--model', 'lgcn', '--dropout', '1.5'], ValueError),
     (['--model', 'lgcn', '--load', 'a', '--load_base', 'b'], ValueError),
     (['--model', 'lgcn', '--refresh_every', '4'], NotImplementedError),
+    (['--model', 'lgcn', '--trace', 'out'], NotImplementedError),
     (['--model', 'gat'], ValueError),
 ])
 def test_parse_args_refuses_what_is_not_ported(argv, err):

@@ -156,6 +156,22 @@ def test_plain_outputs_at_the_sentinel():
     assert all(torch.isfinite(t).all() for t in (dhs, dhd, da))
 
 
+@pytest.mark.parametrize('aligned16', [True, False])
+def test_k6_layout_covers_every_even_width(aligned16):
+    """The wrapper's pick of K6's instance: float4 only for ``d % 4 == 0``
+    and 16-byte aligned tables, and the fewest vectors a lane (1, 2, 4, or
+    8 for float2) whose 16 lanes cover ``d``, for every even d the wrapper
+    takes."""
+    for d in range(2, gat.MAX_D + 1, 2):
+        vec, per = gat.k6_layout(d, aligned16)
+        assert vec == (4 if d % 4 == 0 and aligned16 else 2), d
+        assert per in ((1, 2, 4) if vec == 4 else (1, 2, 4, 8)), d
+        assert 16 * vec * per >= d, d
+        assert per == 1 or 16 * vec * (per // 2) < d, d
+    assert gat.k6_layout(64, True) == (4, 1)   # S1: one float4 a lane
+    assert gat.k6_layout(62, True) == (2, 2)
+
+
 def test_gatv2_kernel_wrappers_refuse_cpu_tensors():
     """A CPU tensor never reaches K5/K6: the wrappers raise, and a bad
     shape is refused before anything runs."""

@@ -135,6 +135,21 @@ def test_kernel_wrapper_refuses_cpu_tensors(graph):
     assert tspmm.spmm_dropout_cuda.launches == 0
 
 
+@pytest.mark.parametrize('aligned16', [True, False])
+def test_k1_layout_covers_every_even_width(aligned16):
+    """The wrapper's pick of K1's instance: float4 only for ``d % 4 == 0``
+    and a 16-byte aligned ``x``, and the fewest lanes (8, 16, 32) whose
+    ``lanes * vec`` columns cover ``d``, 32 for a wider ``d``."""
+    for d in range(2, 513, 2):
+        vec, lanes = tspmm.k1_layout(d, aligned16)
+        assert vec == (4 if d % 4 == 0 and aligned16 else 2), d
+        assert lanes in (8, 16, 32), d
+        assert lanes == 32 or lanes * vec >= d, d
+        assert lanes == 8 or lanes // 2 * vec < d, d
+    assert tspmm.k1_layout(64, True) == (4, 16)   # S1: a half-warp a row
+    assert tspmm.k1_layout(64, False) == (2, 32)
+
+
 @pytest.mark.parametrize('bad, err', [
     (dict(x=torch.randn(N_ITEMS + 1, D)), ValueError),
     (dict(x=torch.randn(N_ITEMS, D, dtype=torch.float64)), TypeError),

@@ -177,6 +177,9 @@ class Config:
             raise NotImplementedError(
                 '--approx_topk is not ported yet: the port serves exact '
                 'top-k')
+        if self.trace:
+            raise NotImplementedError(
+                '--trace (a profiler trace of training) is not ported yet')
 
 
 def build_argparser() -> argparse.ArgumentParser:

@@ -25,30 +25,44 @@
 // hd and g_num (15.4 or 6.4 MB each), the transpose CSR (~2.4 MB) and two
 // scalar vectors, and writes dhs and dhd: ~50-60 MB against ~15 d flops
 // per kept edge (~0.3 GFLOP), so its least time is the bytes over the
-// H100's 3.35 TB/s (~17 us). The design, kept simple for a first port:
-//   * one warp per forward source row i, as K4 (gat_bwd.cu), holding hs_i
-//     and a in registers (a float2 per lane per 64 columns); the warps walk
-//     the rows grid-stride, with as many blocks as the card holds at once;
+// H100's 3.35 TB/s (~17 us). Each kept edge also gathers two rows (hd_j,
+// g_num_j) and adds one row into dhd_j, all in the 50 MB L2.
+//
+// The first design (a whole warp on one kept edge at a time, four float2 a
+// lane for any d, 80 registers, 2 scalar float atomics a lane per edge) ran
+// at ~12% of the bound. On the H100 (PERF.md, section 6) the atomics
+// held it: this design with scalar atomics in place of vector ones ran
+// 2.1-2.9x slower, behind even the first design, and giving each half-warp
+// two edges at once instead of one changed nothing beyond 4%. In this
+// design, the to-user pass (hd, g_num and dhd of 15.4 MB each: ~59 MB with
+// hs and dhs, past the L2) loses 25-30% to the atomics and 32-33% to the
+// gathers; the to-item pass (6.4 MB tables) under 15% to both. The design:
+//   * one warp per forward source row i, walking the rows grid-stride with
+//     as many blocks as the card holds at once; each half-warp holds hs_i
+//     and a in registers, kPer vectors of kVec floats a lane (templated: at
+//     d = 64 one float4, and no dead columns in registers);
 //   * each lane hashes one edge of a 32-edge strip and fetches its m_j and
-//     g_den_j; a ballot gives the strip's kept edges and the warp walks
-//     only those: per edge every lane gathers one float2 of hd_j and of
-//     g_num_j (256-byte rows at d = 64, coalesced), and two butterflies of
-//     shuffles complete z_ij and g_num_j . hs_i in every lane;
-//   * dhs_i sums in registers and is written once;
-//   * dhd_j sums over the other axis. Of the two designs, d float
-//     atomicAdds per kept edge into a zeroed dhd (as K4's dd), or a second
-//     launch over the forward CSR (one warp per j, deterministic), this
-//     kernel takes the atomics: the second launch would repeat the gathers
-//     of hs_i, hd_j and g_num_j and the two reductions of every edge, about
-//     doubling K6's traffic, to save 64 atomics per edge that a warp issues
-//     to one contiguous 256-byte row. dhd's summation order then changes
-//     from run to run: it agrees with the plain version to f32 rounding of
-//     sums of up to ~100 terms, not bit for bit;
+//     g_den_j; a ballot gives the strip's kept edges, and the warp walks
+//     them two at a time, one per half-warp: the two edges' gathers of hd_j
+//     and g_num_j (256-byte rows at d = 64) are in flight together, and
+//     each half completes z_ij and g_num_j . hs_i with a 4-step butterfly
+//     over its 16 lanes;
+//   * dhs_i sums in registers per half; the halves are added with one
+//     shuffle when the row ends and the row is written once;
+//   * dhd_j sums over the other axis with vector atomics (CUDA 12's
+//     float4/float2 atomicAdd for global memory on compute capability 9.x):
+//     one atomic instruction per lane and vector, 16 per kept edge at
+//     d = 64 where the first design issued 64 (declared in the toolkit's
+//     crt/sm_90_rt.h). dhd's summation order changes from run to run: it
+//     agrees with the plain version to f32 rounding, not bit for bit.
+//     (A second launch over the forward CSR
+//     would be deterministic but would repeat every edge's gathers and
+//     reductions, about doubling the traffic.)
 //   * da sums per lane in registers over all the warp's edges, then over
-//     the block's warps in shared memory, then one float atomicAdd per
-//     column per block into a zeroed da: the grid-stride loop keeps the
-//     blocks, and so the atomics on those d addresses, few;
-//   * d is even and at most 256 (up to four float2 per lane).
+//     the two halves and the block's warps, then one float atomicAdd per
+//     column per block into a zeroed da;
+//   * any even d up to 256: float4 when d % 4 == 0 and every table is
+//     16-byte aligned, else float2 (the wrapper picks; ops/gat.k6_layout).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared, without
 // --use_fast_math: expf stays the accurate one (not __expf).
@@ -60,7 +74,6 @@
 namespace {
 
 constexpr int kWarpsPerBlock = 8;
-constexpr int kMaxPairs = 4;             // float2 per lane: d <= 256
 constexpr unsigned kFullMask = 0xffffffffu;
 constexpr float kSlope = 0.2f;
 
@@ -82,6 +95,41 @@ __device__ __forceinline__ float leaky(float z) {
   return z >= 0.0f ? z : kSlope * z;
 }
 
+// kVec consecutive floats at p (16- or 8-byte aligned) into registers
+template <int kVec>
+__device__ __forceinline__ void load_vec(const float* p, float (&v)[kVec]) {
+  if constexpr (kVec == 4) {
+    const float4 t = *reinterpret_cast<const float4*>(p);
+    v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
+  } else {
+    const float2 t = *reinterpret_cast<const float2*>(p);
+    v[0] = t.x; v[1] = t.y;
+  }
+}
+
+template <int kVec>
+__device__ __forceinline__ void store_vec(float* p, const float (&v)[kVec]) {
+  if constexpr (kVec == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  } else {
+    *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
+  }
+}
+
+// one vector atomic add into global memory (sm_90: atomicAdd on float4 and
+// float2)
+template <int kVec>
+__device__ __forceinline__ void atomic_add_vec(float* p,
+                                               const float (&v)[kVec]) {
+  if constexpr (kVec == 4) {
+    atomicAdd(reinterpret_cast<float4*>(p),
+              make_float4(v[0], v[1], v[2], v[3]));
+  } else {
+    atomicAdd(reinterpret_cast<float2*>(p), make_float2(v[0], v[1]));
+  }
+}
+
+template <int kVec, int kPer>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 gatv2_bwd_kernel(const int32_t* __restrict__ rowptr,
                  const int32_t* __restrict__ col,
@@ -96,19 +144,21 @@ gatv2_bwd_kernel(const int32_t* __restrict__ rowptr,
                  float* __restrict__ da,
                  int n_rows, int d, uint32_t salt, float keep,
                  int row_is_user) {
-  __shared__ float2 da_part[kWarpsPerBlock][kMaxPairs * 32];
+  constexpr int kStride = 16 * kVec;   // columns of one vector per half
+  __shared__ float da_part[kWarpsPerBlock][kPer * kStride];
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
+  const int half = lane >> 4;
+  const int sub = lane & 15;
   const bool drop = keep < 1.0f;
 
-  float2 a_v[kMaxPairs];
-  float2 da_acc[kMaxPairs];
+  float a_v[kPer][kVec], da_acc[kPer][kVec];
 #pragma unroll
-  for (int p = 0; p < kMaxPairs; ++p) {
-    const int c = 64 * p + 2 * lane;
-    a_v[p] = c < d ? *reinterpret_cast<const float2*>(a + c)
-                   : make_float2(0.0f, 0.0f);
-    da_acc[p] = make_float2(0.0f, 0.0f);
+  for (int p = 0; p < kPer; ++p) {
+    const int c = p * kStride + kVec * sub;
+#pragma unroll
+    for (int q = 0; q < kVec; ++q) a_v[p][q] = da_acc[p][q] = 0.0f;
+    if (c < d) load_vec<kVec>(a + c, a_v[p]);
   }
 
   for (int row = blockIdx.x * kWarpsPerBlock + warp; row < n_rows;
@@ -117,14 +167,13 @@ gatv2_bwd_kernel(const int32_t* __restrict__ rowptr,
     const int end = rowptr[row + 1];
     const uint32_t r = static_cast<uint32_t>(row);
     const float* hsrow = hs + static_cast<size_t>(row) * d;
-    float2 hs_v[kMaxPairs];
-    float2 acc[kMaxPairs];
+    float hs_v[kPer][kVec], acc[kPer][kVec];
 #pragma unroll
-    for (int p = 0; p < kMaxPairs; ++p) {
-      const int c = 64 * p + 2 * lane;
-      hs_v[p] = c < d ? *reinterpret_cast<const float2*>(hsrow + c)
-                      : make_float2(0.0f, 0.0f);
-      acc[p] = make_float2(0.0f, 0.0f);
+    for (int p = 0; p < kPer; ++p) {
+      const int c = p * kStride + kVec * sub;
+#pragma unroll
+      for (int q = 0; q < kVec; ++q) hs_v[p][q] = acc[p][q] = 0.0f;
+      if (c < d) load_vec<kVec>(hsrow + c, hs_v[p]);
     }
 
     for (int base = begin; base < end; base += 32) {
@@ -143,124 +192,161 @@ gatv2_bwd_kernel(const int32_t* __restrict__ rowptr,
         }
       }
       unsigned todo = __ballot_sync(kFullMask, kept);
-      while (todo) {  // the strip's kept edges
-        const int k = __ffs(todo) - 1;
+      while (todo) {  // the strip's kept edges, one per half-warp
+        const int k0 = __ffs(todo) - 1;
         todo &= todo - 1;
-        const int jk = __shfl_sync(kFullMask, j, k);
-        const float mk = __shfl_sync(kFullMask, m_j, k);
-        const float gdk = __shfl_sync(kFullMask, gden_j, k);
+        const int k1 = __ffs(todo) - 1;   // -1: half 1 has no edge
+        todo &= todo - 1;
+        const int k = half ? k1 : k0;
+        const bool valid = k >= 0;
+        const int jk = __shfl_sync(kFullMask, j, k & 31);
+        const float mk = __shfl_sync(kFullMask, m_j, k & 31);
+        const float gdk = __shfl_sync(kFullMask, gden_j, k & 31);
         const float* hdrow = hd + static_cast<size_t>(jk) * d;
         const float* grow = g_num + static_cast<size_t>(jk) * d;
-        float2 lk[kMaxPairs], slope[kMaxPairs], g[kMaxPairs];
+        float u[kPer][kVec], g[kPer][kVec];
         float z = 0.0f, dot = 0.0f;
 #pragma unroll
-        for (int p = 0; p < kMaxPairs; ++p) {
-          const int c = 64 * p + 2 * lane;
-          if (c < d) {
-            const float2 h = *reinterpret_cast<const float2*>(hdrow + c);
-            g[p] = *reinterpret_cast<const float2*>(grow + c);
-            const float ux = hs_v[p].x + h.x;
-            const float uy = hs_v[p].y + h.y;
-            lk[p] = make_float2(leaky(ux), leaky(uy));
-            slope[p] = make_float2(ux >= 0.0f ? 1.0f : kSlope,
-                                   uy >= 0.0f ? 1.0f : kSlope);
-            z += a_v[p].x * lk[p].x + a_v[p].y * lk[p].y;
-            dot += g[p].x * hs_v[p].x + g[p].y * hs_v[p].y;
-          } else {
-            lk[p] = slope[p] = g[p] = make_float2(0.0f, 0.0f);
+        for (int p = 0; p < kPer; ++p) {
+          const int c = p * kStride + kVec * sub;
+#pragma unroll
+          for (int q = 0; q < kVec; ++q) u[p][q] = g[p][q] = 0.0f;
+          if (valid && c < d) {
+            load_vec<kVec>(hdrow + c, u[p]);
+            load_vec<kVec>(grow + c, g[p]);
+          }
+#pragma unroll
+          for (int q = 0; q < kVec; ++q) {
+            u[p][q] += hs_v[p][q];
+            z += a_v[p][q] * leaky(u[p][q]);
+            dot += g[p][q] * hs_v[p][q];
           }
         }
-        // butterflies: every lane ends with the same sums
+        // butterflies over each half: all 16 lanes end with the sums
 #pragma unroll
-        for (int off = 16; off > 0; off >>= 1) {
+        for (int off = 8; off > 0; off >>= 1) {
           z += __shfl_xor_sync(kFullMask, z, off);
           dot += __shfl_xor_sync(kFullMask, dot, off);
         }
-        const float w = expf(z - mk);
-        const float dz = w * (dot + gdk);
-        float* dhdrow = dhd + static_cast<size_t>(jk) * d;
+        if (valid) {
+          const float w = expf(z - mk);
+          const float dz = w * (dot + gdk);
+          float* dhdrow = dhd + static_cast<size_t>(jk) * d;
 #pragma unroll
-        for (int p = 0; p < kMaxPairs; ++p) {
-          const int c = 64 * p + 2 * lane;
-          if (c < d) {
-            const float lx = slope[p].x * a_v[p].x * dz;
-            const float ly = slope[p].y * a_v[p].y * dz;
-            acc[p].x += w * g[p].x + lx;
-            acc[p].y += w * g[p].y + ly;
-            atomicAdd(dhdrow + c, lx);
-            atomicAdd(dhdrow + c + 1, ly);
-            da_acc[p].x += dz * lk[p].x;
-            da_acc[p].y += dz * lk[p].y;
+          for (int p = 0; p < kPer; ++p) {
+            const int c = p * kStride + kVec * sub;
+            if (c < d) {
+              float lam[kVec];
+#pragma unroll
+              for (int q = 0; q < kVec; ++q) {
+                const float uq = u[p][q];
+                lam[q] = (uq >= 0.0f ? 1.0f : kSlope) * a_v[p][q] * dz;
+                acc[p][q] += w * g[p][q] + lam[q];
+                da_acc[p][q] += dz * leaky(uq);
+              }
+              atomic_add_vec<kVec>(dhdrow + c, lam);
+            }
           }
         }
       }
     }
 
+    // the two halves' sums, then one write of the row
     float* out = dhs + static_cast<size_t>(row) * d;
 #pragma unroll
-    for (int p = 0; p < kMaxPairs; ++p) {
-      const int c = 64 * p + 2 * lane;
-      if (c < d) *reinterpret_cast<float2*>(out + c) = acc[p];
+    for (int p = 0; p < kPer; ++p) {
+      const int c = p * kStride + kVec * sub;
+#pragma unroll
+      for (int q = 0; q < kVec; ++q) {
+        acc[p][q] += __shfl_xor_sync(kFullMask, acc[p][q], 16);
+      }
+      if (half == 0 && c < d) store_vec<kVec>(out + c, acc[p]);
     }
   }
 
-  // da: the block's warps in shared memory, then one atomic per column
+  // da: the two halves, the block's warps in shared memory, then one
+  // atomic per column
 #pragma unroll
-  for (int p = 0; p < kMaxPairs; ++p) da_part[warp][p * 32 + lane] = da_acc[p];
-  __syncthreads();
-  if (warp == 0) {
+  for (int p = 0; p < kPer; ++p) {
 #pragma unroll
-    for (int p = 0; p < kMaxPairs; ++p) {
-      const int c = 64 * p + 2 * lane;
-      if (c < d) {
-        float2 s = make_float2(0.0f, 0.0f);
-        for (int w = 0; w < kWarpsPerBlock; ++w) {
-          s.x += da_part[w][p * 32 + lane].x;
-          s.y += da_part[w][p * 32 + lane].y;
-        }
-        atomicAdd(da + c, s.x);
-        atomicAdd(da + c + 1, s.y);
-      }
+    for (int q = 0; q < kVec; ++q) {
+      da_acc[p][q] += __shfl_xor_sync(kFullMask, da_acc[p][q], 16);
+      if (half == 0) da_part[warp][p * kStride + kVec * sub + q] = da_acc[p][q];
     }
   }
+  __syncthreads();
+  for (int c = threadIdx.x; c < d && c < kPer * kStride;
+       c += kWarpsPerBlock * 32) {
+    float s = 0.0f;
+    for (int w = 0; w < kWarpsPerBlock; ++w) s += da_part[w][c];
+    atomicAdd(da + c, s);
+  }
+}
+
+template <int kVec, int kPer>
+cudaError_t launch(const int32_t* rowptr, const int32_t* col,
+                   const float* hs, const float* hd, const float* a,
+                   const float* m_dst, const float* g_num, const float* g_den,
+                   float* dhs, float* dhd, float* da, int n_rows, int d,
+                   uint32_t salt, float keep, int row_is_user, int device,
+                   cudaStream_t stream) {
+  // the blocks the card holds at once, found once per device and instance
+  static int resident[64] = {0};
+  int& max_blocks = resident[device & 63];
+  if (max_blocks == 0) {
+    int sms = 0, per_sm = 0;
+    cudaError_t err = cudaDeviceGetAttribute(
+        &sms, cudaDevAttrMultiProcessorCount, device);
+    if (err != cudaSuccess) return err;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, gatv2_bwd_kernel<kVec, kPer>, kWarpsPerBlock * 32, 0);
+    if (err != cudaSuccess) return err;
+    max_blocks = sms * (per_sm > 0 ? per_sm : 1);
+  }
+  const int needed = (n_rows + kWarpsPerBlock - 1) / kWarpsPerBlock;
+  const int blocks = needed < max_blocks ? needed : max_blocks;
+  gatv2_bwd_kernel<kVec, kPer><<<blocks, kWarpsPerBlock * 32, 0, stream>>>(
+      rowptr, col, hs, hd, a, m_dst, g_num, g_den, dhs, dhd, da, n_rows, d,
+      salt, keep, row_is_user);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 // Launches K6 on `stream` (a cudaStream_t) of `device` and returns the
-// first CUDA error as an int: 0 when the launch was accepted. Allocates
-// nothing and does not synchronise. The caller has checked the shapes:
-// over the transpose CSR rowptr (n_rows + 1) and col (rowptr[n_rows]),
-// hs and dhs (n_rows, d), hd, g_num and dhd (n_cols, d), a and da (d),
-// m_dst and g_den (n_cols), all contiguous on `device`, dhd and da
-// zeroed, d even in (0, 256], n_rows > 0.
+// first CUDA error as an int: 0 when the launch was accepted, 1
+// (cudaErrorInvalidValue) for a (vec, per) pair it has no instance of.
+// Allocates nothing and does not synchronise. The caller has checked the
+// shapes: over the transpose CSR rowptr (n_rows + 1) and col
+// (rowptr[n_rows]), hs and dhs (n_rows, d), hd, g_num and dhd (n_cols, d),
+// a and da (d), m_dst and g_den (n_cols), all contiguous on `device`, dhd
+// and da zeroed, d even in (0, 256], n_rows > 0; and picked vec in {2, 4}
+// (4: d % 4 == 0 and the tables 16-byte aligned) and per, the vectors a
+// lane holds, with 16 * vec * per >= d.
 extern "C" int gatv2_bwd_f32(const int32_t* rowptr, const int32_t* col,
                              const float* hs, const float* hd,
                              const float* a, const float* m_dst,
                              const float* g_num, const float* g_den,
                              float* dhs, float* dhd, float* da, int n_rows,
                              int d, uint32_t salt, float keep,
-                             int row_is_user, int device, void* stream) {
+                             int row_is_user, int vec, int per, int device,
+                             void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  // the blocks the card holds at once, found once per device
-  static int resident[64] = {0};
-  int& max_blocks = resident[device & 63];
-  if (max_blocks == 0) {
-    int sms = 0, per_sm = 0;
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                 device);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, gatv2_bwd_kernel, kWarpsPerBlock * 32, 0);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    max_blocks = sms * (per_sm > 0 ? per_sm : 1);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define K6_LAUNCH(V, P)                                                     \
+  launch<V, P>(rowptr, col, hs, hd, a, m_dst, g_num, g_den, dhs, dhd, da, \
+               n_rows, d, salt, keep, row_is_user, device, s)
+  switch (vec * 100 + per) {
+    case 201: err = K6_LAUNCH(2, 1); break;
+    case 202: err = K6_LAUNCH(2, 2); break;
+    case 204: err = K6_LAUNCH(2, 4); break;
+    case 208: err = K6_LAUNCH(2, 8); break;
+    case 401: err = K6_LAUNCH(4, 1); break;
+    case 402: err = K6_LAUNCH(4, 2); break;
+    case 404: err = K6_LAUNCH(4, 4); break;
+    default: err = cudaErrorInvalidValue;
   }
-  const int needed = (n_rows + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  const int blocks = needed < max_blocks ? needed : max_blocks;
-  gatv2_bwd_kernel<<<blocks, kWarpsPerBlock * 32, 0,
-                     static_cast<cudaStream_t>(stream)>>>(
-      rowptr, col, hs, hd, a, m_dst, g_num, g_den, dhs, dhd, da, n_rows, d,
-      salt, keep, row_is_user);
-  return static_cast<int>(cudaGetLastError());
+#undef K6_LAUNCH
+  return static_cast<int>(err);
 }

@@ -16,20 +16,43 @@
 // same physical edges.
 //
 // What bounds it: memory traffic. One direction of the S1 graph (60k users,
-// 25k items, ~600k edges, d = 64, f32) moves ~27 MB (x table, CSR ids and
-// weights, output) for ~77 MFLOP, so its least time is the bytes over the
-// H100's 3.35 TB/s (~8 us). The design, kept simple for a first port:
-//   * one warp per destination row;
-//   * each lane loads one edge's (col, w) and computes that edge's hash, and
-//     the warp then broadcasts the 32 edges by shuffle, so the CSR is read
-//     once and coalesced;
-//   * every lane gathers a float2 of the source row per edge: 32 lanes x 8
-//     bytes is one 256-byte row at d = 64, one coalesced transaction;
+// 25k items, ~545k edges, d = 64, f32) moves ~27 MB from device memory (x
+// table, CSR ids and weights, output) for ~70 MFLOP: ~8 us at the H100's
+// 3.35 TB/s. But every kept edge gathers a whole source row, ~140 MB a
+// direction at keep 1, from the 50 MB L2 where the tables stay between
+// launches.
+//
+// What the first design (one warp per row, one float2 per lane, the warp
+// walking every edge one gather at a time) measured on the H100 (PERF.md,
+// section 6): reading cached rows instead of the edges' rows took 25%
+// off its time, consecutive rows 12%, dropping the store 2-3%, and
+// unrolling its edge loop by 4 nothing; at keep 0.6 it ran 3-7% slower
+// than at keep 1, hashing every edge and still gathering the rows of the
+// dropped ones. The design here reads no dropped row and spends fewer
+// lanes and instructions on each edge. In it, cached rows take 8-17% off
+// and no store 1-3%: the rest goes per edge and per launch, and staging
+// each strip's kept ids in shared memory in place of the shuffles gave
+// 0-8%, not taken:
+//   * a group of kLanes lanes per destination row, one kVec-float vector a
+//     lane: at d = 64 a half-warp reads a whole 256-byte row with 16-byte
+//     float4 loads, and a warp works on two rows;
+//   * each lane loads one edge of a kLanes-edge strip (col, w), coalesced,
+//     and hashes it; a ballot gives the strip's kept edges, and the group
+//     walks only those, kUnroll at a time: the kUnroll gathers are issued
+//     before their FMAs;
+//   * the next strip's (col, w) are loaded before this strip's gathers;
+//   * a dropped edge is skipped, its row never read. It would add
+//     w * 0 * x = +-0 to a sum that is never -0, which changes no bit for
+//     finite x;
+//   * each output element is acc = fmaf(w_e / keep, x[col_e][c], acc) over
+//     the row's kept edges in CSR order, as K2 (spmm_weighted.cu) adds: at
+//     keep = 1 (and with the mask multiplied into K2's weights at any keep)
+//     the two give the same bits. No row's edges are split;
 //   * the sums stay in registers and each output row is written once: no
-//     atomics, a deterministic result, zeros for rows without edges;
-//   * wider d loops over 64-column strips (d must be even).
-// Shared-memory staging, async copies and several rows per warp for short
-// rows are left for later.
+//     atomics, zeros for rows without edges;
+//   * any even d: float4 when d % 4 == 0 and x is 16-byte aligned, else
+//     float2 (the wrapper picks; ops/spmm.k1_layout), and a d wider than
+//     kLanes * kVec loops over column strips.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared, without
 // --use_fast_math: 1.0f / keep must round as IEEE division does.
@@ -41,7 +64,10 @@
 namespace {
 
 constexpr int kWarpsPerBlock = 8;
-constexpr unsigned kFullMask = 0xffffffffu;
+constexpr int kUnroll = 2;   // kept edges whose gathers a group issues at once
+// at least this many blocks an SM: with the hint ptxas gives every instance
+// 36-44 registers and no spill (without it, up to 24 spilled bytes)
+constexpr int kMinBlocks = 4;
 
 __device__ __forceinline__ bool hash_keeps(uint32_t user, uint32_t item,
                                            uint32_t salt, float keep) {
@@ -57,7 +83,27 @@ __device__ __forceinline__ bool hash_keeps(uint32_t user, uint32_t item,
   return u < keep;
 }
 
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+template <int kVec> struct Vec;
+template <> struct Vec<2> {
+  using T = float2;
+  static __device__ __forceinline__ T zero() { return make_float2(0.f, 0.f); }
+  static __device__ __forceinline__ T fma(float w, T v, T acc) {
+    return make_float2(fmaf(w, v.x, acc.x), fmaf(w, v.y, acc.y));
+  }
+};
+template <> struct Vec<4> {
+  using T = float4;
+  static __device__ __forceinline__ T zero() {
+    return make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  static __device__ __forceinline__ T fma(float w, T v, T acc) {
+    return make_float4(fmaf(w, v.x, acc.x), fmaf(w, v.y, acc.y),
+                       fmaf(w, v.z, acc.z), fmaf(w, v.w, acc.w));
+  }
+};
+
+template <int kVec, int kLanes>
+__global__ void __launch_bounds__(kWarpsPerBlock * 32, kMinBlocks)
 spmm_dropout_kernel(const int32_t* __restrict__ rowptr,
                     const int32_t* __restrict__ col,
                     const float* __restrict__ w,
@@ -65,66 +111,125 @@ spmm_dropout_kernel(const int32_t* __restrict__ rowptr,
                     float* __restrict__ out,
                     int n_dst, int d, uint32_t salt, float keep,
                     int dst_is_user) {
-  const int row = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+  using V = typename Vec<kVec>::T;
+  constexpr int kGroups = 32 / kLanes;
   const int lane = threadIdx.x & 31;
-  if (row >= n_dst) return;  // the whole warp leaves together
+  const int sub = lane & (kLanes - 1);
+  const int shift = lane - sub;   // the group's first lane
+  const unsigned group_mask =
+      kLanes == 32 ? 0xffffffffu : ((1u << kLanes) - 1u) << shift;
+  const int row =
+      (blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5)) * kGroups +
+      shift / kLanes;
+  if (row >= n_dst) return;  // the whole group leaves together
   const int begin = rowptr[row];
   const int end = rowptr[row + 1];
   const bool drop = keep < 1.0f;
   const float inv_keep = 1.0f / keep;
   const uint32_t r = static_cast<uint32_t>(row);
 
-  for (int strip = 0; strip < d; strip += 64) {
-    const int c = strip + 2 * lane;
+  for (int strip = 0; strip < d; strip += kLanes * kVec) {
+    const int c = strip + kVec * sub;
     const bool active = c < d;
-    float2 acc = make_float2(0.0f, 0.0f);
-    for (int base = begin; base < end; base += 32) {
-      const int e = base + lane;
-      int src = 0;
-      float we = 0.0f;
-      if (e < end) {
-        src = col[e];
-        const uint32_t s = static_cast<uint32_t>(src);
-        const bool kept =
-            !drop || (dst_is_user ? hash_keeps(r, s, salt, keep)
-                                  : hash_keeps(s, r, salt, keep));
-        we = kept ? w[e] * inv_keep : 0.0f;
+    V acc = Vec<kVec>::zero();
+    int next_src = 0;
+    float next_w = 0.0f;
+    if (begin + sub < end) {
+      next_src = col[begin + sub];
+      next_w = w[begin + sub];
+    }
+    for (int base = begin; base < end; base += kLanes) {  // group-uniform
+      const int src = next_src;
+      const float we = next_w * inv_keep;
+      const bool has = base + sub < end;
+      if (base + kLanes + sub < end) {  // the next strip's ids, early
+        next_src = col[base + kLanes + sub];
+        next_w = w[base + kLanes + sub];
       }
-      const int n = min(32, end - base);
-      for (int j = 0; j < n; ++j) {
-        const int sj = __shfl_sync(kFullMask, src, j);
-        const float wj = __shfl_sync(kFullMask, we, j);
-        if (active) {
-          const float2 v = *reinterpret_cast<const float2*>(
-              x + static_cast<size_t>(sj) * d + c);
-          acc.x += wj * v.x;
-          acc.y += wj * v.y;
+      const uint32_t s = static_cast<uint32_t>(src);
+      const bool kept =
+          has && (!drop || (dst_is_user ? hash_keeps(r, s, salt, keep)
+                                        : hash_keeps(s, r, salt, keep)));
+      // the group's bits only: the ballot may report other active lanes
+      unsigned todo = (__ballot_sync(group_mask, kept) & group_mask) >> shift;
+      while (todo) {  // the strip's kept edges, in CSR order
+        const int n = __popc(todo);  // of which this round takes kUnroll
+        int sj[kUnroll];
+        float wj[kUnroll];
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) {
+          const int k = (__ffs(todo) - 1) & (kLanes - 1);
+          todo &= todo - 1;
+          sj[u] = __shfl_sync(group_mask, src, k, kLanes);
+          wj[u] = __shfl_sync(group_mask, we, k, kLanes);
+        }
+        V v[kUnroll];
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) {
+          v[u] = Vec<kVec>::zero();
+          if (u < n && active) {
+            v[u] = *reinterpret_cast<const V*>(
+                x + static_cast<size_t>(sj[u]) * d + c);
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) {
+          if (u < n) acc = Vec<kVec>::fma(wj[u], v[u], acc);
         }
       }
     }
     if (active) {
-      *reinterpret_cast<float2*>(out + static_cast<size_t>(row) * d + c) =
-          acc;
+      *reinterpret_cast<V*>(out + static_cast<size_t>(row) * d + c) = acc;
     }
   }
+}
+
+template <int kVec, int kLanes>
+cudaError_t launch(const int32_t* rowptr, const int32_t* col, const float* w,
+                   const float* x, float* out, int n_dst, int d,
+                   uint32_t salt, float keep, int dst_is_user,
+                   cudaStream_t stream) {
+  constexpr int kRowsPerBlock = kWarpsPerBlock * (32 / kLanes);
+  const int blocks = (n_dst + kRowsPerBlock - 1) / kRowsPerBlock;
+  spmm_dropout_kernel<kVec, kLanes><<<blocks, kWarpsPerBlock * 32, 0,
+                                      stream>>>(
+      rowptr, col, w, x, out, n_dst, d, salt, keep, dst_is_user);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 // Launches the kernel on `stream` (a cudaStream_t) of `device` and returns
-// cudaGetLastError() as an int: 0 when the launch was accepted. Allocates
-// nothing and does not synchronise. The caller has checked the shapes:
-// rowptr (n_dst + 1), col and w (rowptr[n_dst]), x (n_src, d) and out
-// (n_dst, d), all contiguous on `device`, d even and > 0, n_dst > 0.
+// the first CUDA error as an int: 0 when the launch was accepted, 1
+// (cudaErrorInvalidValue) for a (vec, lanes) pair it has no instance of.
+// Allocates nothing and does not synchronise. The caller has checked the
+// shapes: rowptr (n_dst + 1), col and w (rowptr[n_dst]), x (n_src, d) and
+// out (n_dst, d), all contiguous on `device`, d even and > 0, n_dst > 0;
+// and picked vec in {2, 4} (4: d % 4 == 0, x and out 16-byte aligned) and
+// lanes in {8, 16, 32}, the lanes that share a row.
 extern "C" int spmm_dropout_f32(const int32_t* rowptr, const int32_t* col,
                                 const float* w, const float* x, float* out,
                                 int n_dst, int d, uint32_t salt, float keep,
-                                int dst_is_user, int device, void* stream) {
+                                int dst_is_user, int vec, int lanes,
+                                int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int blocks = (n_dst + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  spmm_dropout_kernel<<<blocks, kWarpsPerBlock * 32, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-      rowptr, col, w, x, out, n_dst, d, salt, keep, dst_is_user);
-  return static_cast<int>(cudaGetLastError());
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int key = vec * 100 + lanes;
+  switch (key) {
+    case 208: err = launch<2, 8>(rowptr, col, w, x, out, n_dst, d, salt,
+                                 keep, dst_is_user, s); break;
+    case 216: err = launch<2, 16>(rowptr, col, w, x, out, n_dst, d, salt,
+                                  keep, dst_is_user, s); break;
+    case 232: err = launch<2, 32>(rowptr, col, w, x, out, n_dst, d, salt,
+                                  keep, dst_is_user, s); break;
+    case 408: err = launch<4, 8>(rowptr, col, w, x, out, n_dst, d, salt,
+                                 keep, dst_is_user, s); break;
+    case 416: err = launch<4, 16>(rowptr, col, w, x, out, n_dst, d, salt,
+                                  keep, dst_is_user, s); break;
+    case 432: err = launch<4, 32>(rowptr, col, w, x, out, n_dst, d, salt,
+                                  keep, dst_is_user, s); break;
+    default: err = cudaErrorInvalidValue;
+  }
+  return static_cast<int>(err);
 }

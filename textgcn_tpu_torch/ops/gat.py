@@ -65,7 +65,7 @@ from .spmm import CSR, _check_args, edge_mask
 
 NEG = -2.0 ** 100    # masked-logit sentinel of the JAX package
 SLOPE = 0.2          # torch_geometric's LeakyReLU slope
-MAX_D = 256          # the kernels keep up to 4 float2 per lane
+MAX_D = 256          # K3-K5 keep up to 4 float2 a lane, K6 4 float4
 FWD_SOURCE = 'gat_fwd.cu'
 BWD_SOURCE = 'gat_bwd.cu'
 V2_FWD_SOURCE = 'gatv2_fwd.cu'
@@ -132,15 +132,15 @@ def gat_bwd_plain(csr_t: CSR, h_src: torch.Tensor, s_src: torch.Tensor,
 
 
 @functools.cache
-def _kernel_fn(source: str, symbol: str, n_ptr: int):
+def _kernel_fn(source: str, symbol: str, n_ptr: int, n_layout: int = 0):
     """A kernel's C entry point, built and bound at first use: ``n_ptr``
-    pointers, then ``n_rows, d, salt, keep, dst_is_user, device,
-    stream``."""
+    pointers, then ``n_rows, d, salt, keep, dst_is_user``, ``n_layout``
+    ints that pick the kernel's instance, ``device, stream``."""
     from .. import cuda_build
     fn = getattr(cuda_build.load(source), symbol)
     vp, ci = ctypes.c_void_p, ctypes.c_int
     fn.argtypes = [vp] * n_ptr + [ci, ci, ctypes.c_uint32, ctypes.c_float,
-                                  ci, ci, vp]
+                                  ci] + [ci] * n_layout + [ci, vp]
     fn.restype = ci
     return fn
 
@@ -159,12 +159,12 @@ def _check_cuda(name: str, d: int, tensors):
 
 
 def _launch(name: str, fn, ptrs, n_rows: int, d: int, csr: CSR, salt: int,
-            keep: float, device: torch.device):
+            keep: float, device: torch.device, layout=()):
     if (csr.rowptr.dtype, csr.col.dtype) != (torch.int32, torch.int32):
         raise TypeError('CSR must be int32 rowptr/col')
     stream = torch.cuda.current_stream(device).cuda_stream
     rc = fn(*ptrs, n_rows, d, int(salt), float(keep), int(csr.dst_is_user),
-            device.index or 0, stream)
+            *layout, device.index or 0, stream)
     if rc:
         raise RuntimeError(f'{name} kernel launch failed: CUDA error {rc}')
 
@@ -408,6 +408,18 @@ def gatv2_fwd_cuda(csr: CSR, hs_src: torch.Tensor, hd_dst: torch.Tensor,
 gatv2_fwd_cuda.launches = 0
 
 
+def k6_layout(d: int, aligned16: bool) -> tuple[int, int]:
+    """K6's instance for width ``d`` (even, at most ``MAX_D``): ``(vec,
+    per)``, the floats of one vector (4 when ``d % 4 == 0`` and every table
+    is 16-byte aligned, else 2) and the vectors each of a half-warp's 16
+    lanes holds (1, 2, 4 or, for float2, 8: the fewest that cover ``d``)."""
+    vec = 4 if d % 4 == 0 and aligned16 else 2
+    per = 1
+    while 16 * vec * per < d:
+        per *= 2
+    return vec, per
+
+
 def gatv2_bwd_cuda(csr_t: CSR, hs_src: torch.Tensor, hd_dst: torch.Tensor,
                    a: torch.Tensor, m_dst: torch.Tensor,
                    g_num: torch.Tensor, g_den: torch.Tensor, salt: int,
@@ -426,13 +438,16 @@ def gatv2_bwd_cuda(csr_t: CSR, hs_src: torch.Tensor, hd_dst: torch.Tensor,
     dhd = torch.zeros((n_dst, d), dtype=torch.float32, device=dev)
     da = torch.zeros(d, dtype=torch.float32, device=dev)
     if n_src:
-        fn = _kernel_fn(V2_BWD_SOURCE, 'gatv2_bwd_f32', 11)
+        fn = _kernel_fn(V2_BWD_SOURCE, 'gatv2_bwd_f32', 11, n_layout=2)
+        tables = (hs_src, hd_dst, a, g_num, dhs, dhd)
         _launch('gatv2_bwd', fn,
                 (csr_t.rowptr.data_ptr(), csr_t.col.data_ptr(),
                  hs_src.data_ptr(), hd_dst.data_ptr(), a.data_ptr(),
                  m_dst.data_ptr(), g_num.data_ptr(), g_den.data_ptr(),
                  dhs.data_ptr(), dhd.data_ptr(), da.data_ptr()),
-                n_src, d, csr_t, salt, keep, dev)
+                n_src, d, csr_t, salt, keep, dev,
+                layout=k6_layout(d, all(t.data_ptr() % 16 == 0
+                                        for t in tables)))
         gatv2_bwd_cuda.launches += 1
     if (dhs.shape, dhd.shape, da.shape) != (hs_src.shape, hd_dst.shape,
                                             a.shape):

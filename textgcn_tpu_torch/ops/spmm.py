@@ -191,9 +191,22 @@ def _kernel_fn():
     fn = cuda_build.load(KERNEL_SOURCE).spmm_dropout_f32
     vp, ci = ctypes.c_void_p, ctypes.c_int
     fn.argtypes = [vp, vp, vp, vp, vp, ci, ci, ctypes.c_uint32,
-                   ctypes.c_float, ci, ci, vp]
+                   ctypes.c_float, ci, ci, ci, ci, vp]
     fn.restype = ci
     return fn
+
+
+def k1_layout(d: int, aligned16: bool) -> tuple[int, int]:
+    """K1's instance for width ``d``: ``(vec, lanes)``, the floats each lane
+    loads at once (4 when ``d % 4 == 0`` and ``x`` is 16-byte aligned, else
+    2) and the lanes that share a destination row (8, 16 or 32: the fewest
+    that cover ``d`` in one strip of ``lanes * vec`` columns, 32 for wider
+    ``d``, which loops over strips)."""
+    vec = 4 if d % 4 == 0 and aligned16 else 2
+    lanes = 8
+    while lanes < 32 and lanes * vec < d:
+        lanes *= 2
+    return vec, lanes
 
 
 def spmm_dropout_cuda(csr: CSR, x: torch.Tensor, salt: int,
@@ -220,9 +233,11 @@ def spmm_dropout_cuda(csr: CSR, x: torch.Tensor, salt: int,
         return out
     fn = _kernel_fn()
     stream = torch.cuda.current_stream(x.device).cuda_stream
+    vec, lanes = k1_layout(d, x.data_ptr() % 16 == 0)
     rc = fn(csr.rowptr.data_ptr(), csr.col.data_ptr(), csr.w.data_ptr(),
             x.data_ptr(), out.data_ptr(), csr.n_dst, d, int(salt),
-            float(keep), int(csr.dst_is_user), x.device.index or 0, stream)
+            float(keep), int(csr.dst_is_user), vec, lanes,
+            x.device.index or 0, stream)
     if rc:
         raise RuntimeError(f'spmm_dropout kernel launch failed: CUDA error '
                            f'{rc}')
