@@ -33,13 +33,16 @@ Phases, each of which passes or ends the run with a non-zero exit:
    float atomics in a changing order, and its sums run over up to ~100
    terms of magnitude ~10 here) on the S1 graph, both directions, keep 1.0
    and 0.6, with unit-scale random inputs, and times kernel and plain;
+   then K4 at the widths that take its other instances (``ATT_WIDTHS``:
+   one, two, four and eight float2 a lane, two and four float4), to_user
+   at keep 0.6, with ``g_num`` scaled by sqrt(64 / d) so that
+   ``g_num . h`` spreads as at d = 64;
 5. gatv2 kernel: the same for K5 against ``gatv2_att_plain`` (atol = rtol
    = 1e-5) and K6 against ``gatv2_bwd_plain`` (atol = rtol = 1e-4 for dhs
    and dhd, summed with float atomics; da, a sum over every kept edge, to
-   1e-4 of its largest entry), then K6 at the widths that take its other
-   instances (``K6_WIDTHS``: float2 vectors, two and four float4 a lane),
-   to_user at keep 0.6, with ``a`` and ``g_num`` scaled by sqrt(64 / d) so
-   that the logits spread as at d = 64;
+   1e-4 of its largest entry), then K5 and K6 at ``ATT_WIDTHS``, to_user
+   at keep 0.6, with ``a`` and ``g_num`` scaled by sqrt(64 / d) so that
+   the logits spread as at d = 64;
 5b. labs: runs the two lab entry points at the JAX labs' full shapes, as
    a user runs them (``textgcn_tpu_torch.tools.kernel_lab.main`` with all
    five modes at bf16 and at f32 x, ``gather_lab.main`` with both modes):
@@ -121,10 +124,11 @@ GAT_BWD_TOL = 1e-4
 # widths that take the redesigned kernels' other instances, held against
 # their plain versions on one direction at keep 0.6: K1 (vec, lanes)
 # (ops/spmm.k1_layout) (4, 8), (4, 16) with idle lanes, (2, 32), (4, 32)
-# and (4, 32) over two column strips; K6 (vec, per) (ops/gat.k6_layout)
-# (2, 2), (4, 2) and (4, 4)
+# and (4, 32) over two column strips; K4, K5 and K6 (vec, per)
+# (ops/gat.att_layout) (2, 1), (2, 2), (2, 4), (4, 2), (2, 8) and (4, 4):
+# with S1's (4, 1), every instance they build
 K1_WIDTHS = (32, 48, 62, 128, 256)
-K6_WIDTHS = (62, 128, 256)
+ATT_WIDTHS = (30, 62, 126, 128, 254, 256)
 STEP_TOL = 1e-4
 TRAIN_EPOCHS = 2
 N_CHECK_USERS = 256
@@ -831,6 +835,14 @@ def agree(got, want, tol: float, whole: bool) -> bool:
     return torch.allclose(got, want, atol=tol, rtol=tol)
 
 
+def tol_share(pairs, tol: float, whole) -> float:
+    """The largest ``|got - want| / (tol + tol |want|)`` over the entries
+    of the entrywise ``(got, want)`` pairs (``whole`` marks the others):
+    ``agree`` holds while it is at most 1."""
+    return max(float(((x - y).abs() / (tol * (1 + y.abs()))).max())
+               for (x, y), w in zip(pairs, whole) if not w)
+
+
 def attention_kernel_phase(data, dev, conv: str) -> dict:
     """K3 and K4 (``conv='gat'``) or K5 and K6 (``'gatv2'``) against their
     plain versions on the S1 graph, both directions, keep 1.0 and 0.6; then
@@ -884,12 +896,13 @@ def attention_kernel_phase(data, dev, conv: str) -> dict:
                 r['max_abs_err_by_output'] = {
                     out: max(e, r['max_abs_err_by_output'].get(out, 0.0))
                     for out, e in zip(OUTPUTS[name], errs)}
+                whole = (False, False, name == 'gatv2_bwd')
                 log(f'{name} {direction} keep={keep:.7g}: '
                     f'max_abs_err={err:.3e} (by output '
                     + ', '.join(f'{out} {e:.3e} of {float(y.abs().max()):.3g}'
                                 for out, e, y in zip(OUTPUTS[name], errs, b))
-                    + ')')
-                whole = (False, False, name == 'gatv2_bwd')
+                    + f'; {tol_share(zip(a, b), tol, whole):.3f} of the '
+                    'tolerance)')
                 check(all(agree(x, y, tol, w)
                           for x, y, w in zip(a, b, whole)),
                       f'{name} {direction} keep={keep} disagrees with its '
@@ -927,42 +940,57 @@ def attention_kernel_phase(data, dev, conv: str) -> dict:
     for r in res.values():
         by = r.pop('by')
         r['bound_by'] = 'bytes' if by == {'bytes'} else 'operations'
-    if conv == 'gatv2':
-        res['gatv2_bwd']['max_abs_err_by_width'] = gatv2_bwd_widths(op, dev,
-                                                                   gen)
+    for name, errs in attention_widths(conv, op, dev, gen).items():
+        res[name]['max_abs_err_by_width'] = errs
     return res
 
 
-def gatv2_bwd_widths(op, dev, gen) -> dict[int, list[float]]:
-    """K6 against ``gatv2_bwd_plain`` at ``K6_WIDTHS``, to_user at keep
-    0.6, within phase 5's tolerances.  ``a`` and ``g_num`` are scaled by
-    sqrt(D / d), so that the logits and ``g_num . hs`` spread as at d = D:
-    unscaled they grow with sqrt(d), and so do the sums' rounding errors."""
+def attention_widths(conv: str, op, dev, gen) -> dict[str, dict]:
+    """The templated attention kernels of ``conv`` (K4 for 'gat', K5 and
+    K6 for 'gatv2') against their plain versions at ``ATT_WIDTHS``, to_user
+    at keep 0.6, within phases 4 and 5's tolerances: ``{name: {d: max abs
+    error by output}}``.  ``a`` and ``g_num`` are scaled by sqrt(D / d), so
+    that the logits and ``g_num . h`` spread as at d = D: unscaled they
+    grow with sqrt(d), and so do the sums' rounding errors."""
     from textgcn_tpu_torch.ops import gat
     fwd, bwd = op.l_i2u, op.l_u2i
-    errs = {}
-    for d in K6_WIDTHS:
+    names = ('gat_bwd',) if conv == 'gat' else ('gatv2_fwd', 'gatv2_bwd')
+    errs = {name: {} for name in names}
+
+    def rand(*shape, scale=1.0):
+        return (scale * torch.randn(*shape, generator=gen)).to(dev)
+
+    for d in ATT_WIDTHS:
         scale = (D / d) ** 0.5
-        hs = torch.randn(fwd.n_src, d, generator=gen).to(dev)
-        hd = torch.randn(fwd.n_dst, d, generator=gen).to(dev)
-        a = (0.5 * scale * torch.randn(d, generator=gen)).to(dev)
-        g_num = (scale * torch.randn(fwd.n_dst, d, generator=gen)).to(dev)
-        g_den = torch.randn(fwd.n_dst, generator=gen).to(dev)
-        m = gat.gatv2_att_plain(fwd, hs, hd, a, SALT, KEEP_DROPOUT)[2]
-        got = gat.gatv2_bwd_cuda(bwd, hs, hd, a, m, g_num, g_den, SALT,
-                                 KEEP_DROPOUT)
-        want = gat.gatv2_bwd_plain(bwd, hs, hd, a, m, g_num, g_den, SALT,
-                                   KEEP_DROPOUT)
-        torch.cuda.synchronize()
-        errs[d] = [float((x - y).abs().max()) for x, y in zip(got, want)]
-        log(f'gatv2_bwd to_user d={d} keep={KEEP_DROPOUT:.7g}: max_abs_err '
-            + ', '.join(f'{out} {e:.3e} of {float(y.abs().max()):.3g}'
-                        for out, e, y in zip(OUTPUTS['gatv2_bwd'], errs[d],
-                                             want)))
-        check(all(agree(x, y, GAT_BWD_TOL, w)
-                  for x, y, w in zip(got, want, (False, False, True))),
-              f'gatv2_bwd at d={d} disagrees with its plain version '
-              f'({errs[d]})')
+        if conv == 'gat':      # h, s, d
+            ins = (rand(fwd.n_src, d), rand(fwd.n_src), rand(fwd.n_dst))
+        else:                  # hs, hd, a
+            ins = (rand(fwd.n_src, d), rand(fwd.n_dst, d),
+                   rand(d, scale=0.5 * scale))
+        g_num, g_den = rand(fwd.n_dst, d, scale=scale), rand(fwd.n_dst)
+        fwd_plain = getattr(gat, f'{conv}_att_plain')
+        m = fwd_plain(fwd, *ins, SALT, KEEP_DROPOUT)[2]
+        for name in names:
+            if name.endswith('_fwd'):
+                args, tol = (fwd, *ins, SALT, KEEP_DROPOUT), TOL
+            else:
+                args = (bwd, *ins, m, g_num, g_den, SALT, KEEP_DROPOUT)
+                tol = GAT_BWD_TOL
+            got = getattr(gat, f'{name}_cuda')(*args)
+            want = (fwd_plain if name.endswith('_fwd') else
+                    getattr(gat, f'{name}_plain'))(*args)
+            torch.cuda.synchronize()
+            e = errs[name][d] = [float((x - y).abs().max())
+                                 for x, y in zip(got, want)]
+            whole = (False, False, name == 'gatv2_bwd')
+            log(f'{name} to_user d={d} keep={KEEP_DROPOUT:.7g}: max_abs_err '
+                + ', '.join(f'{out} {v:.3e} of {float(y.abs().max()):.3g}'
+                            for out, v, y in zip(OUTPUTS[name], e, want))
+                + f'; {tol_share(zip(got, want), tol, whole):.3f} of the '
+                'tolerance')
+            check(all(agree(x, y, tol, w)
+                      for x, y, w in zip(got, want, whole)),
+                  f'{name} at d={d} disagrees with its plain version ({e})')
     return errs
 
 

@@ -1,5 +1,6 @@
 """The port's GATv2 attention (``ops/gat.py``, K5/K6's plain twins)
-against the JAX package's, on the CPU.
+against the JAX package's, on the CPU, and the wrappers' pick of the
+K4-K6 kernel instances.
 
 K5 and K6 run only on the card, where ``chip_smoke.py`` holds them against
 ``gatv2_att_plain``/``gatv2_bwd_plain``; here the autograd function takes
@@ -158,18 +159,80 @@ def test_plain_outputs_at_the_sentinel():
 
 @pytest.mark.parametrize('aligned16', [True, False])
 def test_k6_layout_covers_every_even_width(aligned16):
-    """The wrapper's pick of K6's instance: float4 only for ``d % 4 == 0``
-    and 16-byte aligned tables, and the fewest vectors a lane (1, 2, 4, or
-    8 for float2) whose 16 lanes cover ``d``, for every even d the wrapper
-    takes."""
+    """The pick of K4's, K5's and K6's instance (``att_layout``, one rule
+    for the three): float4 only for ``d % 4 == 0`` and 16-byte aligned
+    tables, and the fewest vectors a lane (1, 2, 4, or 8 for float2) whose
+    16 lanes cover ``d``, for every even d the wrappers take; every pick is
+    one of the seven instances each source builds."""
+    instances = {(2, 1), (2, 2), (2, 4), (2, 8), (4, 1), (4, 2), (4, 4)}
     for d in range(2, gat.MAX_D + 1, 2):
-        vec, per = gat.k6_layout(d, aligned16)
+        vec, per = gat.att_layout(d, aligned16)
         assert vec == (4 if d % 4 == 0 and aligned16 else 2), d
         assert per in ((1, 2, 4) if vec == 4 else (1, 2, 4, 8)), d
         assert 16 * vec * per >= d, d
         assert per == 1 or 16 * vec * (per // 2) < d, d
-    assert gat.k6_layout(64, True) == (4, 1)   # S1: one float4 a lane
-    assert gat.k6_layout(62, True) == (2, 2)
+        assert (vec, per) in instances, d
+    assert gat.att_layout(64, True) == (4, 1)   # S1: one float4 a lane
+    assert gat.att_layout(62, True) == (2, 2)
+
+
+def table_views(shapes, misaligned: bool, seed: int = 0):
+    """Float32 tensors of ``shapes`` cut from one buffer: the first on the
+    16-byte grid, each other one on it too or, when ``misaligned``, 8
+    bytes past it."""
+    gen = torch.Generator().manual_seed(seed)
+    sizes = [int(np.prod(s)) for s in shapes]
+    flat = torch.randn(sum(sizes) + 6 * len(shapes), generator=gen)
+    out, at = [], 0
+    for shape, n in zip(shapes, sizes):
+        out.append(flat[at:at + n].view(shape))
+        at = -(-(at + n) // 4) * 4 + (2 if misaligned else 0)
+    assert flat.data_ptr() % 16 == 0
+    return out
+
+
+def capture_launches(monkeypatch) -> list:
+    """Let the kernel wrappers run on CPU tensors up to their launch, and
+    record each launch's kernel name and (vec, per) instead."""
+    seen = []
+    monkeypatch.setattr(gat, '_check_cuda', lambda name, d, tensors: None)
+    monkeypatch.setattr(gat, '_kernel_fn', lambda *a, **k: None)
+    monkeypatch.setattr(gat, '_launch', lambda name, fn, ptrs, *a,
+                        layout=(), **k: seen.append((name, layout)))
+    return seen
+
+
+@pytest.mark.parametrize('kernel', ['gat_bwd', 'gatv2_fwd', 'gatv2_bwd'])
+@pytest.mark.parametrize('misaligned', [False, True])
+def test_attention_wrappers_pick_their_instance_for_every_even_width(
+        monkeypatch, kernel, misaligned):
+    """K4's, K5's and K6's wrappers hand the kernel ``att_layout``'s pick
+    for every even d: float4 only when d % 4 == 0 and all of the tables
+    it reads in vectors lie on the 16-byte grid (K4: h, g_num and dh; K5:
+    hs, hd, a and num; K6: hs, hd, a, g_num, dhs and dhd)."""
+    seen = capture_launches(monkeypatch)
+    op = _op(*_graph())
+    for d in range(2, gat.MAX_D + 1, 2):
+        hs, hd, a, g_num = table_views([(NI, d), (NU, d), (d,), (NU, d)],
+                                       misaligned, seed=d)
+        if kernel == 'gat_bwd':
+            got = gat.gat_bwd_cuda(op.l_u2i, hs, torch.zeros(NI),
+                                   torch.zeros(NU), torch.zeros(NU), g_num,
+                                   torch.zeros(NU), SALT, KEEP)
+            want = [(NI, d), (NI,), (NU,)]
+        elif kernel == 'gatv2_fwd':
+            got = gat.gatv2_fwd_cuda(op.l_i2u, hs, hd, a, SALT, KEEP)
+            want = [(NU, d), (NU,), (NU,)]
+        else:
+            got = gat.gatv2_bwd_cuda(op.l_u2i, hs, hd, a, torch.zeros(NU),
+                                     g_num, torch.zeros(NU), SALT, KEEP)
+            want = [(NI, d), (NU, d), (d,)]
+        assert [tuple(t.shape) for t in got] == want, d
+        aligned = d % 4 == 0 and not misaligned
+        assert seen.pop() == (kernel, gat.att_layout(d, aligned)), d
+    assert not seen
+    gat.gat_bwd_cuda.launches = 0
+    gat.gatv2_fwd_cuda.launches = gat.gatv2_bwd_cuda.launches = 0
 
 
 def test_gatv2_kernel_wrappers_refuse_cpu_tensors():

@@ -65,7 +65,7 @@ from .spmm import CSR, _check_args, edge_mask
 
 NEG = -2.0 ** 100    # masked-logit sentinel of the JAX package
 SLOPE = 0.2          # torch_geometric's LeakyReLU slope
-MAX_D = 256          # K3-K5 keep up to 4 float2 a lane, K6 4 float4
+MAX_D = 256          # K3 keeps up to 4 float2 a lane, K4-K6 4 float4
 FWD_SOURCE = 'gat_fwd.cu'
 BWD_SOURCE = 'gat_bwd.cu'
 V2_FWD_SOURCE = 'gatv2_fwd.cu'
@@ -196,13 +196,30 @@ def gat_fwd_cuda(csr: CSR, h_src: torch.Tensor, s_src: torch.Tensor,
 gat_fwd_cuda.launches = 0
 
 
+def att_layout(d: int, aligned16: bool) -> tuple[int, int]:
+    """The instance of K4, K5 or K6 for width ``d`` (even, at most
+    ``MAX_D``): ``(vec, per)``, the floats of one vector (4 when ``d % 4 ==
+    0`` and every table is 16-byte aligned, else 2) and the vectors each of
+    a half-warp's 16 lanes holds (1, 2, 4 or, for float2, 8: the fewest
+    that cover ``d``)."""
+    vec = 4 if d % 4 == 0 and aligned16 else 2
+    per = 1
+    while 16 * vec * per < d:
+        per *= 2
+    return vec, per
+
+
+def _pick_layout(d: int, tables) -> tuple[int, int]:
+    return att_layout(d, all(t.data_ptr() % 16 == 0 for t in tables))
+
+
 def gat_bwd_cuda(csr_t: CSR, h_src: torch.Tensor, s_src: torch.Tensor,
                  d_dst: torch.Tensor, m_dst: torch.Tensor,
                  g_num: torch.Tensor, g_den: torch.Tensor, salt: int,
                  keep: float):
     """Launch K4 on PyTorch's current stream over the transpose CSR;
-    ``dd`` is summed with one float ``atomicAdd`` per edge into a zeroed
-    buffer allocated here."""
+    ``dd`` is summed with one float ``atomicAdd`` per kept edge into a
+    zeroed buffer allocated here."""
     n_src, n_dst = csr_t.n_dst, csr_t.n_src
     _check_args(csr_t, g_num, salt, keep)
     d = g_num.shape[1]
@@ -220,13 +237,14 @@ def gat_bwd_cuda(csr_t: CSR, h_src: torch.Tensor, s_src: torch.Tensor,
     dd = torch.zeros(n_dst, dtype=torch.float32, device=dev)
     if n_src == 0:
         return dh, ds, dd
-    fn = _kernel_fn(BWD_SOURCE, 'gat_bwd_f32', 11)
+    fn = _kernel_fn(BWD_SOURCE, 'gat_bwd_f32', 11, n_layout=2)
     _launch('gat_bwd', fn,
             (csr_t.rowptr.data_ptr(), csr_t.col.data_ptr(),
              h_src.data_ptr(), s_src.data_ptr(), d_dst.data_ptr(),
              m_dst.data_ptr(), g_num.data_ptr(), g_den.data_ptr(),
              dh.data_ptr(), ds.data_ptr(), dd.data_ptr()),
-            n_src, d, csr_t, salt, keep, dev)
+            n_src, d, csr_t, salt, keep, dev,
+            layout=_pick_layout(d, (h_src, g_num, dh)))
     gat_bwd_cuda.launches += 1
     return dh, ds, dd
 
@@ -395,29 +413,18 @@ def gatv2_fwd_cuda(csr: CSR, hs_src: torch.Tensor, hd_dst: torch.Tensor,
     m = torch.empty(csr.n_dst, dtype=torch.float32, device=dev)
     if csr.n_dst == 0:
         return num, den, m
-    fn = _kernel_fn(V2_FWD_SOURCE, 'gatv2_fwd_f32', 8)
+    fn = _kernel_fn(V2_FWD_SOURCE, 'gatv2_fwd_f32', 8, n_layout=2)
     _launch('gatv2_fwd', fn,
             (csr.rowptr.data_ptr(), csr.col.data_ptr(), hs_src.data_ptr(),
              hd_dst.data_ptr(), a.data_ptr(), num.data_ptr(),
              den.data_ptr(), m.data_ptr()),
-            csr.n_dst, d, csr, salt, keep, dev)
+            csr.n_dst, d, csr, salt, keep, dev,
+            layout=_pick_layout(d, (hs_src, hd_dst, a, num)))
     gatv2_fwd_cuda.launches += 1
     return num, den, m
 
 
 gatv2_fwd_cuda.launches = 0
-
-
-def k6_layout(d: int, aligned16: bool) -> tuple[int, int]:
-    """K6's instance for width ``d`` (even, at most ``MAX_D``): ``(vec,
-    per)``, the floats of one vector (4 when ``d % 4 == 0`` and every table
-    is 16-byte aligned, else 2) and the vectors each of a half-warp's 16
-    lanes holds (1, 2, 4 or, for float2, 8: the fewest that cover ``d``)."""
-    vec = 4 if d % 4 == 0 and aligned16 else 2
-    per = 1
-    while 16 * vec * per < d:
-        per *= 2
-    return vec, per
 
 
 def gatv2_bwd_cuda(csr_t: CSR, hs_src: torch.Tensor, hd_dst: torch.Tensor,
@@ -439,15 +446,14 @@ def gatv2_bwd_cuda(csr_t: CSR, hs_src: torch.Tensor, hd_dst: torch.Tensor,
     da = torch.zeros(d, dtype=torch.float32, device=dev)
     if n_src:
         fn = _kernel_fn(V2_BWD_SOURCE, 'gatv2_bwd_f32', 11, n_layout=2)
-        tables = (hs_src, hd_dst, a, g_num, dhs, dhd)
         _launch('gatv2_bwd', fn,
                 (csr_t.rowptr.data_ptr(), csr_t.col.data_ptr(),
                  hs_src.data_ptr(), hd_dst.data_ptr(), a.data_ptr(),
                  m_dst.data_ptr(), g_num.data_ptr(), g_den.data_ptr(),
                  dhs.data_ptr(), dhd.data_ptr(), da.data_ptr()),
                 n_src, d, csr_t, salt, keep, dev,
-                layout=k6_layout(d, all(t.data_ptr() % 16 == 0
-                                        for t in tables)))
+                layout=_pick_layout(d, (hs_src, hd_dst, a, g_num, dhs,
+                                        dhd)))
         gatv2_bwd_cuda.launches += 1
     if (dhs.shape, dhd.shape, da.shape) != (hs_src.shape, hd_dst.shape,
                                             a.shape):
