@@ -26,8 +26,9 @@ Phases, each of which passes or ends the run with a non-zero exit:
    sum of the four shards' outputs against K1 on the full CSR with the
    same salt, all within atol = rtol = 1e-5; times K2 on one layer at W =
    1 and per shard at W = 4, the plain version and ``torch.sparse.mm``
-   with the same weights (a yardstick the port never calls); K2 at W = 1
-   must give K1's bits at both keeps (same weights, same order of sums);
+   with the same weights (a yardstick the port never calls), at keep 1.0
+   and 0.6; K2 at W = 1 must give K1's bits at both keeps (same weights,
+   same order of sums);
 4. gat kernel: holds K3 against ``gat_att_plain`` (atol = rtol = 1e-5) and
    K4 against ``gat_bwd_plain`` (atol = rtol = 1e-4: K4 sums dd with
    float atomics in a changing order, and its sums run over up to ~100
@@ -229,14 +230,16 @@ def time_ms(*args, **kwargs) -> dict[str, float]:
     return timing.time_ms(*args, **kwargs)
 
 
-def bound_ms(csr, d: int) -> tuple[float, str]:
+def bound_ms(csr, d: int, n_kept: int | None = None) -> tuple[float, str]:
     """Least time for one direction on the card: every input read once
-    (x table, CSR), the output written once, and 2*E*d f32 operations,
-    against the published peaks."""
+    (x table, CSR), the output written once, and 2*d f32 operations for
+    each of the ``n_kept`` edges whose weight is not 0 (default: every
+    edge), against the published peaks."""
     nbytes = 4 * (csr.n_src * d + csr.rowptr.numel() + csr.col.numel()
                   + csr.w.numel() + csr.n_dst * d)
     from textgcn_tpu_torch.tools import timing
-    return timing.bound_ms(nbytes, 2 * csr.n_edges * d)
+    n_kept = csr.n_edges if n_kept is None else n_kept
+    return timing.bound_ms(nbytes, 2 * n_kept * d)
 
 
 def kernel_phase(data, dev) -> dict:
@@ -323,10 +326,12 @@ def k2_phase(data, dev) -> dict:
     op = GraphOp(g.edge_user, g.edge_item, g.edge_weight, data.n_users,
                  data.n_items, dev)
     gen = torch.Generator().manual_seed(4)
-    res = {'max_abs_err': 0.0, 'max_abs_err_vs_k1': 0.0, 'ms': 0.0,
-           'plain_ms': 0.0, 'library_ms': 0.0, 'bound_ms': 0.0,
-           'ms_w4_per_shard': 0.0, 'plain_ms_w4_per_shard': 0.0,
-           'bound_ms_w4_per_shard': 0.0}
+    res = {'max_abs_err': 0.0, 'max_abs_err_vs_k1': 0.0}
+    res.update((f'{t}{key}', 0.0)
+               for t in ('ms', 'plain_ms', 'library_ms', 'bound_ms',
+                         'ms_w4_per_shard', 'plain_ms_w4_per_shard',
+                         'bound_ms_w4_per_shard')
+               for key in ('', '_keep_0_6'))
     by = set()
     for direction, full, src, dst, n_src, n_dst, dst_is_user in (
             ('to_user', op.l_i2u, g.edge_item, g.edge_user, data.n_items,
@@ -379,43 +384,49 @@ def k2_phase(data, dev) -> dict:
                 else:
                     res['max_abs_err_vs_k1'] = max(res['max_abs_err_vs_k1'],
                                                    err_k1)
-            if n_ranks == 1:
-                csr, w = shards[0].csr, weights[0, 1.0]
-                with warnings.catch_warnings():   # "sparse CSR is in beta"
-                    warnings.simplefilter('ignore', UserWarning)
-                    lib = torch.sparse_csr_tensor(csr.rowptr, csr.col, w,
-                                                  size=(csr.n_dst, csr.n_src))
-                t = time_ms({'plain': lambda: spmm_weighted_plain(csr, w, x),
-                             'kernel': lambda: spmm_weighted_cuda(csr, w, x),
-                             'library': lambda: torch.sparse.mm(lib, x)},
-                            ['plain', 'kernel', 'library', 'library',
-                             'kernel', 'plain'])
-                b, b_by = bound_ms(csr, D)
-                by.add(b_by)
-                log(f'timing K2 {direction} W=1 (E={csr.n_edges}, '
-                    f'{csr.n_dst}x{csr.n_src}, d={D}): kernel '
-                    f'{t["kernel"]:.4f} ms, plain {t["plain"]:.4f} ms, '
-                    f'torch.sparse.mm {t["library"]:.4f} ms, bound '
-                    f'{b:.4f} ms ({b_by})')
-                res['ms'] += t['kernel']
-                res['plain_ms'] += t['plain']
-                res['library_ms'] += t['library']
-                res['bound_ms'] += b
-                continue
-            for r, sh in enumerate(shards):
-                xr, w = x[r * per:(r + 1) * per], weights[r, 1.0]
-                t = time_ms(
-                    {'kernel': lambda: spmm_weighted_cuda(sh.csr, w, xr),
-                     'plain': lambda: spmm_weighted_plain(sh.csr, w, xr)},
-                    ['plain', 'kernel', 'kernel', 'plain'])
-                b, _ = bound_ms(sh.csr, D)
-                log(f'timing K2 {direction} W=4 shard {r} (E='
-                    f'{sh.csr.n_edges}, {sh.csr.n_dst}x{sh.csr.n_src}): '
-                    f'kernel {t["kernel"]:.4f} ms, plain {t["plain"]:.4f} ms, '
-                    f'bound {b:.4f} ms')
-                res['ms_w4_per_shard'] += t['kernel'] / n_ranks
-                res['plain_ms_w4_per_shard'] += t['plain'] / n_ranks
-                res['bound_ms_w4_per_shard'] += b / n_ranks
+            for keep in (1.0, KEEP_DROPOUT):
+                key = '' if keep >= 1.0 else '_keep_0_6'
+                if n_ranks == 1:
+                    csr, w = shards[0].csr, weights[0, keep]
+                    with warnings.catch_warnings():   # "sparse CSR is in beta"
+                        warnings.simplefilter('ignore', UserWarning)
+                        lib = torch.sparse_csr_tensor(
+                            csr.rowptr, csr.col, w,
+                            size=(csr.n_dst, csr.n_src))
+                    t = time_ms(
+                        {'plain': lambda: spmm_weighted_plain(csr, w, x),
+                         'kernel': lambda: spmm_weighted_cuda(csr, w, x),
+                         'library': lambda: torch.sparse.mm(lib, x)},
+                        ['plain', 'kernel', 'library', 'library', 'kernel',
+                         'plain'])
+                    n_kept = int((w != 0).sum())
+                    b, b_by = bound_ms(csr, D, n_kept)
+                    by.add(b_by)
+                    log(f'timing K2 {direction} W=1 keep={keep:.7g} (E='
+                        f'{csr.n_edges}, kept {n_kept}, {csr.n_dst}x'
+                        f'{csr.n_src}, d={D}): kernel {t["kernel"]:.4f} ms, '
+                        f'plain {t["plain"]:.4f} ms, torch.sparse.mm '
+                        f'{t["library"]:.4f} ms, bound {b:.4f} ms ({b_by})')
+                    res['ms' + key] += t['kernel']
+                    res['plain_ms' + key] += t['plain']
+                    res['library_ms' + key] += t['library']
+                    res['bound_ms' + key] += b
+                    continue
+                for r, sh in enumerate(shards):
+                    xr, w = x[r * per:(r + 1) * per], weights[r, keep]
+                    t = time_ms(
+                        {'kernel': lambda: spmm_weighted_cuda(sh.csr, w, xr),
+                         'plain': lambda: spmm_weighted_plain(sh.csr, w, xr)},
+                        ['plain', 'kernel', 'kernel', 'plain'])
+                    n_kept = int((w != 0).sum())
+                    b, _ = bound_ms(sh.csr, D, n_kept)
+                    log(f'timing K2 {direction} W=4 shard {r} keep={keep:.7g}'
+                        f' (E={sh.csr.n_edges}, kept {n_kept}, {sh.csr.n_dst}'
+                        f'x{sh.csr.n_src}): kernel {t["kernel"]:.4f} ms, '
+                        f'plain {t["plain"]:.4f} ms, bound {b:.4f} ms')
+                    res['ms_w4_per_shard' + key] += t['kernel'] / n_ranks
+                    res['plain_ms_w4_per_shard' + key] += t['plain'] / n_ranks
+                    res['bound_ms_w4_per_shard' + key] += b / n_ranks
     log('clocks after timing (sm, max sm, power, temperature): '
         + nvidia_smi('clocks.sm,clocks.max.sm,power.draw,temperature.gpu'))
     res['bound_by'] = 'bytes' if by == {'bytes'} else 'operations'
@@ -1476,6 +1487,12 @@ def main():
         'ms_w4_per_shard': k2['ms_w4_per_shard'],
         'plain_ms_w4_per_shard': k2['plain_ms_w4_per_shard'],
         'bound_ms_w4_per_shard': k2['bound_ms_w4_per_shard'],
+        # the same with the keep-0.6 hash mask multiplied into the weights,
+        # as the mesh path's training steps run K2
+        **{f'{t}_keep_0_6': k2[f'{t}_keep_0_6']
+           for t in ('ms', 'plain_ms', 'library_ms', 'bound_ms',
+                     'ms_w4_per_shard', 'plain_ms_w4_per_shard',
+                     'bound_ms_w4_per_shard')},
     }]
     for name, line in (('gat_fwd', 201), ('gat_bwd', 293),
                        ('gatv2_fwd', 647), ('gatv2_bwd', 715)):
