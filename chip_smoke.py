@@ -28,16 +28,19 @@ Phases, each of which passes or ends the run with a non-zero exit:
    1 and per shard at W = 4, the plain version and ``torch.sparse.mm``
    with the same weights (a yardstick the port never calls), at keep 1.0
    and 0.6; K2 at W = 1 must give K1's bits at both keeps (same weights,
-   same order of sums);
-4. gat kernel: holds K3 against ``gat_att_plain`` (atol = rtol = 1e-5) and
-   K4 against ``gat_bwd_plain`` (atol = rtol = 1e-4: K4 sums dd with
-   float atomics in a changing order, and its sums run over up to ~100
-   terms of magnitude ~10 here) on the S1 graph, both directions, keep 1.0
-   and 0.6, with unit-scale random inputs, and times kernel and plain;
-   then K4 at the widths that take its other instances (``ATT_WIDTHS``:
-   one, two, four and eight float2 a lane, two and four float4), to_user
-   at keep 0.6, with ``g_num`` scaled by sqrt(64 / d) so that
-   ``g_num . h`` spreads as at d = 64;
+   same order of sums); then K2 on the W = 1 to_user shard at keep 0.6 at
+   the widths that take its other instances (``K2_WIDTHS``), within 1e-5
+   of ``spmm_weighted_plain`` and bit-equal to K1 at each;
+4. gat kernel: holds K3 against ``gat_att_plain`` (atol = rtol = 1e-5; its
+   ``m``, the max over the kept logits that K4 reads, bit for bit) and K4,
+   fed K3's ``m``, against ``gat_bwd_plain`` (atol = rtol = 1e-4: K4 sums
+   dd with float atomics in a changing order, and its sums run over up to
+   ~100 terms of magnitude ~10 here) on the S1 graph, both directions,
+   keep 1.0 and 0.6, with unit-scale random inputs, and times kernel and
+   plain; then K3 and K4 at the widths that take their other instances
+   (``ATT_WIDTHS``: one, two, four and eight float2 a lane, two and four
+   float4), to_user at keep 0.6, with ``g_num`` scaled by sqrt(64 / d) so
+   that ``g_num . h`` spreads as at d = 64;
 5. gatv2 kernel: the same for K5 against ``gatv2_att_plain`` (atol = rtol
    = 1e-5) and K6 against ``gatv2_bwd_plain`` (atol = rtol = 1e-4 for dhs
    and dhd, summed with float atomics; da, a sum over every kept edge, to
@@ -88,8 +91,8 @@ Phases, each of which passes or ends the run with a non-zero exit:
 10. timing: ms per training step and examples/s of each model at S1, split
    into sampling, forward, backward and Adam (host clock around
    synchronised work), the host's enqueue share of an unsynchronised run
-   of steps, and the device's busy time per step from a ``torch.profiler``
-   trace of 10 more.
+   of steps, and the device's busy time per step, and each hand-written
+   kernel's, from a ``torch.profiler`` trace of 10 more.
 
 The line before the last is ``{"kernels": [...]}`` with each kernel's
 launches on the main paths (K1-K6) or the lab paths (L1-L3), error,
@@ -123,12 +126,14 @@ KEEP_DROPOUT = float(np.float32(1.0 - 0.4))   # float32(1 - p), p = 0.4
 TOL = 1e-5
 GAT_BWD_TOL = 1e-4
 # widths that take the redesigned kernels' other instances, held against
-# their plain versions on one direction at keep 0.6: K1 (vec, lanes)
-# (ops/spmm.k1_layout) (4, 8), (4, 16) with idle lanes, (2, 32), (4, 32)
-# and (4, 32) over two column strips; K4, K5 and K6 (vec, per)
-# (ops/gat.att_layout) (2, 1), (2, 2), (2, 4), (4, 2), (2, 8) and (4, 4):
-# with S1's (4, 1), every instance they build
+# their plain versions on one direction at keep 0.6: K1 and K2 (vec,
+# lanes) (ops/spmm.k1_layout) (4, 8), (4, 16) with idle lanes, (2, 32),
+# (4, 32) and (4, 32) over two column strips, and for K2 also (2, 8) and
+# (2, 16), with S1's (4, 16) every instance it builds; K3, K4, K5 and K6
+# (vec, per) (ops/gat.att_layout) (2, 1), (2, 2), (2, 4), (4, 2), (2, 8)
+# and (4, 4): with S1's (4, 1), every instance they build
 K1_WIDTHS = (32, 48, 62, 128, 256)
+K2_WIDTHS = (14, 30) + K1_WIDTHS
 ATT_WIDTHS = (30, 62, 126, 128, 254, 256)
 STEP_TOL = 1e-4
 TRAIN_EPOCHS = 2
@@ -349,6 +354,8 @@ def k2_phase(data, dev) -> dict:
                                   n_ranks, r, dst_is_user, dev)
                       for r in range(n_ranks)]
             weights = {}
+            if (direction, n_ranks) == ('to_user', 1):
+                w1_to_user = shards[0], weights
             for keep in (1.0, KEEP_DROPOUT):
                 total = torch.zeros(n_dst_p, D, device=dev)
                 for r, sh in enumerate(shards):
@@ -430,6 +437,25 @@ def k2_phase(data, dev) -> dict:
     log('clocks after timing (sm, max sm, power, temperature): '
         + nvidia_smi('clocks.sm,clocks.max.sm,power.draw,temperature.gpu'))
     res['bound_by'] = 'bytes' if by == {'bytes'} else 'operations'
+
+    # K2's other instances: the W = 1 to_user shard at keep 0.6
+    sh, weights = w1_to_user
+    w = weights[0, KEEP_DROPOUT]
+    res['max_abs_err_by_width'] = {}
+    for d in K2_WIDTHS:
+        x = torch.randn(sh.csr.n_src, d, generator=gen).to(dev)
+        got = spmm_weighted_cuda(sh.csr, w, x)
+        want = spmm_weighted_plain(sh.csr, w, x)
+        k1 = spmm_dropout_cuda(op.l_i2u, x, SALT, KEEP_DROPOUT)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        res['max_abs_err_by_width'][d] = err
+        log(f'K2 to_user W=1 d={d} keep={KEEP_DROPOUT:.7g}: max_abs_err '
+            f'{err:.3e}, bit-equal to K1 {torch.equal(got, k1)}')
+        check(torch.allclose(got, want, atol=TOL, rtol=TOL),
+              f'K2 at d={d} disagrees with spmm_weighted_plain (max abs err '
+              f'{err:.3e})')
+        check(torch.equal(got, k1), f'K2 at d={d} is not bit-equal to K1')
     return res
 
 
@@ -894,7 +920,7 @@ def attention_kernel_phase(data, dev, conv: str) -> dict:
         for keep in (1.0, KEEP_DROPOUT):
             got = kernels[0](fwd, *ins, SALT, keep)
             want = plains[0](fwd, *ins, SALT, keep)
-            m = want[2]
+            m = got[2]   # the backward reads the forward kernel's max
             got_b = kernels[1](bwd, *ins, m, g_num, g_den, SALT, keep)
             want_b = plains[1](bwd, *ins, m, g_num, g_den, SALT, keep)
             torch.cuda.synchronize()
@@ -918,6 +944,9 @@ def attention_kernel_phase(data, dev, conv: str) -> dict:
                           for x, y, w in zip(a, b, whole)),
                       f'{name} {direction} keep={keep} disagrees with its '
                       f'plain version (max abs err {err:.3e})')
+                check(name != 'gat_fwd' or torch.equal(a[2], b[2]),
+                      f'K3 {direction} keep={keep}: m is not the max of '
+                      f'the kept logits bit for bit')
         n_kept = int(edge_mask(fwd, SALT, KEEP_DROPOUT)[2].sum())
         for name, csr, kernel, plain, extra in (
                 (names[0], fwd, kernels[0], plains[0], ()),
@@ -957,15 +986,16 @@ def attention_kernel_phase(data, dev, conv: str) -> dict:
 
 
 def attention_widths(conv: str, op, dev, gen) -> dict[str, dict]:
-    """The templated attention kernels of ``conv`` (K4 for 'gat', K5 and
-    K6 for 'gatv2') against their plain versions at ``ATT_WIDTHS``, to_user
-    at keep 0.6, within phases 4 and 5's tolerances: ``{name: {d: max abs
-    error by output}}``.  ``a`` and ``g_num`` are scaled by sqrt(D / d), so
-    that the logits and ``g_num . h`` spread as at d = D: unscaled they
-    grow with sqrt(d), and so do the sums' rounding errors."""
+    """The templated attention kernels of ``conv`` (K3 and K4 for 'gat', K5
+    and K6 for 'gatv2') against their plain versions at ``ATT_WIDTHS``,
+    to_user at keep 0.6, within phases 4 and 5's tolerances: ``{name: {d:
+    max abs error by output}}``.  ``a`` and ``g_num`` are scaled by
+    sqrt(D / d), so that the logits and ``g_num . h`` spread as at d = D:
+    unscaled they grow with sqrt(d), and so do the sums' rounding
+    errors."""
     from textgcn_tpu_torch.ops import gat
     fwd, bwd = op.l_i2u, op.l_u2i
-    names = ('gat_bwd',) if conv == 'gat' else ('gatv2_fwd', 'gatv2_bwd')
+    names = (f'{conv}_fwd', f'{conv}_bwd')
     errs = {name: {} for name in names}
 
     def rand(*shape, scale=1.0):
@@ -1002,6 +1032,9 @@ def attention_widths(conv: str, op, dev, gen) -> dict[str, dict]:
             check(all(agree(x, y, tol, w)
                       for x, y, w in zip(got, want, whole)),
                   f'{name} at d={d} disagrees with its plain version ({e})')
+            check(name != 'gat_fwd' or torch.equal(got[2], want[2]),
+                  f'K3 at d={d}: m is not the max of the kept logits bit '
+                  'for bit')
     return errs
 
 
@@ -1254,8 +1287,9 @@ def device_ms_per_step(trainer, batches, trace_dir: str) -> tuple:
     """Device time of ``len(batches)`` training steps from a
     ``torch.profiler`` trace: the summed durations of its kernel, memcpy
     and memset events (one stream, so they do not overlap) per step, the
-    number of those events per step, and the five kernels that take most
-    of the time."""
+    number of those events per step, the five kernels that take most of
+    the time, and the time of each hand-written kernel (``<name>_kernel``
+    of a ``_wrappers()`` name) per step."""
     from torch.profiler import ProfilerActivity, profile
     model = trainer.model
     with profile(activities=[ProfilerActivity.CPU,
@@ -1277,8 +1311,10 @@ def device_ms_per_step(trainer, batches, trace_dir: str) -> tuple:
             by_name[name] = by_name.get(name, 0.0) + e['dur'] / 1e3
     n = len(batches)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    ours = {name: by_name[f'{name}_kernel'] / n for name in _wrappers()
+            if f'{name}_kernel' in by_name}
     return (sum(by_name.values()) / n, n_events / n,
-            [(name, ms / n) for name, ms in top])
+            [(name, ms / n) for name, ms in top], ours)
 
 
 def timing_phase(trainer, card: str, trace_dir: str,
@@ -1334,7 +1370,8 @@ def timing_phase(trainer, card: str, trace_dir: str,
     out['examples_per_s'] = BATCH * n_steps / t_total
     out['host_enqueue_share'] = t_enqueue / t_total
     out['launches_per_step'] = per_step
-    out['device'], out['device_events'], top = device_ms_per_step(
+    (out['device'], out['device_events'], top,
+     out['kernel_ms']) = device_ms_per_step(
         trainer, batches[n_steps:n_steps + 10], trace_dir)
     out['device_busy_share'] = out['device'] / out['step']
     log(f'timing train {model.cfg.model} at S1 ({card}): sampling '
@@ -1347,7 +1384,10 @@ def timing_phase(trainer, card: str, trace_dir: str,
         f'step {json.dumps(per_step)}; device busy {out["device"]:.3f} ms '
         f'a step (share {out["device_busy_share"]:.3f}) in '
         f'{out["device_events"]:.0f} kernels and copies, most in '
-        + ', '.join(f'{name} {ms:.3f} ms' for name, ms in top))
+        + ', '.join(f'{name} {ms:.3f} ms' for name, ms in top)
+        + '; hand-written kernels a step: '
+        + ', '.join(f'{name} {ms:.4f} ms'
+                    for name, ms in out['kernel_ms'].items()))
     return out
 
 
@@ -1475,6 +1515,7 @@ def main():
         **launch_fields('spmm_weighted', 'lgcn_mesh'),
         'max_abs_err': k2['max_abs_err'],
         'max_abs_err_4_shards_vs_k1': k2['max_abs_err_vs_k1'],
+        'max_abs_err_by_width': k2['max_abs_err_by_width'],
         # times and bound: one layer (to_user + to_item) on S1, d = 64, at
         # W = 1; the *_w4_per_shard keys: one layer of one shard at W = 4
         # (mean over the four), which reads a quarter of the edges and
@@ -1548,6 +1589,7 @@ def main():
                  'host_enqueue_share': timing[m]['host_enqueue_share'],
                  'device_ms_per_step': timing[m]['device'],
                  'device_busy_share': timing[m]['device_busy_share'],
+                 'kernel_device_ms_per_step': timing[m]['kernel_ms'],
                  'step_vs_plain_max_abs_err': trained.get(m, {}).get(
                      'step_err')}
              for m in timing}

@@ -1,6 +1,6 @@
 """The port's GATv2 attention (``ops/gat.py``, K5/K6's plain twins)
 against the JAX package's, on the CPU, and the wrappers' pick of the
-K4-K6 kernel instances.
+K3-K6 kernel instances.
 
 K5 and K6 run only on the card, where ``chip_smoke.py`` holds them against
 ``gatv2_att_plain``/``gatv2_bwd_plain``; here the autograd function takes
@@ -202,20 +202,27 @@ def capture_launches(monkeypatch) -> list:
     return seen
 
 
-@pytest.mark.parametrize('kernel', ['gat_bwd', 'gatv2_fwd', 'gatv2_bwd'])
+@pytest.mark.parametrize('kernel',
+                         ['gat_fwd', 'gat_bwd', 'gatv2_fwd', 'gatv2_bwd'])
 @pytest.mark.parametrize('misaligned', [False, True])
 def test_attention_wrappers_pick_their_instance_for_every_even_width(
         monkeypatch, kernel, misaligned):
-    """K4's, K5's and K6's wrappers hand the kernel ``att_layout``'s pick
-    for every even d: float4 only when d % 4 == 0 and all of the tables
-    it reads in vectors lie on the 16-byte grid (K4: h, g_num and dh; K5:
-    hs, hd, a and num; K6: hs, hd, a, g_num, dhs and dhd)."""
+    """K3's, K4's, K5's and K6's wrappers hand the kernel ``att_layout``'s
+    pick for every even d: float4 only when d % 4 == 0 and all of the
+    tables it reads or writes in vectors lie on the 16-byte grid (K3: h and
+    num; K4: h, g_num and dh; K5: hs, hd, a and num; K6: hs, hd, a, g_num,
+    dhs and dhd)."""
     seen = capture_launches(monkeypatch)
     op = _op(*_graph())
     for d in range(2, gat.MAX_D + 1, 2):
         hs, hd, a, g_num = table_views([(NI, d), (NU, d), (d,), (NU, d)],
                                        misaligned, seed=d)
-        if kernel == 'gat_bwd':
+        if kernel == 'gat_fwd':
+            # to_item, so that h is hd, a table that moves off the grid
+            got = gat.gat_fwd_cuda(op.l_u2i, hd, torch.zeros(NU),
+                                   torch.zeros(NI), SALT, KEEP)
+            want = [(NI, d), (NI,), (NI,)]
+        elif kernel == 'gat_bwd':
             got = gat.gat_bwd_cuda(op.l_u2i, hs, torch.zeros(NI),
                                    torch.zeros(NU), torch.zeros(NU), g_num,
                                    torch.zeros(NU), SALT, KEEP)
@@ -231,7 +238,7 @@ def test_attention_wrappers_pick_their_instance_for_every_even_width(
         aligned = d % 4 == 0 and not misaligned
         assert seen.pop() == (kernel, gat.att_layout(d, aligned)), d
     assert not seen
-    gat.gat_bwd_cuda.launches = 0
+    gat.gat_fwd_cuda.launches = gat.gat_bwd_cuda.launches = 0
     gat.gatv2_fwd_cuda.launches = gat.gatv2_bwd_cuda.launches = 0
 
 

@@ -6,6 +6,8 @@ against ``spmm_plain`` there); on the CPU the wrapper takes the plain
 version, and the kernel's launch counter must stay at 0.
 """
 
+import types
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -148,6 +150,39 @@ def test_k1_layout_covers_every_even_width(aligned16):
         assert lanes == 8 or lanes // 2 * vec < d, d
     assert tspmm.k1_layout(64, True) == (4, 16)   # S1: a half-warp a row
     assert tspmm.k1_layout(64, False) == (2, 32)
+
+
+@pytest.mark.parametrize('misaligned', [False, True])
+def test_k2_wrapper_picks_its_instance_for_every_even_width(
+        monkeypatch, graph, misaligned):
+    """K2's wrapper hands the kernel K1's layout rule, ``k1_layout``, for
+    every even d: float4 only when d % 4 == 0 and ``x`` (and the ``out`` it
+    allocates) lie on the 16-byte grid.  The launch is intercepted, so the
+    wrapper runs on CPU tensors up to it."""
+    *_, port_op, _ = graph
+    csr = port_op.l_i2u
+    seen = []
+
+    def launch(*args):
+        seen.append(args[7:9])   # (vec, lanes) after the pointers, n, d
+        return 0
+
+    monkeypatch.setattr(tspmm, '_check_cuda', lambda name, x: None)
+    monkeypatch.setattr(tspmm, '_weighted_fn', lambda: launch)
+    monkeypatch.setattr(torch.cuda, 'current_stream',
+                        lambda device=None: types.SimpleNamespace(
+                            cuda_stream=0))
+    for d in range(2, 513, 2):
+        flat = torch.randn(N_ITEMS * d + 2)
+        assert flat.data_ptr() % 16 == 0
+        x = flat[2:].view(N_ITEMS, d) if misaligned else \
+            flat[:-2].view(N_ITEMS, d)
+        out = tspmm.spmm_weighted_cuda(csr, csr.w, x)
+        assert out.shape == (N_USERS, d) and out.data_ptr() % 16 == 0, d
+        aligned = d % 4 == 0 and not misaligned
+        assert seen.pop() == tspmm.k1_layout(d, aligned), d
+    assert not seen
+    tspmm.spmm_weighted_cuda.launches = 0
 
 
 @pytest.mark.parametrize('bad, err', [

@@ -65,7 +65,7 @@ from .spmm import CSR, _check_args, edge_mask
 
 NEG = -2.0 ** 100    # masked-logit sentinel of the JAX package
 SLOPE = 0.2          # torch_geometric's LeakyReLU slope
-MAX_D = 256          # K3 keeps up to 4 float2 a lane, K4-K6 4 float4
+MAX_D = 256          # K3-K6 keep up to 4 float4 (8 float2) a lane
 FWD_SOURCE = 'gat_fwd.cu'
 BWD_SOURCE = 'gat_bwd.cu'
 V2_FWD_SOURCE = 'gatv2_fwd.cu'
@@ -183,12 +183,13 @@ def gat_fwd_cuda(csr: CSR, h_src: torch.Tensor, s_src: torch.Tensor,
     m = torch.empty(csr.n_dst, dtype=torch.float32, device=dev)
     if csr.n_dst == 0:
         return num, den, m
-    fn = _kernel_fn(FWD_SOURCE, 'gat_fwd_f32', 8)
+    fn = _kernel_fn(FWD_SOURCE, 'gat_fwd_f32', 8, n_layout=2)
     _launch('gat_fwd', fn,
             (csr.rowptr.data_ptr(), csr.col.data_ptr(), h_src.data_ptr(),
              s_src.data_ptr(), d_dst.data_ptr(), num.data_ptr(),
              den.data_ptr(), m.data_ptr()),
-            csr.n_dst, d, csr, salt, keep, dev)
+            csr.n_dst, d, csr, salt, keep, dev,
+            layout=_pick_layout(d, (h_src, num)))
     gat_fwd_cuda.launches += 1
     return num, den, m
 
@@ -197,7 +198,7 @@ gat_fwd_cuda.launches = 0
 
 
 def att_layout(d: int, aligned16: bool) -> tuple[int, int]:
-    """The instance of K4, K5 or K6 for width ``d`` (even, at most
+    """The instance of K3, K4, K5 or K6 for width ``d`` (even, at most
     ``MAX_D``): ``(vec, per)``, the floats of one vector (4 when ``d % 4 ==
     0`` and every table is 16-byte aligned, else 2) and the vectors each of
     a half-warp's 16 lanes holds (1, 2, 4 or, for float2, 8: the fewest

@@ -197,16 +197,29 @@ def _kernel_fn():
 
 
 def k1_layout(d: int, aligned16: bool) -> tuple[int, int]:
-    """K1's instance for width ``d``: ``(vec, lanes)``, the floats each lane
-    loads at once (4 when ``d % 4 == 0`` and ``x`` is 16-byte aligned, else
-    2) and the lanes that share a destination row (8, 16 or 32: the fewest
-    that cover ``d`` in one strip of ``lanes * vec`` columns, 32 for wider
-    ``d``, which loops over strips)."""
+    """K1's and K2's instance for width ``d``: ``(vec, lanes)``, the floats
+    each lane loads at once (4 when ``d % 4 == 0`` and the tables it loads
+    and stores in vectors are 16-byte aligned, else 2) and the lanes that
+    share a destination row (8, 16 or 32: the fewest that cover ``d`` in
+    one strip of ``lanes * vec`` columns, 32 for wider ``d``, which loops
+    over strips)."""
     vec = 4 if d % 4 == 0 and aligned16 else 2
     lanes = 8
     while lanes < 32 and lanes * vec < d:
         lanes *= 2
     return vec, lanes
+
+
+def _check_cuda(name: str, x: torch.Tensor):
+    """What K1 and K2 take beyond their plain versions: ``x`` on the card,
+    contiguous and 8-byte aligned, with an even ``d > 0``."""
+    if x.device.type != 'cuda':
+        raise ValueError(f'{name} needs CUDA tensors, x is on {x.device}')
+    d = x.shape[1]
+    if d == 0 or d % 2:
+        raise ValueError(f'the kernel takes an even d > 0, got d={d}')
+    if not x.is_contiguous() or x.data_ptr() % 8:
+        raise ValueError('x must be contiguous and 8-byte aligned')
 
 
 def spmm_dropout_cuda(csr: CSR, x: torch.Tensor, salt: int,
@@ -217,14 +230,8 @@ def spmm_dropout_cuda(csr: CSR, x: torch.Tensor, salt: int,
     another dtype, a non-contiguous or misaligned ``x``, an odd ``d``.
     """
     _check_args(csr, x, salt, keep)
-    if x.device.type != 'cuda':
-        raise ValueError(f'spmm_dropout_cuda needs CUDA tensors, x is on '
-                         f'{x.device}')
+    _check_cuda('spmm_dropout_cuda', x)
     d = x.shape[1]
-    if d == 0 or d % 2:
-        raise ValueError(f'the kernel takes an even d > 0, got d={d}')
-    if not x.is_contiguous() or x.data_ptr() % 8:
-        raise ValueError('x must be contiguous and 8-byte aligned')
     if (csr.rowptr.dtype, csr.col.dtype, csr.w.dtype) != (
             torch.int32, torch.int32, torch.float32):
         raise TypeError('CSR must be int32 rowptr/col and float32 w')
@@ -284,7 +291,7 @@ def _weighted_fn():
     from .. import cuda_build
     fn = cuda_build.load(WEIGHTED_SOURCE).spmm_weighted_f32
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, vp]
+    fn.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, vp]
     fn.restype = ci
     return fn
 
@@ -298,14 +305,8 @@ def spmm_weighted_cuda(csr: CSR, w: torch.Tensor,
     as ``spmm_dropout_cuda`` does.
     """
     _check_weighted_args(csr, w, x)
-    if x.device.type != 'cuda':
-        raise ValueError(f'spmm_weighted_cuda needs CUDA tensors, x is on '
-                         f'{x.device}')
+    _check_cuda('spmm_weighted_cuda', x)
     d = x.shape[1]
-    if d == 0 or d % 2:
-        raise ValueError(f'the kernel takes an even d > 0, got d={d}')
-    if not x.is_contiguous() or x.data_ptr() % 8:
-        raise ValueError('x must be contiguous and 8-byte aligned')
     if not w.is_contiguous():
         raise ValueError('w must be contiguous')
     if (csr.rowptr.dtype, csr.col.dtype) != (torch.int32, torch.int32):
@@ -315,9 +316,11 @@ def spmm_weighted_cuda(csr: CSR, w: torch.Tensor,
         return out
     fn = _weighted_fn()
     stream = torch.cuda.current_stream(x.device).cuda_stream
+    vec, lanes = k1_layout(d, x.data_ptr() % 16 == 0
+                           and out.data_ptr() % 16 == 0)
     rc = fn(csr.rowptr.data_ptr(), csr.col.data_ptr(), w.data_ptr(),
-            x.data_ptr(), out.data_ptr(), csr.n_dst, d, x.device.index or 0,
-            stream)
+            x.data_ptr(), out.data_ptr(), csr.n_dst, d, vec, lanes,
+            x.device.index or 0, stream)
     if rc:
         raise RuntimeError(f'spmm_weighted kernel launch failed: CUDA error '
                            f'{rc}')
