@@ -88,11 +88,37 @@ Phases, each of which passes or ends the run with a non-zero exit:
    then ``--mesh 1x1 --no_train --load --predict`` in a group this script
    starts serves S1 with 12 K2 launches and those metrics, and that
    trainer is timed as in phase 10;
-10. timing: ms per training step and examples/s of each model at S1, split
-   into sampling, forward, backward and Adam (host clock around
-   synchronised work), the host's enqueue share of an unsynchronised run
-   of steps, and the device's busy time per step, and each hand-written
-   kernel's, from a ``torch.profiler`` trace of 10 more.
+9c. ltr text: writes S1's ``meta_synced.tsv`` (a title and a description
+   per item), ``reviews_text.tsv`` (one review per train and test edge,
+   times from the seed) and the loader's two embedding caches (random
+   unit vectors from the seed at the encoder's width, 384, with their
+   ``.meta`` fingerprints: no encoder runs), and times ``load_ltr_data``;
+9d. ltr: ``ltr_linear --load_base <phase 7's JAX-format pickle> --freeze``
+   trained through ``cli.main`` for 2 epochs with ``--predict``: K1
+   launches exactly ``6 (base eval) + steps x 6 + evals x 6 + 6
+   (predict)`` (forward only: no backward through frozen tables), the
+   tables stay the checkpoint's bit for bit, the loss sums are finite and
+   fall, ``best.pkl`` serves its epoch's metrics, and the fused top-40 of
+   256 users equals the reference's scoring, the ``(B, n_items, F)``
+   feature tensor through the uncollapsed tower, up to ties (``LTR_TOL``
+   = 1e-4); then one unfrozen ``ltr_linear`` step with the kernels
+   against one with the plain versions (``STEP_TOL``); then ``ltr_pop``
+   the same (without the step);
+9e. resume: ``lgcn`` on S1 for 1 epoch, then ``--resume`` for the second
+   (K1 as phase 8 a run), against phase 8's uninterrupted run: loss sums
+   within 1e-4 relative, metrics 1e-3, tables 1e-3 (the gathers' backward
+   adds with atomics on the card, so the runs are not bit-equal; the
+   largest differences are printed);
+9f. refresh: ``lgcn --refresh_every 8`` on S1 for 2 epochs: K1 launches
+   exactly ``ceil(steps / 8) x 6`` an epoch plus 6 an eval (forward only),
+   the loss sums are finite;
+10. timing: ms per training step and examples/s of each model at S1, and
+   of the frozen ``ltr_linear`` and the ``--refresh_every 8`` steps, split
+   into sampling, forward, backward and Adam (and the refresh), host clock
+   around synchronised work, the host's enqueue share of an
+   unsynchronised run of steps, and the device's busy time per step, and
+   each hand-written kernel's, from a ``torch.profiler`` trace of 10
+   more.
 
 The line before the last is ``{"kernels": [...]}`` with each kernel's
 launches on the main paths (K1-K6) or the lab paths (L1-L3), error,
@@ -138,6 +164,12 @@ ATT_WIDTHS = (30, 62, 126, 128, 254, 256)
 STEP_TOL = 1e-4
 TRAIN_EPOCHS = 2
 N_CHECK_USERS = 256
+# the LTR head's fused top-k against the reference's (B, n_items, F)
+# scoring: f32 sums of ~830 products in another order
+LTR_TOL = 1e-4
+# a resumed run against the uninterrupted one on the card
+RESUME_TOL, RESUME_METRIC_TOL, RESUME_TABLE_TOL = 1e-4, 1e-3, 1e-3
+REFRESH = 8
 
 
 def log(msg: str):
@@ -1207,6 +1239,247 @@ def train_phase(data_dir: str, model: str) -> dict:
             'step_err': step_vs_plain(trainer)}
 
 
+def write_ltr_text(data_dir: str, data, dev, seed: int = 0) -> dict:
+    """The LTR text of S1 beside its TSVs: ``meta_synced.tsv`` (a title
+    and a description per item), ``reviews_text.tsv`` (one review per
+    train and test edge, times from ``seed``, in the loader's (asin,
+    user_id) order) and the two embedding caches the loader reads instead
+    of running an encoder: random unit vectors from ``seed`` at the
+    encoder's width (``STUB_DIM``, all-MiniLM-L6-v2's 384), each with the
+    ``.meta`` fingerprint of its text rows.  Returns sizes and times."""
+    from textgcn_tpu_torch.data.text import STUB_DIM, _texts_fingerprint
+    t0 = time.perf_counter()
+    rng = np.random.RandomState(seed)
+    items = [data.item_id_map[i] for i in range(data.n_items)]
+    with open(os.path.join(data_dir, 'meta_synced.tsv'), 'w') as f:
+        f.write('asin\ttitle\tdescription\n')
+        f.writelines(f'{a}\ttitle of {a}\ta longer description of {a}, '
+                     f'its detail {i % 97}\n' for i, a in enumerate(items))
+    item_texts = [f'title of {a} [SEP] a longer description of {a}, its '
+                  f'detail {i % 97}' for i, a in enumerate(items)]
+    g = data.graph
+    edges = [(data.item_id_map[i], data.user_id_map[u])
+             for u, i in zip(g.edge_user.tolist(), g.edge_item.tolist())]
+    edges += [(data.item_id_map[i], data.user_id_map[u])
+              for u, row in zip(data.test_users.tolist(), data.true_test)
+              for i in row]
+    edges.sort()
+    times = rng.randint(1_500_000_000, 1_600_000_000, len(edges))
+    texts = [f'review of {a} by {u}: opinion {n % 13}'
+             for n, (a, u) in enumerate(edges)]
+    with open(os.path.join(data_dir, 'reviews_text.tsv'), 'w') as f:
+        f.write('user_id\tasin\treview\ttime\trating\n')
+        f.writelines(f'{u}\t{a}\t{t}\t{tm}\t{n % 5 + 1}\n'
+                     for n, ((a, u), t, tm)
+                     in enumerate(zip(edges, texts, times.tolist())))
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    emb = os.path.join(data_dir, 'embeddings')
+    os.makedirs(emb, exist_ok=True)
+    sizes = {}
+    for stem, rows in (('item_kg_repr', item_texts),
+                       ('item_full_reviews_loss_repr', texts)):
+        v = torch.randn(len(rows), STUB_DIM, generator=gen, device=dev)
+        v = (v / v.norm(dim=1, keepdim=True)).cpu().numpy()
+        path = os.path.join(emb, f'{stem}_all-MiniLM-L6-v2_{seed}-seed.npy')
+        np.save(path, v)
+        with open(path + '.meta', 'w') as f:
+            f.write(_texts_fingerprint(rows))
+        sizes[stem] = v.nbytes
+    out = {'reviews': len(edges), 'seconds': time.perf_counter() - t0,
+           'cache_bytes': sizes}
+    path = os.path.join(emb, 'item_full_reviews_loss_repr_all-MiniLM-L6-v2_'
+                        f'{seed}-seed.npy')
+    t = time.perf_counter()
+    np.load(path)
+    out['review_cache_load_s'] = time.perf_counter() - t
+    log(f'ltr text: {len(items)} items, {len(edges)} reviews written in '
+        f'{out["seconds"]:.3f} s; caches {sizes} bytes; np.load of the '
+        f'review cache {out["review_cache_load_s"]:.3f} s')
+    return out
+
+
+def reference_topk(model, users: torch.Tensor, k: int, chunk: int = 16):
+    """The reference's way of scoring the catalogue with an LTR head: the
+    ``(B, n_items, F)`` pairwise feature tensor through the uncollapsed
+    tower, train-masked, top-k; ``chunk`` users at a time."""
+    from textgcn_tpu_torch.ops.retrieval import mask_train_items
+    items = torch.arange(model.n_items, device=model.device)
+    vals, idx = [], []
+    with torch.no_grad():
+        ur, ir = model.representation()
+        for s in range(0, len(users), chunk):
+            u = users[s:s + chunk]
+            b = len(u)
+            feats = model.features_pairwise(
+                ur[u][:, None, :].expand(-1, model.n_items, -1),
+                ir[None].expand(b, -1, -1),
+                u[:, None].expand(-1, model.n_items),
+                items[None].expand(b, -1))
+            scores = mask_train_items(model.apply_tower(feats),
+                                      model.pos_padded[u], model.n_items)
+            v, i = torch.topk(scores, k, dim=1)
+            vals.append(v)
+            idx.append(i)
+    return torch.cat(vals), torch.cat(idx)
+
+
+def ltr_phase(data_dir: str, ck: str, model: str) -> dict:
+    """``model --load_base ck --freeze`` on S1 through the CLI for
+    ``TRAIN_EPOCHS`` epochs, eval every epoch, then ``--predict``: K1
+    launches only forward (base eval, each step, each eval, predict), the
+    tables stay the checkpoint's bit for bit, the loss sums are finite
+    and fall, ``best.pkl`` serves its epoch's metrics, and the fused
+    top-40 of 256 users equals the reference's feature-tensor scoring up
+    to ties (``LTR_TOL``)."""
+    common = ['--emb_size', str(D), '--n_layers', str(LAYERS),
+              '--batch_size', str(BATCH), '-k', *map(str, KS)]
+    argv = ['--model', model, '--load_base', ck, '--freeze', '--epochs',
+            str(TRAIN_EPOCHS), '--evaluate_every', '1', '--dropout', '0.4',
+            '--predict', '--uid', f'train-{model}', '--quiet', *common]
+    reset_counts()
+    t0 = time.perf_counter()
+    trainer, run_dir = cli_run(data_dir, argv, 'cuda')
+    seconds = time.perf_counter() - t0
+    launches = counts()
+    m = trainer.model
+    steps = m.num_batches(BATCH)
+    per_pass = 2 * LAYERS
+    want = dict.fromkeys(_wrappers(), 0)
+    want['spmm_dropout'] = (per_pass + steps * TRAIN_EPOCHS * per_pass
+                            + TRAIN_EPOCHS * per_pass + per_pass)
+    log(f'ltr {model}: cli.main took {seconds:.3f} s; {steps} steps an '
+        f'epoch; launches {launches}')
+    check(launches == want, f'ltr {model}: launches {launches}, expected '
+          f'{want} (base eval + steps + evals + predict, forward only)')
+    with open(ck, 'rb') as f:
+        base = pickle.load(f)['params']
+    for name, n in (('user_emb', m.n_users), ('item_emb', m.n_items)):
+        check(np.array_equal(getattr(m, name).detach().cpu().numpy(),
+                             base[name][:n]),
+              f'ltr {model}: the frozen {name} changed in training')
+    hist = trainer.loss_history
+    log(f'ltr {model}: loss sums by epoch '
+        f'{[round(h["loss"], 4) for h in hist]}')
+    check(len(hist) == TRAIN_EPOCHS
+          and all(np.isfinite(h['loss']) for h in hist)
+          and hist[1]['loss'] < hist[0]['loss'],
+          f'ltr {model}: loss sums {hist}')
+    rows = trainer.metrics_logger
+    best = best_row(rows['recall'][:, 0])
+    served, _ = serve(data_dir, f'best-{model}', ['--load', run_dir,
+                                                  *common], 'cuda',
+                      model=('--model', model))
+    for name, got in served.last_metrics.items():
+        check(np.allclose(got, rows[name][best], atol=1e-6, rtol=0),
+              f'ltr {model}: best.pkl serves {name} {got}, its epoch '
+              f'{best + 1} measured {rows[name][best]}')
+    preds = read_predictions(os.path.join(run_dir, 'predictions.tsv'))
+    check(len(preds) == m.n_users and all(len(p[1]) == max(KS)
+                                          for p in preds),
+          f'ltr {model}: predictions.tsv')
+    users = torch.arange(N_CHECK_USERS, device=m.device)
+    with torch.no_grad():
+        fused_v, fused_i = m.topk_for_users(m.scoring_reprs(), users,
+                                            max(KS))
+    ref_v, ref_i = reference_topk(m, users, max(KS))
+    err = float((fused_v - ref_v).abs().max())
+    same = same_up_to_ties(fused_v.cpu().numpy(), fused_i.tolist(),
+                           ref_v.cpu().numpy(), ref_i.tolist(), LTR_TOL)
+    log(f'ltr {model}: best.pkl (epoch {best + 1}) serves the same metrics '
+        f'{json.dumps(served.last_metrics)}; fused top-{max(KS)} of '
+        f'{N_CHECK_USERS} users vs the (B, n_items, F) reference: max abs '
+        f'err {err:.3e}, same up to ties={same}')
+    check(same, f'ltr {model}: fused top-k differs from the reference')
+    out = {'trainer': trainer, 'launches': launches, 'seconds': seconds,
+           'topk_err': err}
+    if model == 'ltr_linear':
+        # one unfrozen step: the kernels' forward and backward against the
+        # plain versions, the tower's gradients with them
+        m.user_emb.requires_grad_(True)
+        m.item_emb.requires_grad_(True)
+        try:
+            out['step_err'] = step_vs_plain(trainer)
+        finally:
+            m.user_emb.requires_grad_(False)
+            m.item_emb.requires_grad_(False)
+    return out
+
+
+def resume_phase(data_dir: str, single) -> dict:
+    """``lgcn`` on S1 for 1 epoch, then ``--resume`` for the second,
+    against phase 8's uninterrupted run ``single``: loss sums within
+    ``RESUME_TOL`` relative, metrics within ``RESUME_METRIC_TOL``, tables
+    within ``RESUME_TABLE_TOL`` (the gathers' backward adds with atomics
+    on the card, so the runs are not bit-equal).  Returns the launches
+    and the largest differences."""
+    common = [*MODEL_FLAGS['lgcn'], '--evaluate_every', '1', '--emb_size',
+              str(D), '--n_layers', str(LAYERS), '--batch_size', str(BATCH),
+              '--dropout', '0.4', '-k', *map(str, KS), '--quiet']
+    reset_counts()
+    first, first_dir = cli_run(data_dir, [*common, '--epochs', '1', '--uid',
+                                          'resume-first'], 'cuda')
+    c1 = counts()
+    second, _ = cli_run(data_dir, [*common, '--epochs', str(TRAIN_EPOCHS),
+                                   '--uid', 'resume-second', '--resume',
+                                   first_dir], 'cuda')
+    launches = counts()
+    steps = first.model.num_batches(BATCH)
+    per_run = expected_launches('lgcn', steps, 1)
+    check(c1 == per_run and launches == {k: 2 * v for k, v in
+                                         per_run.items()},
+          f'resume: launches {c1} then {launches}, expected {per_run} each')
+    got = [h['loss'] for h in first.loss_history + second.loss_history]
+    ref = [h['loss'] for h in single.loss_history]
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(got, ref))
+    metric_err = max(float(np.abs(second.metrics_logger[k] - v).max())
+                     for k, v in single.metrics_logger.items())
+    table_err = max(float((getattr(second.model, n).detach()
+                           - getattr(single.model, n).detach()).abs().max())
+                    for n in ('user_emb', 'item_emb'))
+    log(f'resume lgcn: loss sums {got} vs uninterrupted {ref} (largest '
+        f'relative difference {loss_rel:.3e}), largest metric difference '
+        f'{metric_err:.3e}, largest table difference {table_err:.3e}; '
+        f'launches {launches}')
+    check(len(got) == len(ref) == TRAIN_EPOCHS and loss_rel <= RESUME_TOL,
+          f'resume: loss sums {got} vs {ref}')
+    check(second.metrics_logger['recall'].shape[0] == TRAIN_EPOCHS
+          and metric_err <= RESUME_METRIC_TOL,
+          f'resume: metrics differ by {metric_err}')
+    check(table_err <= RESUME_TABLE_TOL,
+          f'resume: tables differ by {table_err}')
+    return {'launches': launches, 'loss_rel_err': loss_rel,
+            'metric_err': metric_err, 'table_err': table_err}
+
+
+def refresh_phase(data_dir: str) -> dict:
+    """``lgcn --refresh_every REFRESH`` on S1 for ``TRAIN_EPOCHS`` epochs:
+    K1 runs forward only, ``REFRESH`` steps apart (``ceil(steps /
+    REFRESH)`` refreshes of 6 launches an epoch) and 6 an eval; the loss
+    sums are finite."""
+    argv = [*MODEL_FLAGS['lgcn'], '--refresh_every', str(REFRESH),
+            '--epochs', str(TRAIN_EPOCHS), '--evaluate_every', '1',
+            '--emb_size', str(D), '--n_layers', str(LAYERS), '--batch_size',
+            str(BATCH), '--dropout', '0.4', '-k', *map(str, KS), '--uid',
+            'train-lgcn-refresh', '--quiet']
+    reset_counts()
+    t0 = time.perf_counter()
+    trainer, _ = cli_run(data_dir, argv, 'cuda')
+    seconds = time.perf_counter() - t0
+    launches = counts()
+    steps = trainer.model.num_batches(BATCH)
+    want = dict.fromkeys(_wrappers(), 0)
+    want['spmm_dropout'] = (-(-steps // REFRESH) * TRAIN_EPOCHS
+                            + TRAIN_EPOCHS) * 2 * LAYERS
+    hist = [h['loss'] for h in trainer.loss_history]
+    log(f'refresh lgcn every {REFRESH}: cli.main took {seconds:.3f} s; '
+        f'launches {launches}; loss sums by epoch {hist}')
+    check(launches == want, f'refresh: launches {launches}, expected '
+          f'{want} (forward only, at the refresh steps and the evals)')
+    check(len(hist) == TRAIN_EPOCHS and all(np.isfinite(hist)),
+          f'refresh: loss sums {hist}')
+    return {'trainer': trainer, 'launches': launches, 'seconds': seconds}
+
+
 def mesh_phase(data_dir: str, single, card: str, trace_dir: str,
                dev) -> dict:
     """``lgcn --mesh 1x1`` trained through the CLI against the single-card
@@ -1283,7 +1556,8 @@ def mesh_phase(data_dir: str, single, card: str, trace_dir: str,
             'seconds': seconds, 'timing': timing}
 
 
-def device_ms_per_step(trainer, batches, trace_dir: str) -> tuple:
+def device_ms_per_step(trainer, batches, trace_dir: str,
+                       name: str) -> tuple:
     """Device time of ``len(batches)`` training steps from a
     ``torch.profiler`` trace: the summed durations of its kernel, memcpy
     and memset events (one stream, so they do not overlap) per step, the
@@ -1294,11 +1568,11 @@ def device_ms_per_step(trainer, batches, trace_dir: str) -> tuple:
     model = trainer.model
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        for batch in batches:
-            trainer.train_step(batch, model.graph_op.weights(
-                trainer.salt_generator, model.dropout))
+        for i, batch in enumerate(batches):
+            trainer.epoch_step(i, batch)
         torch.cuda.synchronize()
-    path = os.path.join(trace_dir, f'trace_{model.cfg.model}.json')
+    model.cached_rest = None
+    path = os.path.join(trace_dir, f'trace_{name}.json')
     prof.export_chrome_trace(path)
     with open(path) as f:
         events = json.load(f)['traceEvents']
@@ -1317,16 +1591,20 @@ def device_ms_per_step(trainer, batches, trace_dir: str) -> tuple:
             [(name, ms / n) for name, ms in top], ours)
 
 
-def timing_phase(trainer, card: str, trace_dir: str,
-                 n_steps: int = 30) -> dict:
+def timing_phase(trainer, card: str, trace_dir: str, n_steps: int = 30,
+                 name: str | None = None) -> dict:
     """Where a training step's time goes at S1, after the counted run:
     sampling an epoch, and forward, backward and Adam of ``n_steps`` steps,
-    each piece timed by the host clock around synchronised work; then
-    ``n_steps`` unsynchronised steps: ms per step, examples/s and the
-    host's share (the time to enqueue them over the time to finish); then
-    10 steps under ``torch.profiler``: the device's busy time per step,
-    whose share of the unsynchronised step is the device busy share."""
+    each piece timed by the host clock around synchronised work (under
+    ``--refresh_every N`` also the refresh of steps 0, N, 2N, ...); then
+    ``n_steps`` unsynchronised steps (``Trainer.epoch_step``): ms per
+    step, examples/s and the host's share (the time to enqueue them over
+    the time to finish); then 10 steps under ``torch.profiler``: the
+    device's busy time per step, whose share of the unsynchronised step is
+    the device busy share."""
     model = trainer.model
+    name = name or model.cfg.model
+    refresh = trainer.cfg.refresh_every
     gen = torch.Generator(device=model.device).manual_seed(7)
 
     def sync_ms(fn):
@@ -1337,11 +1615,23 @@ def timing_phase(trainer, card: str, trace_dir: str,
         return out, (time.perf_counter() - t) * 1e3
 
     batches, t_sample = sync_ms(lambda: model.sample_batches(gen, BATCH))
-    pieces = {'forward': [], 'backward': [], 'adam': []}
+    pieces = {'forward': [], 'backward': [], 'adam': [], 'refresh': []}
     per_step = {}
     for i, batch in enumerate(batches[:n_steps + 3]):
         w_pairs = model.graph_op.weights(trainer.salt_generator,
                                          model.dropout)
+        if refresh and i % refresh == 0:
+            c0 = counts()
+
+            def rest():
+                with torch.no_grad():
+                    model.cached_rest = model.propagate_rest(w_pairs=w_pairs)
+
+            _, t_r = sync_ms(rest)
+            c1 = counts()
+            per_step['refresh'] = {k: c1[k] - c0[k] for k in c0}
+            if i >= 3:
+                pieces['refresh'].append(t_r)
         trainer.optimizer.zero_grad(set_to_none=True)
         c0 = counts()
         (loss, _), t_f = sync_ms(lambda: model.loss(batch, w_pairs=w_pairs))
@@ -1349,21 +1639,22 @@ def timing_phase(trainer, card: str, trace_dir: str,
         _, t_b = sync_ms(loss.backward)
         c2 = counts()
         _, t_a = sync_ms(trainer.optimizer.step)
-        per_step = {'forward': {k: c1[k] - c0[k] for k in c0},
-                    'backward': {k: c2[k] - c1[k] for k in c0}}
+        per_step.update(forward={k: c1[k] - c0[k] for k in c0},
+                        backward={k: c2[k] - c1[k] for k in c0})
         if i >= 3:   # warm-up steps
             pieces['forward'].append(t_f)
             pieces['backward'].append(t_b)
             pieces['adam'].append(t_a)
+    model.cached_rest = None
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for batch in batches[:n_steps]:
-        trainer.train_step(batch, model.graph_op.weights(
-            trainer.salt_generator, model.dropout))
+    for i, batch in enumerate(batches[:n_steps]):
+        trainer.epoch_step(i, batch)
     t_enqueue = time.perf_counter() - t0
     torch.cuda.synchronize()
     t_total = time.perf_counter() - t0
-    out = {name: float(np.median(v)) for name, v in pieces.items()}
+    model.cached_rest = None
+    out = {part: float(np.median(v)) for part, v in pieces.items() if v}
     out['sampling_epoch'] = t_sample
     out['sampling_per_step'] = t_sample / len(batches)
     out['step'] = t_total / n_steps * 1e3
@@ -1372,13 +1663,15 @@ def timing_phase(trainer, card: str, trace_dir: str,
     out['launches_per_step'] = per_step
     (out['device'], out['device_events'], top,
      out['kernel_ms']) = device_ms_per_step(
-        trainer, batches[n_steps:n_steps + 10], trace_dir)
+        trainer, batches[n_steps:n_steps + 10], trace_dir, name)
     out['device_busy_share'] = out['device'] / out['step']
-    log(f'timing train {model.cfg.model} at S1 ({card}): sampling '
+    refresh_note = (f', refresh {out["refresh"]:.3f} ms every {refresh} '
+                    'steps' if refresh else '')
+    log(f'timing train {name} at S1 ({card}): sampling '
         f'{t_sample:.3f} ms an epoch ({out["sampling_per_step"]:.4f} ms a '
         f'step); forward {out["forward"]:.3f} ms, backward '
-        f'{out["backward"]:.3f} ms, Adam {out["adam"]:.3f} ms (medians of '
-        f'{n_steps} synchronised steps); unsynchronised step '
+        f'{out["backward"]:.3f} ms, Adam {out["adam"]:.3f} ms{refresh_note} '
+        f'(medians of {n_steps} synchronised steps); unsynchronised step '
         f'{out["step"]:.3f} ms, {out["examples_per_s"]:.0f} examples/s, '
         f'host enqueue share {out["host_enqueue_share"]:.3f}; launches a '
         f'step {json.dumps(per_step)}; device busy {out["device"]:.3f} ms '
@@ -1465,11 +1758,36 @@ def main():
                           dev)
         timing['lgcn_mesh'] = mesh['timing']
         log(f'phase mesh: {time.perf_counter() - t:.3f} s')
-        for model in MODEL_FLAGS:
+
+        t = time.perf_counter()
+        ltr_text = write_ltr_text(data_dir, data, dev)
+        t_load = time.perf_counter()
+        from textgcn_tpu_torch.config import Config
+        from textgcn_tpu_torch.data.text import load_ltr_data
+        load_ltr_data(Config(data=data_dir).finalize())
+        ltr_text['load_ltr_data_s'] = time.perf_counter() - t_load
+        log(f'load_ltr_data at S1: {ltr_text["load_ltr_data_s"]:.3f} s '
+            f'(reads the {ltr_text["reviews"]}-row review cache of '
+            f'{ltr_text["cache_bytes"]["item_full_reviews_loss_repr"]} '
+            'bytes)')
+        log(f'phase ltr text: {time.perf_counter() - t:.3f} s')
+        for model in ('ltr_linear', 'ltr_pop'):
+            t = time.perf_counter()
+            trained[model] = ltr_phase(data_dir, ck, model)
+            log(f'phase ltr {model}: {time.perf_counter() - t:.3f} s')
+        t = time.perf_counter()
+        resumed = resume_phase(data_dir, trained['lgcn']['trainer'])
+        log(f'phase resume: {time.perf_counter() - t:.3f} s')
+        t = time.perf_counter()
+        trained['lgcn_refresh'] = refresh_phase(data_dir)
+        log(f'phase refresh: {time.perf_counter() - t:.3f} s')
+
+        for model in (*MODEL_FLAGS, 'ltr_linear', 'lgcn_refresh'):
             t = time.perf_counter()
             timing[model] = timing_phase(trained[model].pop('trainer'), card,
-                                         root)
+                                         root, name=model)
             log(f'phase timing {model}: {time.perf_counter() - t:.3f} s')
+        trained['ltr_pop'].pop('trainer')
 
     # each path's launches, counted from 0 just before its run
     by_path = {'serve_lgcn': {'spmm_dropout': launches}}
@@ -1480,6 +1798,9 @@ def main():
                                   mesh['launches']['spmm_weighted']}
     by_path['serve_lgcn_mesh'] = {'spmm_weighted':
                                   mesh['serve_launches']['spmm_weighted']}
+    # the two runs of the resume phase (epoch 1, then --resume for 2)
+    by_path['train_lgcn_resume'] = {k: n for k, n in
+                                    resumed['launches'].items() if n}
 
     def launch_fields(name, model):
         paths = {p: c[name] for p, c in by_path.items() if name in c}
@@ -1494,7 +1815,10 @@ def main():
         'route': 'cuda',
         'source': 'textgcn_tpu_torch/csrc/spmm_dropout.cu',
         'replaces': 'textgcn_tpu/ops/pallas_spmm.py:103',
-        # serve lgcn, train lgcn, gcn and graphsage (forward and backward)
+        # serve lgcn; train lgcn, gcn and graphsage (forward and
+        # backward); train ltr_linear and ltr_pop --freeze (forward only:
+        # base eval, steps, evals, predict); lgcn --resume; lgcn
+        # --refresh_every 8 (forward only, at the refresh steps)
         **launch_fields('spmm_dropout', 'lgcn'),
         'max_abs_err': k1['max_abs_err'],
         'max_abs_err_by_width': k1['max_abs_err_by_width'],
@@ -1590,10 +1914,16 @@ def main():
                  'device_ms_per_step': timing[m]['device'],
                  'device_busy_share': timing[m]['device_busy_share'],
                  'kernel_device_ms_per_step': timing[m]['kernel_ms'],
+                 'refresh_ms': timing[m].get('refresh'),
                  'step_vs_plain_max_abs_err': trained.get(m, {}).get(
                      'step_err')}
              for m in timing}
-    log(json.dumps({'training_at_s1': steps, 'card': card}))
+    for m in ('ltr_linear', 'ltr_pop'):
+        steps.setdefault(m, {})['fused_topk_vs_reference_max_abs_err'] = \
+            trained[m]['topk_err']
+    log(json.dumps({'training_at_s1': steps, 'card': card,
+                    'ltr_text': ltr_text,
+                    'resume_vs_uninterrupted': resumed}))
     print(json.dumps({'kernels': kernels}), flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -112,13 +112,13 @@ def test_parse_args_matches_jax(argv):
 
 @pytest.mark.parametrize('argv, err', [
     (['--model', 'adv_sampling'], NotImplementedError),
-    (['--model', 'ltr_linear'], NotImplementedError),
+    (['--model', 'text'], NotImplementedError),
     (['--model', 'gcn', '--aggr', 'mean', '--mesh', '2x4'],
      NotImplementedError),
     (['--model', 'lgcn', '--approx_topk', '0.95'], NotImplementedError),
     (['--model', 'lgcn', '--dropout', '1.5'], ValueError),
     (['--model', 'lgcn', '--load', 'a', '--load_base', 'b'], ValueError),
-    (['--model', 'lgcn', '--refresh_every', '4'], NotImplementedError),
+    (['--model', 'ltr_linear', '--mesh', '2x4'], NotImplementedError),
     (['--model', 'lgcn', '--trace', 'out'], NotImplementedError),
     (['--model', 'gat'], ValueError),
 ])

@@ -282,8 +282,8 @@ def test_no_cuda_means_an_error_not_a_cpu_run(tmp_path, monkeypatch,
 
 def test_cli_requires_no_train(tmp_path, monkeypatch, dummy_dir):
     """``--no_train`` skips training: the loaded tables are served as they
-    are and nothing is checkpointed; without it the CLI trains.
-    ``--resume`` is still refused."""
+    are and nothing is checkpointed; without it the CLI trains, and
+    ``--resume`` continues that run."""
     from textgcn_tpu_torch.cli import main as port_main
     monkeypatch.chdir(tmp_path)
     monkeypatch.setenv('TEXTGCN_TPU_PLATFORM', 'cpu')
@@ -301,9 +301,12 @@ def test_cli_requires_no_train(tmp_path, monkeypatch, dummy_dir):
     trained = port_main(argv + ['--uid', 'y'])
     assert len(trained.loss_history) == 1
     assert (tmp_path / 'runs/dummy/y/best.pkl').exists()
-    with pytest.raises(NotImplementedError, match='--resume'):
-        port_main(['--model', 'lgcn', '--data', dummy_dir, '--resume',
-                   'runs/dummy/y', '--uid', 'z'])
+    resumed = port_main(['--model', 'lgcn', '--data', dummy_dir,
+                         '--emb_size', str(D), '-k', '3', '--quiet',
+                         '--epochs', '2', '--evaluate_every', '1',
+                         '--resume', 'runs/dummy/y', '--uid', 'z'])
+    assert len(resumed.loss_history) == 1
+    assert (tmp_path / 'runs/dummy/z/latest_checkpoint.pkl').exists()
 
 
 def test_model_init_is_seeded_normal(dummy_dir):

@@ -318,7 +318,7 @@ def test_fit_checkpoints_in_the_jax_format(tmp_path, monkeypatch,
                              '--uid', 'port'])
     run = tmp_path / 'runs/dummy/port'
     assert sorted(p.name for p in run.iterdir()) == [
-        'best.pkl', 'latest_checkpoint.pkl', 'log.log']
+        'best.pkl', 'latest_checkpoint.pkl', 'log.log', 'resume_state.pkl']
     assert len(pt.loss_history) == 4
     assert all(np.isfinite(h['loss']) for h in pt.loss_history)
     with open(run / 'best.pkl', 'rb') as f:

@@ -6,24 +6,30 @@
     python -m textgcn_tpu_torch --model graphsage --aggr mean|sum|max ...
     python -m textgcn_tpu_torch --model lgcn --data D --no_train \
         --load runs/<data>/<uid> [--predict] [--export_reprs]
+    python -m textgcn_tpu_torch --model ltr_linear|ltr_pop --data D \
+        --load_base runs/<data>/<lgcn uid> --freeze ...
+    python -m textgcn_tpu_torch ... --resume runs/<data>/<uid>
+    python -m textgcn_tpu_torch --model lgcn ... --refresh_every N
     python -m textgcn_tpu_torch --model lgcn --mesh 1x1|auto ...
     torchrun --nproc_per_node N -m textgcn_tpu_torch --model lgcn \
         --mesh AxB ...                                  # A * B == N
 
 Drives: config parse -> (``--mesh``: the process group, one rank per
 GPU) -> dataset load -> (``--mesh``: tables padded to the number of ranks
-and row-sharded) -> model build -> ``--load`` (with its evaluation; before
-training it warm-starts the params) -> ``fit`` unless ``--no_train`` ->
-``--predict`` -> ``--export_reprs``.  Runs on the GPU;
-``TEXTGCN_TPU_PLATFORM=cpu`` asks for the CPU (gloo for ``--mesh``).  A
-process group this call started is destroyed before it returns, so
-``main`` can run again in the same process.  ``--resume`` is not ported
-yet.
+and row-sharded) -> model build -> ``--resume`` (the whole trainer state
+of a stopped run), else ``--load`` or ``--load_base`` (with its
+evaluation; before training it warm-starts the params; ``--load_base``
+evaluates an LTR head's base with plain scoring, then switches the head
+on) -> ``fit`` unless ``--no_train`` -> ``--predict`` ->
+``--export_reprs``.  Runs on the GPU; ``TEXTGCN_TPU_PLATFORM=cpu`` asks
+for the CPU (gloo for ``--mesh``).  A process group this call started is
+destroyed before it returns, so ``main`` can run again in the same
+process.
 """
 
 from __future__ import annotations
 
-from .config import get_logger, parse_args, platform_device
+from .config import get_logger, parse_args, platform_device, warn_footguns
 from .registry import get_class
 from .train.trainer import Trainer
 
@@ -31,8 +37,6 @@ from .train.trainer import Trainer
 def main(argv: list[str] | None = None):
     cfg = parse_args(argv)
     device = platform_device()
-    if cfg.resume:
-        raise NotImplementedError('--resume is not ported yet')
     if not cfg.mesh:
         return _run(cfg, device)
     import torch.distributed as dist
@@ -49,6 +53,7 @@ def main(argv: list[str] | None = None):
 def _run(cfg, device, mesh=None):
     from .parallel.multihost import is_primary
     logger = get_logger(cfg, primary=is_primary())
+    warn_footguns(cfg, logger)
     loader, model_cls = get_class(cfg.model)
     logger.info('Class: %s', model_cls.__name__)
     logger.info('%s', cfg)
@@ -68,8 +73,18 @@ def _run(cfg, device, mesh=None):
     logger.info('Created model %s (%d users x %d items, %d edges)',
                 cfg.uid, data.n_users, data.n_items, data.graph.n_edges)
 
-    if cfg.load or cfg.load_base:
-        trainer.load(cfg.load or cfg.load_base)
+    if cfg.resume:
+        trainer.resume(cfg.resume)
+    elif cfg.load:
+        trainer.load(cfg.load)
+    elif cfg.load_base:
+        # an LTR head's base is evaluated with plain scoring first
+        head = getattr(model, 'score_with_head', None)
+        if head is not None:
+            model.score_with_head = False
+        trainer.load(cfg.load_base)
+        if head is not None:
+            model.score_with_head = True
     if not cfg.no_train:
         trainer.fit()
     if cfg.predict:

@@ -10,10 +10,12 @@ Knobs that exist for the TPU:
 * ``--no_pallas`` and ``--steps_per_call`` are accepted and ignored: the
   port has one kernel per function and no device-call relay to bound.
 * ``--mesh DATAxMODEL|auto`` runs ``lgcn`` over ``torch.distributed``
-  ranks, one per GPU (``parallel/``); the other models refuse it.
-  ``--approx_topk`` is refused when set: the port serves an exact top-k.
-* ``--refresh_every`` (cached propagation) is refused when non-zero: not
-  ported yet.
+  ranks, one per GPU (``parallel/``); the other models, the LTR heads
+  among them, refuse it.  ``--approx_topk`` is refused when set: the port
+  serves an exact top-k.
+
+``warn_footguns`` logs the JAX package's LTR warnings (no base loaded, a
+base not frozen).
 
 ``resolve_device`` picks the device: CUDA unless the caller asks for the
 CPU, and an error, never a silent CPU run, when CUDA is absent.
@@ -36,8 +38,12 @@ MODEL_CHOICES = (
     'marcus', 'ltr_reviews', 'ltr_kg', 'ltr_simple', 'gcn', 'graphsage',
     'gat', 'gatv2',
 )
-PORTED_MODELS = ('lgcn', 'gcn', 'graphsage', 'gat', 'gatv2')
+PORTED_MODELS = ('lgcn', 'gcn', 'graphsage', 'gat', 'gatv2', 'ltr_linear',
+                 'ltr_pop')
 CONV_MODELS = ('gcn', 'graphsage', 'gat', 'gatv2')
+# the models the JAX package warns about without a frozen, loaded base
+LTR_WARN_MODELS = ('ltr_linear', 'ltr_pop', 'ltr_simple', 'xgboost', 'gbdt',
+                   'xgboost_pop', 'gbdt_pop', 'marcus')
 
 LOGGER_NAME = 'textgcn_tpu_torch'
 PLATFORM_ENV = 'TEXTGCN_TPU_PLATFORM'
@@ -164,9 +170,13 @@ class Config:
         if self.model in CONV_MODELS and self.aggr is None:
             raise ValueError(f'--aggr is required for conv model '
                              f'{self.model!r}: pass one of mean|sum|max')
-        if self.refresh_every:
-            raise NotImplementedError(
-                '--refresh_every (cached propagation) is not ported yet')
+        if self.refresh_every < 0:
+            raise ValueError(f'--refresh_every must be >= 0, got '
+                             f'{self.refresh_every}')
+        if self.refresh_every and self.single:
+            raise ValueError('cached propagation (--refresh_every) requires '
+                             'the layer-mean combination; --single has no '
+                             'ego term to keep fresh')
         if self.mesh:
             if self.model != 'lgcn':
                 raise NotImplementedError(
@@ -253,7 +263,8 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument('--aggr', '--aggregator', dest='aggr', default=d.aggr,
                    choices=['mean', 'sum', 'max'])
     p.add_argument('--refresh_every', type=int, default=d.refresh_every,
-                   help='not ported yet: refused when non-zero')
+                   help='cached propagation: recompute the propagated '
+                        'layers every N steps (0: every step, exactly)')
     return p
 
 
@@ -284,6 +295,24 @@ def parse_args(argv: list[str] | None = None) -> Config:
     ).finalize()
     cfg.validate()
     return cfg
+
+
+def warn_footguns(cfg: Config,
+                  logger: logging.Logger | None = None) -> list[str]:
+    """Log the JAX package's LTR warnings: a head trained without a loaded
+    base, or over unfrozen tables.  Returns the warnings."""
+    logger = logger or logging.getLogger(LOGGER_NAME)
+    warnings: list[str] = []
+    if cfg.model in LTR_WARN_MODELS:
+        if cfg.load_base is None and cfg.load is None:
+            warnings.append('Base model not loaded for LTR model, training '
+                            'it from scratch.')
+        if not cfg.freeze:
+            warnings.append('Base model not frozen for LTR model, this will '
+                            'degrade performance')
+    for w in warnings:
+        logger.warning(w)
+    return warnings
 
 
 def resolve_device(device=None) -> torch.device:

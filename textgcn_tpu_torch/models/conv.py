@@ -163,6 +163,9 @@ class ConvModel(LightGCN):
     """The LightGCN runtime with a learnable graph conv per layer, over a
     unit-weight graph op."""
 
+    # no cached propagation: the JAX package refuses it too (conv.py:236)
+    supports_cached_propagation = False
+
     def __init__(self, cfg, data, *, device=None, generator=None):
         if cfg.model not in PORTED_CONVS:
             raise ValueError(f'{cfg.model!r} is not a conv model '

@@ -14,6 +14,12 @@ rank's part of each batch, gathers the rows it needs from all ranks and
 divides by the whole batch, so the ranks' losses sum to the single-card
 loss and the gradient of each rank's rows is the single-card gradient of
 those rows.  Scoring runs the catalogue-sharded top-k.
+
+Cached propagation (``--refresh_every``): while ``cached_rest`` holds a
+stale ``propagate_rest``, the training representation is the fresh ego
+tables plus that rest (``cached_reprs``), so the loss's gradients reach
+the layer-0 tables only; evaluation always propagates exactly
+(``textgcn_tpu/models/lightgcn.py:139-186``).
 """
 
 from __future__ import annotations
@@ -24,6 +30,7 @@ from torch import nn
 
 from ..config import Config, resolve_device
 from ..data.core import InteractionData
+from ..ops.propagate import propagate_rest as _propagate_rest
 from ..ops.propagate import representation as _representation
 from ..ops.retrieval import score_and_topk
 from ..ops.sampling import (batch_epoch, num_batches, positive_keys,
@@ -37,6 +44,9 @@ class LightGCN(nn.Module):
 
     # per-step loss components, logged as running sums by the Trainer
     loss_components = ('bpr', 'reg')
+    # --refresh_every: the trainer binds a stale rest here between refreshes
+    supports_cached_propagation = True
+    cached_rest = None
 
     def __init__(self, cfg: Config, data: InteractionData, *, device=None,
                  generator: torch.Generator | None = None):
@@ -120,12 +130,17 @@ class LightGCN(nn.Module):
                 raise ValueError(f'{name}: checkpoint table '
                                  f'{tuple(value.shape)} does not fit '
                                  f'{(n, param.shape[1])}')
-            if self.mesh is not None:
-                n_padded = param.shape[0] * self.mesh.size
-                padded = value.new_zeros((n_padded, param.shape[1]))
-                padded[:n] = value
-                value = padded[self.mesh.rows(n_padded)]
-            param.copy_(value)
+            param.copy_(self.local_rows(value, param.shape[0]))
+
+    def local_rows(self, value: torch.Tensor, n_local: int) -> torch.Tensor:
+        """This rank's ``n_local`` rows of a whole table's real rows
+        ``value``, zero-padded (``value`` itself without a mesh)."""
+        if self.mesh is None:
+            return value
+        n_padded = n_local * self.mesh.size
+        padded = value.new_zeros((n_padded, *value.shape[1:]))
+        padded[:value.shape[0]] = value
+        return padded[self.mesh.rows(n_padded)]
 
     # --- representation ----------------------------------------------------
 
@@ -134,12 +149,32 @@ class LightGCN(nn.Module):
                        w_pairs=None):
         """Propagated ``(users_repr, items_repr)``; edge dropout only in
         training, with salts drawn from ``generator`` or given as
-        ``w_pairs = ((salt, keep), (salt, keep))`` (to_user, to_item)."""
+        ``w_pairs = ((salt, keep), (salt, keep))`` (to_user, to_item).
+        In training with ``cached_rest`` bound, ``cached_reprs`` of it."""
+        if training and self.cached_rest is not None:
+            return self.cached_reprs(self.cached_rest)
         return _representation(
             self.user_emb, self.item_emb, self.graph_op, self.n_layers,
             single=self.single,
             dropout=self.dropout if training else 0.0, generator=generator,
             w_pairs=w_pairs if training else None)
+
+    def propagate_rest(self, w_pairs):
+        """The cacheable ``(sum_l u_l, sum_l i_l)``, l = 1..L, with the
+        training dropout's salts ``w_pairs``."""
+        return _propagate_rest(self.user_emb, self.item_emb, self.graph_op,
+                               self.n_layers, dropout=self.dropout,
+                               w_pairs=w_pairs)
+
+    def cached_reprs(self, rest):
+        """The layer mean from the fresh ego tables and a stale ``rest``:
+        gradients reach the layer-0 tables only."""
+        if self.single:
+            raise ValueError('cached propagation needs the layer mean '
+                             '(--single has no ego term to keep fresh)')
+        inv = 1.0 / (self.n_layers + 1)
+        return ((self.user_emb + rest[0]) * inv,
+                (self.item_emb + rest[1]) * inv)
 
     # --- scoring -----------------------------------------------------------
 

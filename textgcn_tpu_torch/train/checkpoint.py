@@ -6,8 +6,10 @@ the conv models' params with their ``convs`` list of per-layer dicts
 (``weights.py``); given a run directory, ``best.pkl`` is read.  The unpickler admits numpy
 arrays and plain Python values only, so a crafted file cannot run code.
 ``save_latest`` writes ``latest_checkpoint.pkl`` atomically and
-``promote_best`` copies it to ``best.pkl``.  The orbax backend and the
-``resume_state.pkl`` of ``--resume`` are not ported yet.
+``promote_best`` copies it to ``best.pkl``.  ``save_resume`` writes the
+trainer's ``resume_state.pkl`` beside it, the file ``--resume`` reads
+(``load_resume``; its payload is ``Trainer.resume_payload``'s).  The
+orbax backend is not ported yet.
 """
 
 from __future__ import annotations
@@ -38,19 +40,40 @@ class _ArrayUnpickler(pickle.Unpickler):
             'plain values are loaded')
 
 
+def _atomic_dump(obj, path: str):
+    """Write ``obj`` to a temporary file and rename it, so a crash
+    mid-write keeps the previous file."""
+    tmp = path + '.tmp'
+    with open(tmp, 'wb') as f:
+        pickle.dump(obj, f)
+    os.replace(tmp, path)
+
+
+def _load(path: str) -> dict:
+    with open(path, 'rb') as f:
+        return _ArrayUnpickler(f).load()
+
+
 class PickleCheckpointer:
     latest_name = 'latest_checkpoint.pkl'
     best_name = 'best.pkl'
+    resume_name = 'resume_state.pkl'
 
     def save_latest(self, save_path: str, state: dict):
-        """Write ``state`` (its params already numpy) to a temporary file
-        and rename it, so a crash mid-write keeps the previous file."""
+        """Write ``state`` (its params already numpy)."""
         os.makedirs(save_path, exist_ok=True)
-        path = os.path.join(save_path, self.latest_name)
-        tmp = path + '.tmp'
-        with open(tmp, 'wb') as f:
-            pickle.dump(state, f)
-        os.replace(tmp, path)
+        _atomic_dump(state, os.path.join(save_path, self.latest_name))
+
+    def save_resume(self, save_path: str, payload: dict):
+        """Write the trainer's resume payload (numpy arrays and plain
+        values) as ``resume_state.pkl``."""
+        os.makedirs(save_path, exist_ok=True)
+        _atomic_dump(payload, os.path.join(save_path, self.resume_name))
+
+    def load_resume(self, path: str) -> dict:
+        if os.path.isdir(path):
+            path = os.path.join(path, self.resume_name)
+        return _load(path)
 
     def promote_best(self, save_path: str):
         shutil.copyfile(os.path.join(save_path, self.latest_name),
@@ -59,8 +82,7 @@ class PickleCheckpointer:
     def load(self, path: str) -> dict:
         if os.path.isdir(path):
             path = os.path.join(path, self.best_name)
-        with open(path, 'rb') as f:
-            return _ArrayUnpickler(f).load()
+        return _load(path)
 
 
 def make_checkpointer(backend: str = 'pickle') -> PickleCheckpointer:

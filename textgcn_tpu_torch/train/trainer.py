@@ -12,16 +12,31 @@ Counterpart of ``textgcn_tpu/train/trainer.py`` on one device:
   is checked;
 * ``checkpoint``: ``latest_checkpoint.pkl`` in the JAX package's format,
   copied to ``best.pkl`` when recall@smallest-k reaches a new maximum on
-  the params it was measured on;
+  the params it was measured on; beside it ``resume_state.pkl`` (unless
+  ``--no_resume_state``): the epoch, the metrics history, the
+  ``RESUME_CONFIG_FIELDS``, the Adam state and the states of the two
+  generators;
+* ``resume``: restores all of that; ``fit`` then goes on at the next
+  epoch, bit for bit the run that was not stopped;
+* a SIGTERM during ``fit`` lets the epoch finish, checkpoints it and
+  returns (``textgcn_tpu/train/trainer.py:364-443``);
+* ``--refresh_every N``: the propagated rest is recomputed without
+  gradients at steps 0, N, 2N, ... of each epoch, and every step's loss
+  runs on the fresh ego tables plus that rest (``models/lightgcn.py``);
+* ``--freeze``: Adam takes the trainable parameters only (the LTR heads'
+  tables take ``requires_grad=False`` and stay bit-unchanged), the
+  trajectory of optax's ``set_to_zero`` for the frozen leaves;
 * ``load``: a file or a run dir (``best.pkl``), re-evaluated at once,
   then the metrics history is reset; before ``fit`` it warm-starts the
-  tables (and conv layers) as the JAX package's ``Trainer.load`` does;
+  parameters the checkpoint has (``load_params``: a plain ``lgcn``
+  checkpoint fills an LTR model's tables, its tower keeps its init);
 * ``evaluate``: masked full-catalogue top-k over the test users and the
-  five metrics per k;
+  five metrics per k (a model's ``on_evaluate`` logs first);
 * ``predict``: ranked items (+ scores rounded to 4 decimals) for any user
   list, optionally written to ``predictions.tsv`` with external ids, in
   the bytes pandas writes for the JAX package;
-* ``export_reprs``: the propagated tables as ``.npy``.
+* ``export_reprs``: the propagated tables as ``.npy``, and an LTR head's
+  collapsed factors.
 
 Each ``evaluate``/``predict``/``export_reprs`` call propagates once, as
 the JAX package's eval function does.
@@ -32,10 +47,10 @@ Adam on its rows (elementwise, so it is the global Adam), the loss sums
 all-reduced once an epoch, the catalogue-sharded top-k.  Every rank
 computes the metrics; logs, ``predictions.tsv``, exports and checkpoints
 come from rank 0 only, after the collectives that gather the tables
-(``trainer.py:244, 407, 499, 527, 577`` in the JAX package).
+(``trainer.py:244, 407, 499, 527, 577`` in the JAX package); a resume
+restores every rank's own rows of the tables and of their Adam state.
 
-Not ported yet: ``--resume`` (its ``resume_state.pkl``), the SIGTERM
-stop, cached propagation (``--refresh_every``) and ``--steps_per_call``.
+``--steps_per_call`` is accepted and ignored.
 """
 
 from __future__ import annotations
@@ -43,6 +58,7 @@ from __future__ import annotations
 import csv
 import logging
 import os
+import signal
 import time
 
 import numpy as np
@@ -57,6 +73,13 @@ from ..weights import params_from_jax, params_to_jax
 from .checkpoint import make_checkpointer
 
 log = logging.getLogger('textgcn_tpu_torch')
+
+# config fields that change the training trajectory: stamped into the
+# resume payload and checked by ``resume`` (the JAX package's list)
+RESUME_CONFIG_FIELDS = (
+    'model', 'emb_size', 'batch_size', 'neg_samples', 'lr', 'reg_lambda',
+    'dropout', 'n_layers', 'single', 'refresh_every', 'seed',
+    'evaluate_every')
 
 
 class Trainer:
@@ -78,7 +101,8 @@ class Trainer:
                                for m in self.metrics_names}
         self.last_metrics: dict[str, list[float]] | None = None
         self.loss_history: list[dict[str, float]] = []
-        self.optimizer = torch.optim.Adam(model.parameters(), lr=cfg.lr)
+        self.optimizer = torch.optim.Adam(
+            [p for p in model.parameters() if p.requires_grad], lr=cfg.lr)
         self.generator = torch.Generator(device=model.device).manual_seed(
             cfg.seed)
         self.salt_generator = torch.Generator().manual_seed(cfg.seed + 1)
@@ -87,6 +111,8 @@ class Trainer:
         # the epoch whose metrics row describes the params as they are
         # now: best.pkl is promoted only from a checkpoint at that epoch
         self._last_eval_epoch: int | None = None
+        self._start_epoch = 1           # advanced by resume()
+        self._stop_requested = False    # set by the SIGTERM handler
 
     # ------------------------------------------------------------------
     # training
@@ -100,6 +126,19 @@ class Trainer:
         self.optimizer.step()
         return loss.detach(), {c: v.detach() for c, v in aux.items()}
 
+    def epoch_step(self, step: int, batch):
+        """Step ``step`` of an epoch: its salts from the salt generator,
+        under ``--refresh_every N`` the rest recomputed with them when
+        ``step % N == 0`` (the model keeps it until the epoch ends), then
+        ``train_step``."""
+        model = self.model
+        w_pairs = model.graph_op.weights(self.salt_generator, model.dropout)
+        refresh = self.cfg.refresh_every
+        if refresh and step % refresh == 0:
+            with torch.no_grad():
+                model.cached_rest = model.propagate_rest(w_pairs=w_pairs)
+        return self.train_step(batch, w_pairs)
+
     def train_epoch(self) -> dict[str, torch.Tensor]:
         """Sample an epoch, step through its batches; the sums of the loss
         and its components stay on the device."""
@@ -107,13 +146,14 @@ class Trainer:
         batches = model.sample_batches(self.generator, self.cfg.batch_size)
         losses = []
         comps = {c: [] for c in self.model.loss_components}
-        for batch in batches:
-            w_pairs = model.graph_op.weights(self.salt_generator,
-                                             model.dropout)
-            loss, aux = self.train_step(batch, w_pairs)
-            losses.append(loss)
-            for c in comps:
-                comps[c].append(aux[c])
+        try:
+            for step, batch in enumerate(batches):
+                loss, aux = self.epoch_step(step, batch)
+                losses.append(loss)
+                for c in comps:
+                    comps[c].append(aux[c])
+        finally:
+            model.cached_rest = None
         sums = {c: torch.stack(v).sum() for c, v in comps.items()}
         sums['loss'] = torch.stack(losses).sum()
         if model.mesh is not None:
@@ -135,19 +175,78 @@ class Trainer:
         return ' '.join(f'{c} = {sums[c]:.4f}'
                         for c in self.model.loss_components)
 
+    def _check_refresh(self):
+        """The JAX package's refusals of ``--refresh_every``."""
+        if not self.cfg.refresh_every:
+            return
+        if not getattr(self.model, 'supports_cached_propagation', False):
+            raise ValueError(f'--refresh_every is not supported by model '
+                             f'{self.cfg.model!r} (no cached-propagation '
+                             'path)')
+        if self.model.single:
+            raise ValueError('--refresh_every requires the layer-mean '
+                             'combination (incompatible with --single)')
+
+    def _install_preemption_handler(self):
+        """SIGTERM -> finish the epoch, checkpoint it and return from
+        ``fit``; the handler only sets a flag.  Returns the undo (a no-op
+        outside the main thread, where no handler can be set)."""
+        def handler(signum, frame):
+            self._stop_requested = True
+            log.warning('Received %s: checkpointing and stopping at the '
+                        'end of this epoch (resume with --resume)',
+                        signal.Signals(signum).name)
+
+        try:
+            prev = signal.signal(signal.SIGTERM, handler)
+        except ValueError:      # not the main thread
+            return lambda: None
+        return lambda: signal.signal(signal.SIGTERM, prev)
+
+    def _stop(self) -> bool:
+        """Whether a SIGTERM asked to stop; on a mesh, whether any rank's
+        did, so that every rank stops after the same epoch."""
+        stop = self._stop_requested
+        if self.model.mesh is not None:
+            flag = torch.tensor([float(stop)], device=self.model.device)
+            stop = bool(all_reduce_sum(flag) > 0)
+        return stop
+
     def fit(self) -> list[dict[str, float]]:
-        """Train for ``cfg.epochs`` with eval, checkpoint and early stop
+        """Train from the epoch after the last one done (1, or the resumed
+        epoch + 1) to ``cfg.epochs`` with eval, checkpoint and early stop
         every ``evaluate_every`` epochs; returns each epoch's loss sums
         (also kept in ``loss_history``)."""
+        self._check_refresh()
+        self._stop_requested = False
+        restore_handler = self._install_preemption_handler()
+        try:
+            stopped = self._fit_loop()
+        finally:
+            restore_handler()
+        cfg = self.cfg
+        if not stopped and cfg.epochs % cfg.evaluate_every:
+            # the last epoch was no eval epoch: save latest only
+            self.checkpoint(cfg.epochs)
+        return self.loss_history
+
+    def _fit_loop(self) -> bool:
+        """The epochs of ``fit``; True when an early stop or a SIGTERM
+        ended them (both checkpointed already)."""
         cfg = self.cfg
         history = self.loss_history = []
         t0 = time.time()
         t_window, n_window = time.perf_counter(), 0
-        stopped = False
-        for epoch in range(1, cfg.epochs + 1):
+        for epoch in range(self._start_epoch, cfg.epochs + 1):
             sums = self._finish_epoch(epoch, self.train_epoch())
             history.append(sums)
             n_window += 1
+            if self._stop():
+                self.checkpoint(epoch)
+                log.warning('Stopped by SIGTERM at epoch %d; %s', epoch,
+                            f'state saved to {cfg.save_path}' if cfg.save
+                            else 'nothing saved (--no_save)')
+                return True
             if epoch % cfg.evaluate_every:
                 continue
             eps = (self.model.iterable_len * n_window
@@ -159,26 +258,160 @@ class Trainer:
             t_window, n_window = time.perf_counter(), 0
             if metrics_mod.early_stop(self.metrics_logger):
                 log.warning('Early stopping triggerred at epoch %d', epoch)
-                stopped = True
-                break
-        if not stopped and cfg.epochs % cfg.evaluate_every:
-            # the last epoch was no eval epoch: save latest only
-            self.checkpoint(cfg.epochs)
-        return history
+                return True
+        return False
+
+    # ------------------------------------------------------------------
+    # checkpoints and resume
 
     def checkpoint(self, epoch: int):
+        """``latest_checkpoint.pkl``, ``resume_state.pkl`` and, when this
+        epoch's eval reached a new best, ``best.pkl``.  On a mesh every
+        rank gathers, rank 0 writes."""
         if not self.cfg.save:
             return
         state = {'params': params_to_jax(self.model.param_tree()),
                  'epoch': epoch, 'model': self.cfg.model}
+        payload = (self.resume_payload(epoch) if self.cfg.resume_state
+                   else None)
         if not self.primary:
             return
         self._checkpointer.save_latest(self.cfg.save_path, state)
+        if payload is not None:
+            self._checkpointer.save_resume(self.cfg.save_path, payload)
         first = self.metrics_logger[self.metrics_names[0]]
         if len(first) and first[:, 0].max() == first[-1][0] \
                 and epoch == self._last_eval_epoch:
             log.info('Updating best model at epoch %d', epoch)
             self._checkpointer.promote_best(self.cfg.save_path)
+
+    def _whole_rows(self, name: str) -> int | None:
+        """On a mesh, the real row count of a row-sharded parameter (the
+        tables); None for a parameter every rank holds whole."""
+        if self.model.mesh is None:
+            return None
+        return {'user_emb': self.model.n_users,
+                'item_emb': self.model.n_items}.get(name)
+
+    def _adam_entries(self) -> list[tuple[str, torch.nn.Parameter]]:
+        """``(name, parameter)`` of every parameter Adam steps, in the
+        order of ``named_parameters`` (the order of ``param_tree``)."""
+        stepped = {id(p) for g in self.optimizer.param_groups
+                   for p in g['params']}
+        return [(n, p) for n, p in self.model.named_parameters()
+                if id(p) in stepped]
+
+    def resume_payload(self, epoch: int) -> dict:
+        """What ``resume`` needs beside ``latest_checkpoint.pkl``: the
+        JAX package's ``epoch``, ``metrics`` and ``config``; where it keeps
+        ``key_data`` and ``opt_leaves``, the two generators' states and the
+        Adam state, one entry per stepped parameter (whole tables on a
+        mesh: every rank must call it)."""
+        def arr(t):
+            return t.detach().to('cpu').numpy().copy()
+
+        adam = {}
+        for i, (name, p) in enumerate(self._adam_entries()):
+            st = self.optimizer.state.get(p, {})
+            entry = {'name': name}
+            for key in ('exp_avg', 'exp_avg_sq'):
+                if key in st:
+                    n = self._whole_rows(name)
+                    entry[key] = arr(st[key] if n is None
+                                     else self.model.gathered(st[key], n))
+            if 'step' in st:
+                entry['step'] = float(st['step'])
+            adam[str(i)] = entry
+        return {
+            'epoch': np.int64(epoch),
+            'generators': {'sampler': arr(self.generator.get_state()),
+                           'salt': arr(self.salt_generator.get_state())},
+            'adam': adam,
+            'metrics': {m: self.metrics_logger[m]
+                        for m in self.metrics_names},
+            'config': {f: getattr(self.cfg, f)
+                       for f in RESUME_CONFIG_FIELDS},
+        }
+
+    def resume(self, run_dir: str):
+        """Restore params, Adam state, generators, metrics history and the
+        epoch from a run directory; ``fit`` then continues at the next
+        epoch as the uninterrupted run would have.  Refuses files of two
+        epochs, another trajectory config and other Adam shapes."""
+        log.info('Resuming from %s', run_dir)
+        ck = self._checkpointer
+        if not os.path.isdir(run_dir):
+            raise ValueError(f'--resume takes a run directory (got '
+                             f'{run_dir!r}); to warm-start from a single '
+                             'checkpoint file use --load')
+        if not os.path.exists(os.path.join(run_dir, ck.resume_name)):
+            raise FileNotFoundError(
+                f'no {ck.resume_name} in {run_dir}: the run was saved with '
+                '--no_resume_state; use --load for a tables-only warm start')
+        state = ck.load(os.path.join(run_dir, ck.latest_name))
+        rs = ck.load_resume(run_dir)
+        if int(rs['epoch']) != int(state.get('epoch', -1)):
+            raise ValueError(
+                f'resume_state (epoch {int(rs["epoch"])}) does not match '
+                f'{ck.latest_name} (epoch {state.get("epoch")}): the run was '
+                'interrupted mid-checkpoint; use --load to warm-start from '
+                'the params instead')
+        diffs = {f: (v, getattr(self.cfg, f, None))
+                 for f, v in rs.get('config', {}).items()
+                 if getattr(self.cfg, f, None) != v}
+        if diffs:
+            detail = ', '.join(f'{f}: saved={a!r} vs {b!r}'
+                               for f, (a, b) in sorted(diffs.items()))
+            raise ValueError(
+                f"--resume requires the saving run's trajectory-relevant "
+                f'config; differing: {detail}. Use --load to warm-start '
+                'with new hyperparameters.')
+        restored = self._restored_adam(rs['adam'])
+        params = params_from_jax(state['params'], self.model.n_users,
+                                 self.model.n_items, self.model.device)
+        self.model.load_params(params)
+        self.optimizer.state.clear()
+        for p, st in restored.items():
+            self.optimizer.state[p] = st
+        gens = rs['generators']
+        self.generator.set_state(torch.from_numpy(gens['sampler']))
+        self.salt_generator.set_state(torch.from_numpy(gens['salt']))
+        self.metrics_logger = {m: np.asarray(rs['metrics'][m])
+                               for m in self.metrics_names}
+        self._start_epoch = int(rs['epoch']) + 1
+        log.info('Resumed at epoch %d', self._start_epoch - 1)
+
+    def _restored_adam(self, saved: dict) -> dict:
+        """``{parameter: Adam state}`` from the payload's ``adam``, this
+        rank's rows of the tables' moments; raises on another count or
+        shape of entries."""
+        entries = self._adam_entries()
+        if len(saved) != len(entries):
+            raise ValueError(f'--resume requires the same model config as '
+                             f'the saving run ({len(saved)} optimizer '
+                             f'entries saved, {len(entries)} now)')
+        restored = {}
+        for i, (name, p) in enumerate(entries):
+            got = saved[str(i)]
+            n = self._whole_rows(name)
+            shape = tuple(p.shape) if n is None else (n, *p.shape[1:])
+            st = {}
+            for key in ('exp_avg', 'exp_avg_sq'):
+                if key not in got:
+                    continue
+                if tuple(got[key].shape) != shape:
+                    raise ValueError(
+                        f'--resume requires the same model config as the '
+                        f'saving run (optimizer {key} of {name}: saved '
+                        f'{tuple(got[key].shape)} vs current {shape})')
+                v = torch.from_numpy(got[key]).to(p.device, p.dtype)
+                st[key] = v if n is None else self.model.local_rows(
+                    v, p.shape[0]).clone()
+            if 'step' in got:
+                st['step'] = torch.tensor(got['step'], dtype=torch.float32)
+            if st:
+                restored[p] = st
+        return restored
 
     # ------------------------------------------------------------------
     # evaluation and serving
@@ -187,6 +420,9 @@ class Trainer:
         """Metrics of the current tables over the test users; also kept in
         ``last_metrics``."""
         self._last_eval_epoch = epoch
+        on_evaluate = getattr(self.model, 'on_evaluate', None)
+        if on_evaluate is not None:
+            on_evaluate()
         preds, _ = self._predict_users(self.data.test_users)
         results = metrics_mod.calculate_metrics(
             preds, self.data.true_test, self.k)
@@ -244,25 +480,37 @@ class Trainer:
 
     def export_reprs(self) -> dict[str, str]:
         """Write the eval-mode propagated tables as ``users_repr.npy`` and
-        ``items_repr.npy`` in the run directory; returns {name: path}."""
+        ``items_repr.npy`` in the run directory, and for an LTR head its
+        collapsed factors (``ltr_user_factors.npy``, ``ltr_item_factors
+        .npy``, ``ltr_bias.npy``: head scores are ``u @ i.T + bias``);
+        returns {name: path}."""
         model = self.model
         with torch.no_grad():
             users_repr, items_repr = model.representation()
-            users_repr = model.gathered(users_repr, model.n_users)
-            items_repr = model.gathered(items_repr, model.n_items)
+            arrays = {
+                'users_repr': model.gathered(users_repr, model.n_users),
+                'items_repr': model.gathered(items_repr, model.n_items)}
+            if hasattr(model, 'fused_catalog_inputs'):
+                users = torch.arange(model.n_users, device=model.device)
+                u_cat, i_cat, bias = model.fused_catalog_inputs(
+                    (users_repr, items_repr), users)
+                arrays.update(ltr_user_factors=u_cat,
+                              ltr_item_factors=i_cat, ltr_bias=bias)
         paths = {}
-        for name, arr in (('users_repr', users_repr),
-                          ('items_repr', items_repr)):
+        for name, arr in arrays.items():
             path = os.path.join(self.cfg.save_path, f'{name}.npy')
             if self.primary:
                 os.makedirs(self.cfg.save_path, exist_ok=True)
-                np.save(path, arr.cpu().numpy())
+                np.save(path, arr.detach().cpu().numpy())
             paths[name] = path
-        log.info('Exported representations to %s: items_repr, users_repr',
-                 self.cfg.save_path)
+        log.info('Exported representations to %s: %s', self.cfg.save_path,
+                 ', '.join(sorted(arrays)))
         return paths
 
     def load(self, load_path: str):
+        """Warm-start from a checkpoint: the parameters it has are copied
+        in (``load_params``), then evaluated; the metrics history is
+        reset."""
         log.info('Loading model %s', load_path)
         state = self._checkpointer.load(load_path)
         params = params_from_jax(state['params'], self.model.n_users,

@@ -8,7 +8,10 @@ so the port slices them off.  Conv models add ``convs``, a list with one
 dict of arrays per layer, in the same layout in both packages (``w*``
 shaped ``(d_in, d_out)``, vectors ``(d,)``): ``gcn`` {``w``, ``b``},
 ``graphsage`` {``w_nbr``, ``w_root``, ``b``}, ``gat`` {``w``, ``a_src``,
-``a_dst``, ``b``}, ``gatv2`` {``w_src``, ``w_dst``, ``a``, ``b``}.
+``a_dst``, ``b``}, ``gatv2`` {``w_src``, ``w_dst``, ``a``, ``b``}.  The
+LTR heads add ``tower``, a list of ``{'w': (fan_in, fan_out), 'b':
+(fan_out,)}`` per layer: the JAX layout, which ``models/ltr.py``
+transposes into and out of ``nn.Linear.weight`` (``(fan_out, fan_in)``).
 """
 
 from __future__ import annotations
@@ -25,8 +28,9 @@ def _tensor(a, device) -> torch.Tensor:
 def params_from_jax(np_params: dict, n_users: int, n_items: int,
                     device='cpu') -> dict:
     """``{'user_emb': (n_users, d), 'item_emb': (n_items, d)}`` float32
-    tensors on ``device`` from a JAX parameter dict, plus ``convs`` (a
-    list of dicts of tensors) when it has them; other keys are ignored."""
+    tensors on ``device`` from a JAX parameter dict, plus ``convs`` and
+    ``tower`` (lists of dicts of tensors) when it has them; other keys are
+    ignored."""
     out = {}
     for name, n in (('user_emb', n_users), ('item_emb', n_items)):
         if name not in np_params:
@@ -36,9 +40,10 @@ def params_from_jax(np_params: dict, n_users: int, n_items: int,
             raise ValueError(f'{name}: expected at least {n} rows, got '
                              f'shape {table.shape}')
         out[name] = _tensor(table[:n], device)
-    if 'convs' in np_params:
-        out['convs'] = [{k: _tensor(v, device) for k, v in layer.items()}
-                        for layer in np_params['convs']]
+    for name in ('convs', 'tower'):
+        if name in np_params:
+            out[name] = [{k: _tensor(v, device) for k, v in layer.items()}
+                         for layer in np_params[name]]
     return out
 
 
@@ -49,7 +54,8 @@ def params_to_jax(params: dict) -> dict:
         return t.detach().to('cpu', torch.float32).numpy().copy()
 
     out = {name: arr(params[name]) for name in ('user_emb', 'item_emb')}
-    if 'convs' in params:
-        out['convs'] = [{k: arr(v) for k, v in layer.items()}
-                        for layer in params['convs']]
+    for name in ('convs', 'tower'):
+        if name in params:
+            out[name] = [{k: arr(v) for k, v in layer.items()}
+                         for layer in params[name]]
     return out
