@@ -106,9 +106,9 @@ Phases, each of which passes or ends the run with a non-zero exit:
    the same (without the step);
 9e. resume: ``lgcn`` on S1 for 1 epoch, then ``--resume`` for the second
    (K1 as phase 8 a run), against phase 8's uninterrupted run: loss sums
-   within 1e-4 relative, metrics 1e-3, tables 1e-3 (the gathers' backward
-   adds with atomics on the card, so the runs are not bit-equal; the
-   largest differences are printed);
+   within 1e-4 relative, metrics 1e-3, tables 1e-3 (nothing promises the
+   card's library kernels the same order of sums in two processes; the
+   largest differences are printed, and were 0 in every run so far);
 9f. refresh: ``lgcn --refresh_every 8`` on S1 for 2 epochs: K1 launches
    exactly ``ceil(steps / 8) x 6`` an epoch plus 6 an eval (forward only),
    the loss sums are finite;
@@ -1409,9 +1409,9 @@ def resume_phase(data_dir: str, single) -> dict:
     """``lgcn`` on S1 for 1 epoch, then ``--resume`` for the second,
     against phase 8's uninterrupted run ``single``: loss sums within
     ``RESUME_TOL`` relative, metrics within ``RESUME_METRIC_TOL``, tables
-    within ``RESUME_TABLE_TOL`` (the gathers' backward adds with atomics
-    on the card, so the runs are not bit-equal).  Returns the launches
-    and the largest differences."""
+    within ``RESUME_TABLE_TOL`` (nothing promises the card's library
+    kernels the same order of sums in two processes).  Returns the
+    launches and the largest differences."""
     common = [*MODEL_FLAGS['lgcn'], '--evaluate_every', '1', '--emb_size',
               str(D), '--n_layers', str(LAYERS), '--batch_size', str(BATCH),
               '--dropout', '0.4', '-k', *map(str, KS), '--quiet']
