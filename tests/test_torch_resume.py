@@ -398,16 +398,19 @@ def test_refresh_schedule_and_no_propagation_backward(dummy_dir, monkeypatch,
     spmm = spmm_mod.spmm
     monkeypatch.setattr(spmm_mod, 'spmm', lambda *a: calls.append(
         torch.is_grad_enabled()) or spmm(*a))
-    refreshes = []
-    rest = model.propagate_rest
+    done, refreshes = [], []
+    rest, step = model.propagate_rest, tr.train_step
     monkeypatch.setattr(model, 'propagate_rest', lambda **kw: (
-        refreshes.append(len(calls)), rest(**kw))[1])
+        refreshes.append(len(done)), rest(**kw))[1])
+    monkeypatch.setattr(tr, 'train_step', lambda *a: (
+        done.append(1), step(*a))[1])
     history = tr.fit()
     steps = model.num_batches(8)
-    assert steps > 5
-    per_epoch = -(-steps // every)
-    assert len(refreshes) == 2 * per_epoch
-    assert len(calls) == (2 * per_epoch + 2) * 6
+    assert steps == 8 and len(done) == 2 * steps
+    # the global step index of each refresh: 0, N, 2N, ... in each epoch
+    assert refreshes == [e * steps + k for e in range(2)
+                         for k in range(0, steps, every)]
+    assert len(calls) == (len(refreshes) + 2) * 6
     assert not any(calls)        # no graph kept for a backward
     assert all(np.isfinite(h['loss']) for h in history)
 
