@@ -112,8 +112,27 @@ Phases, each of which passes or ends the run with a non-zero exit:
 9f. refresh: ``lgcn --refresh_every 8`` on S1 for 2 epochs: K1 launches
    exactly ``ceil(steps / 8) x 6`` an epoch plus 6 an eval (forward only),
    the loss sums are finite;
+9g. slices 7-9 through ``cli.main`` on S1 (``SLICE_FLAGS``), K1 only:
+   ``adv_sampling``, ``text --pos user`` and ``ltr_reviews`` for 2
+   epochs, ``kg``, ``reviews`` and ``ltr_kg`` for 1: K1 launches exactly
+   ``steps x 18 + evals x 6`` for ``adv_sampling`` (a rank pass forward,
+   then the loss pass forward and backward) and ``steps x 12 + evals x 6``
+   for the others, every loss component finite; the 2-epoch runs' loss
+   sums fall, their ``best.pkl`` serves its epoch's metrics, and one step
+   runs against the plain versions (``adv_sampling``: the hard negatives
+   selected once on the kernel path feed both loss passes, within
+   ``STEP_TOL``; the share of rows whose selection the plain rank pass
+   repeats is logged); ``text --pos user`` holds its (item, user) review
+   table, one 384-wide row per train edge, on the card;
+9h. probes: ``text_probe`` (four metric sets, no launch) and
+   ``ltr_simple --load_base <phase 8's lgcn run>`` (the base's evaluation
+   and two metric sets: 18 K1 launches);
+9i. mining: an ``adv_sampling`` step's (2048, 25,000) score, bf16 round
+   and masks, ``mining_top_k`` and the whole selection, timed, beside
+   ``torch.topk`` on the same scores;
 10. timing: ms per training step and examples/s of each model at S1, and
-   of the frozen ``ltr_linear`` and the ``--refresh_every 8`` steps, split
+   of the frozen ``ltr_linear``, the ``--refresh_every 8``,
+   ``adv_sampling`` and ``text --pos user`` steps, split
    into sampling, forward, backward and Adam (and the refresh), host clock
    around synchronised work, the host's enqueue share of an
    unsynchronised run of steps, and the device's busy time per step, and
@@ -1147,6 +1166,73 @@ def step_vs_plain(trainer) -> float:
     finally:
         undo()
     check(counts() == before, 'the plain step launched a kernel')
+    return compare_steps(model, k_loss, k_grads, p_loss, p_grads)
+
+
+def adv_draws(model, seed: int):
+    """The first batch of an ``adv_sampling`` epoch, with a candidate
+    mask and positive draws as a step draws them, from ``seed``."""
+    gen = torch.Generator(device=model.device).manual_seed(seed)
+    users = model.sample_batches(gen, BATCH)[0][0]
+    b, p = users.shape[0], model.n_candidates / model.n_items
+    keep = torch.rand((b, model.n_items), generator=gen,
+                      device=model.device) < p
+    ridx = torch.randint(0, 1 << 30, (b, model.pos_samples), generator=gen,
+                         device=model.device)
+    return users, keep, ridx
+
+
+def adv_step_vs_plain(trainer) -> tuple[float, float]:
+    """One S1 ``adv_sampling`` step with the kernels and with the plain
+    versions, from the same params, users, draws and salts.  The hard
+    negatives are selected once, on the kernel path, and both loss passes
+    take them: the mining scores are rounded to bf16, so the ~1e-6 between
+    the two propagations can move an item across the k-th place of a row.
+    Returns the largest difference and the share of rows whose selection
+    the plain rank pass repeats exactly."""
+    model = trainer.model
+    users, keep, ridx = adv_draws(model, 5)
+    b = users.shape[0]
+    pos = model.positives(users, ridx)
+    w_rank = ((SALT, KEEP_DROPOUT), (SALT ^ 0x5A5A5A5A, KEEP_DROPOUT))
+    w_loss = ((SALT ^ 0x1234567, KEEP_DROPOUT),
+              (SALT ^ 0x7654321, KEEP_DROPOUT))
+
+    def select():
+        with torch.no_grad():
+            ur, ir = model.representation(training=True, w_pairs=w_rank)
+            return model.hard_negatives(ur, ir, users, keep)
+
+    def step(negs, valid):
+        model.zero_grad(set_to_none=True)
+        ur, ir = model.representation(training=True, w_pairs=w_loss)
+        loss = sum(model.expanded_loss(ur, ir, users, pos, negs, valid))
+        loss.backward()
+        torch.cuda.synchronize()
+        return loss.detach(), {n: p.grad.detach().clone()
+                               for n, p in model.named_parameters()}
+
+    negs, valid = select()
+    k_loss, k_grads = step(negs, valid)
+    before = counts()
+    undo = plain_kernels()
+    try:
+        p_negs, p_valid = select()
+        p_loss, p_grads = step(negs, valid)
+    finally:
+        undo()
+    check(counts() == before, 'the plain step launched a kernel')
+    agree = float(((p_negs == negs) & (p_valid == valid)).all(dim=1)
+                  .float().mean())
+    log(f'adv selection: the plain rank pass repeats the kernel path\'s '
+        f'hard negatives in {agree:.4f} of {b} rows; valid negatives a row '
+        f'{float(valid.float().sum(1).mean()):.2f} of {model.n_hard_negs}')
+    return compare_steps(model, k_loss, k_grads, p_loss, p_grads), agree
+
+
+def compare_steps(model, k_loss, k_grads, p_loss, p_grads) -> float:
+    """Check a step's loss and gradients with the kernels against the
+    plain versions' (``STEP_TOL``); the largest difference."""
     model.zero_grad(set_to_none=True)
     err = float((k_loss - p_loss).abs())
     check(torch.allclose(k_loss, p_loss, atol=STEP_TOL, rtol=STEP_TOL),
@@ -1173,15 +1259,30 @@ MODEL_FLAGS = {
 }
 
 
+# the paths of slices 7-9, all on K1: CLI flags and epochs (a 1-epoch run
+# serves no best.pkl and runs no step against the plain versions)
+SLICE_FLAGS = {
+    'adv_sampling': (('--model', 'adv_sampling'), TRAIN_EPOCHS),
+    'text_user': (('--model', 'text', '--pos', 'user'), TRAIN_EPOCHS),
+    'ltr_reviews': (('--model', 'ltr_reviews'), TRAIN_EPOCHS),
+    'kg': (('--model', 'kg'), 1),
+    'reviews': (('--model', 'reviews'), 1),
+    'ltr_kg': (('--model', 'ltr_kg'), 1),
+}
+
+
 def expected_launches(model: str, steps: int, evals: int) -> dict[str, int]:
     """Each kernel's launches in ``steps`` training steps and ``evals``
     evaluations: a layer runs both directions once forward and, in a step,
-    once backward.  K1 serves as its own backward; the attention kernels
+    once backward.  K1 serves as its own backward; ``adv_sampling`` runs a
+    rank pass forward before each step's loss pass; the attention kernels
     have a backward kernel each; on the mesh path (``lgcn_mesh``) K2 takes
     K1's place."""
     per_pass = 2 * LAYERS
     want = dict.fromkeys(_wrappers(), 0)
-    if model in ('lgcn', 'gcn', 'graphsage'):
+    if model == 'adv_sampling':
+        want['spmm_dropout'] = steps * 3 * per_pass + evals * per_pass
+    elif model in ('lgcn', 'gcn', 'graphsage', *SLICE_FLAGS):
         want['spmm_dropout'] = steps * 2 * per_pass + evals * per_pass
     elif model == 'lgcn_mesh':
         want['spmm_weighted'] = steps * 2 * per_pass + evals * per_pass
@@ -1192,10 +1293,14 @@ def expected_launches(model: str, steps: int, evals: int) -> dict[str, int]:
 
 
 def train_phase(data_dir: str, model: str) -> dict:
-    """S1 trained through the CLI for ``TRAIN_EPOCHS`` epochs, eval every
-    epoch; the kernel launches of that run, read just after it."""
-    flags = MODEL_FLAGS[model]
-    argv = [*flags, '--epochs', str(TRAIN_EPOCHS), '--evaluate_every', '1',
+    """S1 trained through the CLI for ``TRAIN_EPOCHS`` epochs (a slice
+    7-9 path: its own count), eval every epoch; the kernel launches of
+    that run, read just after it; with two epochs or more, falling loss
+    sums, ``best.pkl`` re-served and one step against the plain
+    versions."""
+    flags, epochs = SLICE_FLAGS.get(model, (MODEL_FLAGS.get(model),
+                                            TRAIN_EPOCHS))
+    argv = [*flags, '--epochs', str(epochs), '--evaluate_every', '1',
             '--emb_size', str(D), '--n_layers', str(LAYERS), '--batch_size',
             str(BATCH), '--dropout', '0.4', '-k', *map(str, KS), '--uid',
             f'train-{model}', '--quiet']
@@ -1211,15 +1316,20 @@ def train_phase(data_dir: str, model: str) -> dict:
         f'launches {launches}')
     check(steps == -(-m.bucket_len * m.n_users // BATCH) == 264,
           f'{steps} steps an epoch, expected ceil(9 * 60000 / 2048) = 264')
-    want = expected_launches(model, steps * TRAIN_EPOCHS, TRAIN_EPOCHS)
+    want = expected_launches(model, steps * epochs, epochs)
     check(launches == want, f'train {model}: launches {launches}, expected '
           f'{want}')
     hist = trainer.loss_history
     log(f'train {model}: loss sums by epoch '
-        f'{[round(h["loss"], 4) for h in hist]}')
-    check(len(hist) == TRAIN_EPOCHS
-          and all(np.isfinite(h['loss']) for h in hist),
+        + json.dumps([{c: round(v, 4) for c, v in h.items()}
+                      for h in hist]))
+    check(len(hist) == epochs
+          and all(np.isfinite(v) for h in hist for v in h.values()),
           f'train {model}: loss sums {hist}')
+    out = {'trainer': trainer, 'launches': launches, 'seconds': seconds,
+           'run_dir': run_dir}
+    if epochs == 1:
+        return out
     check(hist[1]['loss'] < hist[0]['loss'],
           f'train {model}: epoch 2 loss sum {hist[1]["loss"]} is not below '
           f'epoch 1 {hist[0]["loss"]}')
@@ -1235,8 +1345,85 @@ def train_phase(data_dir: str, model: str) -> dict:
               f'{best + 1} measured {rows[name][best]}')
     log(f'train {model}: best.pkl (epoch {best + 1}) serves the same '
         f'metrics: {json.dumps(served.last_metrics)}')
-    return {'trainer': trainer, 'launches': launches, 'seconds': seconds,
-            'step_err': step_vs_plain(trainer)}
+    if model == 'adv_sampling':
+        out['step_err'], out['selection_agreement'] = \
+            adv_step_vs_plain(trainer)
+    else:
+        out['step_err'] = step_vs_plain(trainer)
+    return out
+
+
+def probe_phase(data_dir: str, base_dir: str) -> dict:
+    """The two probes through the CLI: ``text_probe`` (the four text
+    combinations as the scoring representation: no propagation, no
+    launch) and ``ltr_simple --load_base <phase 8's lgcn run>`` (the
+    base's evaluation and the two concat probes: 18 K1 launches); each
+    probe's metrics are finite."""
+    common = ['--emb_size', str(D), '--n_layers', str(LAYERS),
+              '--batch_size', str(BATCH), '-k', *map(str, KS), '--quiet']
+    out = {}
+    for name, argv, n_sets, n_evals in (
+            ('text_probe', ['--model', 'text_probe'], 4, 0),
+            ('ltr_simple', ['--model', 'ltr_simple', '--load_base',
+                            base_dir], 2, 3)):
+        reset_counts()
+        t0 = time.perf_counter()
+        trainer, _ = cli_run(data_dir, [*argv, '--uid', f'probe-{name}',
+                                        *common], 'cuda')
+        seconds = time.perf_counter() - t0
+        launches = counts()
+        want = expected_launches('lgcn', 0, n_evals)
+        rows = trainer.metrics_logger
+        log(f'probe {name}: cli.main took {seconds:.3f} s; launches '
+            f'{launches}; metrics by probe '
+            + json.dumps({m: v.tolist() for m, v in rows.items()}))
+        check(launches == want, f'probe {name}: launches {launches}, '
+              f'expected {want}')
+        check(all(v.shape[0] == n_sets and np.isfinite(v).all()
+                  for v in rows.values()),
+              f'probe {name}: {n_sets} finite metric sets expected')
+        out[name] = {'launches': launches, 'seconds': seconds}
+    return out
+
+
+def mining_phase(trainer, card: str) -> dict:
+    """The mining layer of an ``adv_sampling`` step at S1, timed as
+    single launches: the (2048, 25,000) float32 score product, the bf16
+    rounding with the train and candidate masks, ``mining_top_k`` on the
+    masked scores and the whole ``hard_negatives``; and ``torch.topk`` on
+    the same scores, a yardstick the port never calls (it orders ties
+    arbitrarily)."""
+    from textgcn_tpu_torch.ops.retrieval import (catalog_scores,
+                                                 mask_train_items,
+                                                 mining_top_k)
+    model = trainer.model
+    users, keep, _ = adv_draws(model, 9)
+    k = model.n_hard_negs
+
+    def masked(scores):
+        return mask_train_items(scores.to(torch.bfloat16),
+                                model.pos_padded[users], model.n_items
+                                ).masked_fill(~keep, -torch.inf)
+
+    with torch.no_grad():
+        ur, ir = model.representation()
+        u = ur[users]
+        scores = masked(catalog_scores(u, ir))
+        fns = {'score': lambda: catalog_scores(u, ir),
+               'mask': lambda: masked(catalog_scores(u, ir)),
+               'top_k': lambda: mining_top_k(scores, k),
+               'library_top_k': lambda: torch.topk(scores, k),
+               'hard_negatives': lambda: model.hard_negatives(ur, ir, users,
+                                                              keep)}
+        ms = time_ms(fns, ['score', 'mask', 'top_k', 'library_top_k',
+                           'hard_negatives', 'hard_negatives', 'top_k'],
+                     strict=())
+    ms['mask'] -= ms['score']
+    log(f'mining at S1 ({card}): a step\'s (2048, {model.n_items}) score '
+        f'{ms["score"]:.4f} ms, bf16 + masks {ms["mask"]:.4f}, mining_top_k '
+        f'(k = {k}) {ms["top_k"]:.4f} (torch.topk {ms["library_top_k"]:.4f}),'
+        f' hard_negatives {ms["hard_negatives"]:.4f} ms')
+    return ms
 
 
 def write_ltr_text(data_dir: str, data, dev, seed: int = 0) -> dict:
@@ -1618,8 +1805,7 @@ def timing_phase(trainer, card: str, trace_dir: str, n_steps: int = 30,
     pieces = {'forward': [], 'backward': [], 'adam': [], 'refresh': []}
     per_step = {}
     for i, batch in enumerate(batches[:n_steps + 3]):
-        w_pairs = model.graph_op.weights(trainer.salt_generator,
-                                         model.dropout)
+        w_pairs = trainer.step_salts()
         if refresh and i % refresh == 0:
             c0 = counts()
 
@@ -1782,7 +1968,32 @@ def main():
         trained['lgcn_refresh'] = refresh_phase(data_dir)
         log(f'phase refresh: {time.perf_counter() - t:.3f} s')
 
-        for model in (*MODEL_FLAGS, 'ltr_linear', 'lgcn_refresh'):
+        timed = (*MODEL_FLAGS, 'ltr_linear', 'lgcn_refresh', 'adv_sampling',
+                 'text_user')
+        for model in SLICE_FLAGS:
+            t = time.perf_counter()
+            trained[model] = train_phase(data_dir, model)
+            if model not in timed:
+                trained[model].pop('trainer')
+            log(f'phase train {model}: {time.perf_counter() - t:.3f} s')
+        m = trained['text_user']['trainer'].model
+        pair_bytes = m.pair_vectors.numel() * m.pair_vectors.element_size()
+        check(m.pos_mode == 'user'
+              and m.pair_vectors.device.type == m.device.type
+              and m.pair_keys.numel() == m.pair_vectors.shape[0]
+              == data.n_train, f'text --pos user: the pair table '
+              f'{tuple(m.pair_vectors.shape)} on {m.pair_vectors.device}')
+        log(f'text --pos user: the (item, user) review table '
+            f'{tuple(m.pair_vectors.shape)}, {pair_bytes} bytes, on '
+            f'{m.pair_vectors.device}')
+        t = time.perf_counter()
+        probes = probe_phase(data_dir, trained['lgcn']['run_dir'])
+        log(f'phase probes: {time.perf_counter() - t:.3f} s')
+        t = time.perf_counter()
+        mining = mining_phase(trained['adv_sampling']['trainer'], card)
+        log(f'phase mining: {time.perf_counter() - t:.3f} s')
+
+        for model in timed:
             t = time.perf_counter()
             timing[model] = timing_phase(trained[model].pop('trainer'), card,
                                          root, name=model)
@@ -1801,6 +2012,8 @@ def main():
     # the two runs of the resume phase (epoch 1, then --resume for 2)
     by_path['train_lgcn_resume'] = {k: n for k, n in
                                     resumed['launches'].items() if n}
+    by_path.update({f'probe_{m}': {k: n for k, n in r['launches'].items()
+                                   if n} for m, r in probes.items()})
 
     def launch_fields(name, model):
         paths = {p: c[name] for p, c in by_path.items() if name in c}
@@ -1818,7 +2031,10 @@ def main():
         # serve lgcn; train lgcn, gcn and graphsage (forward and
         # backward); train ltr_linear and ltr_pop --freeze (forward only:
         # base eval, steps, evals, predict); lgcn --resume; lgcn
-        # --refresh_every 8 (forward only, at the refresh steps)
+        # --refresh_every 8 (forward only, at the refresh steps); train
+        # adv_sampling (the rank pass forward, the loss pass forward and
+        # backward), text --pos user, kg, reviews, ltr_reviews and ltr_kg;
+        # ltr_simple --load_base (the base's eval and two probes)
         **launch_fields('spmm_dropout', 'lgcn'),
         'max_abs_err': k1['max_abs_err'],
         'max_abs_err_by_width': k1['max_abs_err_by_width'],
@@ -1921,9 +2137,13 @@ def main():
     for m in ('ltr_linear', 'ltr_pop'):
         steps.setdefault(m, {})['fused_topk_vs_reference_max_abs_err'] = \
             trained[m]['topk_err']
+    steps['adv_sampling']['selection_agreement'] = \
+        trained['adv_sampling']['selection_agreement']
     log(json.dumps({'training_at_s1': steps, 'card': card,
                     'ltr_text': ltr_text,
-                    'resume_vs_uninterrupted': resumed}))
+                    'resume_vs_uninterrupted': resumed,
+                    'mining_ms': mining,
+                    'text_user_pair_table_bytes': pair_bytes}))
     print(json.dumps({'kernels': kernels}), flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -111,8 +111,12 @@ def test_parse_args_matches_jax(argv):
 
 
 @pytest.mark.parametrize('argv, err', [
-    (['--model', 'adv_sampling'], NotImplementedError),
-    (['--model', 'text'], NotImplementedError),
+    (['--model', 'xgboost'], NotImplementedError),
+    (['--model', 'marcus'], NotImplementedError),
+    (['--model', 'kg', '--mesh', '2x4'], NotImplementedError),
+    (['--model', 'ltr_simple'], ValueError),
+    (['--model', 'adv_sampling', 'TEXTGCN_TPU_ADV_TOPK=0.9'],
+     NotImplementedError),
     (['--model', 'gcn', '--aggr', 'mean', '--mesh', '2x4'],
      NotImplementedError),
     (['--model', 'lgcn', '--approx_topk', '0.95'], NotImplementedError),
@@ -122,6 +126,10 @@ def test_parse_args_matches_jax(argv):
     (['--model', 'lgcn', '--trace', 'out'], NotImplementedError),
     (['--model', 'gat'], ValueError),
 ])
-def test_parse_args_refuses_what_is_not_ported(argv, err):
+def test_parse_args_refuses_what_is_not_ported(argv, err, monkeypatch):
+    """An ``ENV=value`` item is set in the environment, not passed."""
+    for item in argv:
+        if '=' in item:
+            monkeypatch.setenv(*item.split('=', 1))
     with pytest.raises(err):
-        tconfig.parse_args(argv)
+        tconfig.parse_args([a for a in argv if '=' not in a])

@@ -8,6 +8,13 @@
         --load runs/<data>/<uid> [--predict] [--export_reprs]
     python -m textgcn_tpu_torch --model ltr_linear|ltr_pop --data D \
         --load_base runs/<data>/<lgcn uid> --freeze ...
+    python -m textgcn_tpu_torch --model adv_sampling --data D ...
+    python -m textgcn_tpu_torch --model text|kg|reviews [--weight W \
+        --distance F --dist_fn euclid|cosine_minus --pos avg|user|kg \
+        --neg avg|kg] --data D ...
+    python -m textgcn_tpu_torch --model ltr_reviews|ltr_kg --data D ...
+    python -m textgcn_tpu_torch --model text_probe --data D
+    python -m textgcn_tpu_torch --model ltr_simple --load_base RUN --data D
     python -m textgcn_tpu_torch ... --resume runs/<data>/<uid>
     python -m textgcn_tpu_torch --model lgcn ... --refresh_every N
     python -m textgcn_tpu_torch --model lgcn --mesh 1x1|auto ...
@@ -21,10 +28,12 @@ of a stopped run), else ``--load`` or ``--load_base`` (with its
 evaluation; before training it warm-starts the params; ``--load_base``
 evaluates an LTR head's base with plain scoring, then switches the head
 on) -> ``fit`` unless ``--no_train`` -> ``--predict`` ->
-``--export_reprs``.  Runs on the GPU; ``TEXTGCN_TPU_PLATFORM=cpu`` asks
-for the CPU (gloo for ``--mesh``).  A process group this call started is
-destroyed before it returns, so ``main`` can run again in the same
-process.
+``--export_reprs``.  ``text_probe`` returns after its probe of the four
+text representations, before any load; ``ltr_simple`` after the load and
+its probe of the two item texts.  Runs on the GPU;
+``TEXTGCN_TPU_PLATFORM=cpu`` asks for the CPU (gloo for ``--mesh``).  A
+process group this call started is destroyed before it returns, so
+``main`` can run again in the same process.
 """
 
 from __future__ import annotations
@@ -70,6 +79,12 @@ def _run(cfg, device, mesh=None):
     if mesh is not None:
         model = shard_model(mesh, model, data)
     trainer = Trainer(cfg, model, data)
+    if cfg.model == 'text_probe':
+        from .models.text_loss import probe_text_representations
+        for combo, res in probe_text_representations(data,
+                                                     trainer).items():
+            logger.info('probe %s: %s', combo, res)
+        return trainer
     logger.info('Created model %s (%d users x %d items, %d edges)',
                 cfg.uid, data.n_users, data.n_items, data.graph.n_edges)
 
@@ -85,6 +100,11 @@ def _run(cfg, device, mesh=None):
         trainer.load(cfg.load_base)
         if head is not None:
             model.score_with_head = True
+    if cfg.model == 'ltr_simple':
+        from .models.ltr_concat import probe_concat_scoring
+        for mode, res in probe_concat_scoring(trainer).items():
+            logger.info('concat probe pos=%s: %s', mode, res)
+        return trainer
     if not cfg.no_train:
         trainer.fit()
     if cfg.predict:

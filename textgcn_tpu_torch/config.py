@@ -10,9 +10,12 @@ Knobs that exist for the TPU:
 * ``--no_pallas`` and ``--steps_per_call`` are accepted and ignored: the
   port has one kernel per function and no device-call relay to bound.
 * ``--mesh DATAxMODEL|auto`` runs ``lgcn`` over ``torch.distributed``
-  ranks, one per GPU (``parallel/``); the other models, the LTR heads
-  among them, refuse it.  ``--approx_topk`` is refused when set: the port
-  serves an exact top-k.
+  ranks, one per GPU (``parallel/``); the other models refuse it.
+  ``--approx_topk`` is refused when set: the port serves an exact top-k;
+  so is a ``TEXTGCN_TPU_ADV_TOPK`` recall target for ``adv_sampling``: it
+  mines exactly.
+
+``ltr_simple`` needs ``--load`` or ``--load_base`` (a ``ValueError``).
 
 ``warn_footguns`` logs the JAX package's LTR warnings (no base loaded, a
 base not frozen).
@@ -32,14 +35,17 @@ from dataclasses import dataclass, field
 
 import torch
 
+from .ops.retrieval import check_adv_topk_env
+
 MODEL_CHOICES = (
     'lgcn', 'adv_sampling', 'ltr_linear', 'ltr_pop', 'text', 'kg',
     'reviews', 'text_probe', 'xgboost', 'gbdt', 'xgboost_pop', 'gbdt_pop',
     'marcus', 'ltr_reviews', 'ltr_kg', 'ltr_simple', 'gcn', 'graphsage',
     'gat', 'gatv2',
 )
-PORTED_MODELS = ('lgcn', 'gcn', 'graphsage', 'gat', 'gatv2', 'ltr_linear',
-                 'ltr_pop')
+PORTED_MODELS = ('lgcn', 'adv_sampling', 'gcn', 'graphsage', 'gat', 'gatv2',
+                 'ltr_linear', 'ltr_pop', 'text', 'kg', 'reviews',
+                 'text_probe', 'ltr_reviews', 'ltr_kg', 'ltr_simple')
 CONV_MODELS = ('gcn', 'graphsage', 'gat', 'gatv2')
 # the models the JAX package warns about without a frozen, loaded base
 LTR_WARN_MODELS = ('ltr_linear', 'ltr_pop', 'ltr_simple', 'xgboost', 'gbdt',
@@ -183,6 +189,11 @@ class Config:
                     f'--mesh for {self.model!r} is not ported yet (ported: '
                     'lgcn)')
             self.mesh_shape  # raises on a malformed shape
+        if self.model == 'ltr_simple' and not (self.load or self.load_base):
+            raise ValueError('ltr_simple probes a pretrained base: pass '
+                             '--load or --load_base')
+        if self.model == 'adv_sampling':
+            check_adv_topk_env()
         if self.approx_topk:
             raise NotImplementedError(
                 '--approx_topk is not ported yet: the port serves exact '

@@ -18,7 +18,9 @@ numpy (no pandas), with the JAX package's semantics field by field:
   reviewed;
 * popularity, ``fixed`` (count / max count) or ``compat`` (the
   reference's literal formula: entity ids in count order over the number
-  of entities).
+  of entities);
+* every train review's vector by (item, user), sorted by item then user,
+  for the text models' ``--pos user``.
 
 Encoders: ``TEXTGCN_TPU_TEXT_ENCODER=stub`` (the JAX package's
 deterministic hash-seeded unit vectors, bit for bit) or the caches.  Any
@@ -208,6 +210,13 @@ class LTRData(InteractionData):
     popularity_users: np.ndarray = None       # (n_users, 1)
     popularity_items: np.ndarray = None       # (n_items, 1)
     text_dim: int = 0
+    # the train reviews' vectors by (item, user), for the text models'
+    # ``--pos user``: sorted by item, then user (ties in review order),
+    # with the row pointer of each item's run
+    review_pair_items: np.ndarray = None      # (n_reviews,) int32
+    review_pair_users: np.ndarray = None      # (n_reviews,) int32
+    review_pair_item_ptr: np.ndarray = None   # (n_items + 1,) int32
+    review_pair_vectors: np.ndarray = None    # (n_reviews, D)
 
 
 def _model_tag(cfg: Config) -> str:
@@ -394,10 +403,20 @@ def load_ltr_data(cfg: Config,
     pop_u = _popularity(reviews.user, base.n_users, popularity_mode)
     pop_i = _popularity(reviews.item, base.n_items, popularity_mode)
 
+    pair_items = reviews.item.astype(np.int32)
+    pair_users = reviews.user.astype(np.int32)
+    order = np.lexsort((pair_users, pair_items))
+    pair_items, pair_users = pair_items[order], pair_users[order]
+    pair_item_ptr = np.searchsorted(
+        pair_items, np.arange(base.n_items + 1)).astype(np.int32)
+
     return LTRData(
         **{f.name: getattr(base, f.name) for f in dataclasses.fields(base)},
         items_as_desc=items_as_desc,
         items_as_avg_reviews=items_as_avg_reviews,
         users_as_avg_reviews=users_as_avg_reviews,
         users_as_avg_desc=users_as_avg_desc,
-        popularity_users=pop_u, popularity_items=pop_i, text_dim=dim)
+        popularity_users=pop_u, popularity_items=pop_i, text_dim=dim,
+        review_pair_items=pair_items, review_pair_users=pair_users,
+        review_pair_item_ptr=pair_item_ptr,
+        review_pair_vectors=vectors[order].astype(np.float32))

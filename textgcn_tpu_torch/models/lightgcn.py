@@ -32,7 +32,7 @@ from ..config import Config, resolve_device
 from ..data.core import InteractionData
 from ..ops.propagate import propagate_rest as _propagate_rest
 from ..ops.propagate import representation as _representation
-from ..ops.retrieval import score_and_topk
+from ..ops.retrieval import catalog_scores, score_and_topk
 from ..ops.sampling import (batch_epoch, num_batches, positive_keys,
                             sample_epoch)
 from ..ops.spmm import GraphOp
@@ -47,6 +47,11 @@ class LightGCN(nn.Module):
     # --refresh_every: the trainer binds a stale rest here between refreshes
     supports_cached_propagation = True
     cached_rest = None
+    # dropout salt pairs the trainer draws a step (one a propagation)
+    salt_pairs_per_step = 1
+    # a model's own device generator of random draws, which a resume
+    # restores (adv_sampling's)
+    generator = None
 
     def __init__(self, cfg: Config, data: InteractionData, *, device=None,
                  generator: torch.Generator | None = None):
@@ -78,13 +83,17 @@ class LightGCN(nn.Module):
         self._graph = data.graph
         self._graph_op = None
         self.mesh = None
-        for name, value in (('pos_padded', data.pos_padded),
-                            ('pos_degree', data.pos_degree)):
-            self.register_buffer(name, torch.from_numpy(value).to(
-                self.device), persistent=False)
+        self.device_buffer('pos_padded', data.pos_padded)
+        self.device_buffer('pos_degree', data.pos_degree)
         self.register_buffer(
             'pos_keys', positive_keys(self.pos_padded, self.n_items),
             persistent=False)
+
+    def device_buffer(self, name: str, array: np.ndarray):
+        """``array`` as the non-persistent buffer ``name`` on the
+        model's device."""
+        self.register_buffer(name, torch.from_numpy(array).to(self.device),
+                             persistent=False)
 
     def graph_edge_weight(self, graph) -> np.ndarray:
         """The edge weights of ``graph_op``: LightGCN's normalisation."""
@@ -184,10 +193,16 @@ class LightGCN(nn.Module):
         users_repr, items_repr = self.representation()
         return self.gathered(users_repr, self.n_users), items_repr
 
+    def score_pairwise(self, users_emb, items_emb, users, items):
+        """Scores of (user, item) pairs from gathered propagated rows
+        (broadcast over leading axes): the dot product.  ``users`` and
+        ``items`` are the pairs' ids, for subclasses that add to it."""
+        return (users_emb * items_emb).sum(dim=-1)
+
     def score_batchwise(self, reprs, users: torch.Tensor) -> torch.Tensor:
         """(B, n_items) scores of a user batch against the catalogue."""
         users_repr, items_repr = reprs
-        return users_repr[users] @ items_repr.T
+        return catalog_scores(users_repr[users], items_repr)
 
     def topk_for_users(self, reprs, batch_users: torch.Tensor, k: int):
         """Train-masked full-catalogue top-k for a batch of users, from
@@ -208,8 +223,9 @@ class LightGCN(nn.Module):
              w_pairs=None):
         """``(loss, {'bpr', 'reg'})`` of one batch ``(users, pos, negs[,
         mask])``: one full-graph propagation with edge dropout, BPR over
-        ``selu(neg - pos)`` and L2 on the layer-0 rows.  On a mesh, this
-        rank's share of the batch's loss (see the module docstring)."""
+        ``selu(neg - pos)`` of ``score_pairwise`` and L2 on the layer-0
+        rows.  On a mesh, this rank's share of the batch's loss (see the
+        module docstring)."""
         users, pos, negs = batch[:3]
         mask = batch[3] if len(batch) > 3 else None
         users_repr, items_repr = self.representation(
@@ -226,8 +242,9 @@ class LightGCN(nn.Module):
             tables = tuple(all_gather_rows(t, self.mesh) for t in tables)
         users_repr, items_repr, user_emb, item_emb = tables
         u = users_repr[users]
-        pos_scores = (u * items_repr[pos]).sum(dim=-1)
-        neg_scores = (u[:, None, :] * items_repr[negs]).sum(dim=-1)
+        pos_scores = self.score_pairwise(u, items_repr[pos], users, pos)
+        neg_scores = self.score_pairwise(u[:, None, :], items_repr[negs],
+                                         users[:, None], negs)
         l_bpr = bpr_loss(pos_scores, neg_scores, mask, count)
         l_reg = reg_loss(user_emb, item_emb, users, pos, negs,
                          self.reg_lambda, mask, count)

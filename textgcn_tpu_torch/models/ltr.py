@@ -13,7 +13,8 @@ one weight vector and a bias (``collapse_tower``); the catalogue scores
 are then one product ``u_cat @ i_cat.T + bias`` of ``(B, 3d')`` user
 factors and ``(n_items, 3d')`` item factors (``fused_catalog_inputs``),
 never the reference's ``(B, n_items, F)`` feature tensor.  Training
-differentiates through every tower layer on the pairwise features.
+differentiates through every tower layer on the pairwise features
+(``LightGCN.loss`` scores through ``score_pairwise``).
 
 ``--freeze`` sets ``requires_grad=False`` on the tables: Adam then steps
 the tower only and the propagation runs no backward.  While
@@ -29,9 +30,8 @@ import math
 import torch
 from torch import nn
 
-from ..ops.retrieval import mask_train_items
+from ..ops.retrieval import catalog_scores, mask_train_items
 from .lightgcn import LightGCN
-from .losses import bpr_loss, reg_loss
 
 log = logging.getLogger('textgcn_tpu_torch')
 
@@ -73,8 +73,7 @@ class LTRLinear(LightGCN):
         self.ltr_layers = tuple(cfg.ltr_layers)
         self.freeze = cfg.freeze
         for name in TEXT_FEATURES:
-            self.register_buffer(name, torch.from_numpy(
-                getattr(data, name)).to(self.device), persistent=False)
+            self.device_buffer(name, getattr(data, name))
         sizes = [self.n_features, *self.ltr_layers, 1]
         gen = self.init_generator
         self.tower = nn.ModuleList()
@@ -127,7 +126,8 @@ class LTRLinear(LightGCN):
 
     def features_pairwise(self, users_emb, items_emb, users, items):
         """``(..., F)`` cross features of gathered propagated rows and the
-        text rows of ``users``/``items``, in the reference order."""
+        text rows of ``users``/``items`` (broadcast over leading axes), in
+        the reference order."""
         u_rev = self.users_as_avg_reviews[users]
         u_desc = self.users_as_avg_desc[users]
         i_rev = self.items_as_avg_reviews[items]
@@ -150,7 +150,7 @@ class LTRLinear(LightGCN):
         """Head scores of (user, item) pairs (the dot product while the
         head is off)."""
         if not self.score_with_head:
-            return (users_emb * items_emb).sum(-1)
+            return super().score_pairwise(users_emb, items_emb, users, items)
         return self.apply_tower(
             self.features_pairwise(users_emb, items_emb, users, items))
 
@@ -176,11 +176,9 @@ class LTRLinear(LightGCN):
         return u_cat, i_cat   # LTRLinearWPop appends two columns
 
     def fused_batch_scores(self, reprs, batch_users) -> torch.Tensor:
-        """``(B, n_items)`` head scores through the fused product (full
-        float32: TF32 is switched off)."""
-        torch.backends.cuda.matmul.allow_tf32 = False
+        """``(B, n_items)`` head scores through the fused product."""
         u_cat, i_cat, b = self.fused_catalog_inputs(reprs, batch_users)
-        return torch.matmul(u_cat, i_cat.T) + b
+        return catalog_scores(u_cat, i_cat) + b
 
     def score_batchwise(self, reprs, users: torch.Tensor) -> torch.Tensor:
         if not self.score_with_head:
@@ -193,26 +191,6 @@ class LTRLinear(LightGCN):
         scores = mask_train_items(self.fused_batch_scores(reprs, batch_users),
                                   self.pos_padded[batch_users], self.n_items)
         return torch.topk(scores, k, dim=1)
-
-    # --- loss --------------------------------------------------------------
-
-    def loss(self, batch, *, generator: torch.Generator | None = None,
-             w_pairs=None):
-        """``(loss, {'bpr', 'reg'})``: BPR over the head's scores of one
-        propagation with edge dropout, L2 on the layer-0 rows."""
-        users, pos, negs = batch[:3]
-        mask = batch[3] if len(batch) > 3 else None
-        users_repr, items_repr = self.representation(
-            training=True, generator=generator, w_pairs=w_pairs)
-        u = users_repr[users]
-        pos_scores = self.score_pairwise(u, items_repr[pos], users, pos)
-        neg_scores = self.score_pairwise(
-            u[:, None, :].expand(-1, negs.shape[1], -1), items_repr[negs],
-            users[:, None].expand_as(negs), negs)
-        l_bpr = bpr_loss(pos_scores, neg_scores, mask)
-        l_reg = reg_loss(self.user_emb, self.item_emb, users, pos, negs,
-                         self.reg_lambda, mask)
-        return l_bpr + l_reg, {'bpr': l_bpr, 'reg': l_reg}
 
     # --- observability -----------------------------------------------------
 
@@ -234,13 +212,13 @@ class LTRLinearWPop(LTRLinear):
     def __init__(self, cfg, data, *, device=None, generator=None):
         super().__init__(cfg, data, device=device, generator=generator)
         for name in ('popularity_users', 'popularity_items'):
-            self.register_buffer(name, torch.from_numpy(
-                getattr(data, name)).to(self.device), persistent=False)
+            self.device_buffer(name, getattr(data, name))
 
     def features_pairwise(self, users_emb, items_emb, users, items):
         base = super().features_pairwise(users_emb, items_emb, users, items)
-        return torch.cat([base, self.popularity_users[users],
-                          self.popularity_items[items]], dim=-1)
+        pop = torch.broadcast_tensors(self.popularity_users[users],
+                                      self.popularity_items[items])
+        return torch.cat([base, *pop], dim=-1)
 
     def _popularity_factors(self, u_cat, i_cat, w, batch_users):
         """The popularity terms are rank 1 under the collapsed tower

@@ -18,7 +18,7 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
-from ..ops.retrieval import mask_train_items
+from ..ops.retrieval import catalog_scores, mask_train_items
 from .mesh import Mesh
 
 
@@ -69,7 +69,6 @@ def sharded_topk(mesh: Mesh, users_emb: torch.Tensor,
     one.  The merge sorts all candidates by value with ties going to the
     lower id, so padding never displaces a real item.
     """
-    torch.backends.cuda.matmul.allow_tf32 = False
     shard = items_shard.shape[0]
     offset = mesh.rank * shard
     n_real = max(0, min(shard, n_valid - offset))
@@ -80,7 +79,7 @@ def sharded_topk(mesh: Mesh, users_emb: torch.Tensor,
     idx = torch.full((b, kk), mesh.size * shard, dtype=torch.int64,
                      device=users_emb.device)
     if n_real:
-        scores = users_emb @ items_shard[:n_real].T
+        scores = catalog_scores(users_emb, items_shard[:n_real])
         local = batch_pos_padded.to(torch.int64) - offset
         local = torch.where((local >= 0) & (local < n_real), local, n_real)
         scores = mask_train_items(scores, local, n_real)

@@ -15,11 +15,14 @@ Counterpart of ``textgcn_tpu/train/trainer.py`` on one device:
   the params it was measured on; beside it ``resume_state.pkl`` (unless
   ``--no_resume_state``): the epoch, the metrics history, the
   ``RESUME_CONFIG_FIELDS``, the Adam state and the states of the two
-  generators;
+  generators (and of the model's own, ``adv_sampling``'s candidates);
 * ``resume``: restores all of that; ``fit`` then goes on at the next
   epoch, bit for bit the run that was not stopped;
 * a SIGTERM during ``fit`` lets the epoch finish, checkpoints it and
   returns (``textgcn_tpu/train/trainer.py:364-443``);
+* a model that propagates twice a step (``adv_sampling``'s rank and
+  loss passes) takes two salt pairs a step (``salt_pairs_per_step``);
+  every other model's salt stream is the one-pair stream;
 * ``--refresh_every N``: the propagated rest is recomputed without
   gradients at steps 0, N, 2N, ... of each epoch, and every step's loss
   runs on the fresh ego tables plus that rest (``models/lightgcn.py``);
@@ -126,17 +129,29 @@ class Trainer:
         self.optimizer.step()
         return loss.detach(), {c: v.detach() for c, v in aux.items()}
 
-    def epoch_step(self, step: int, batch):
-        """Step ``step`` of an epoch: its salts from the salt generator,
-        under ``--refresh_every N`` the rest recomputed with them when
-        ``step % N == 0`` (the model keeps it until the epoch ends), then
-        ``train_step``."""
+    def step_salts(self):
+        """One step's dropout salts from the salt generator: a model's
+        ``salt_pairs_per_step`` draws of the (to_user, to_item) pairs, as
+        a tuple of them when it takes more than one."""
         model = self.model
-        w_pairs = model.graph_op.weights(self.salt_generator, model.dropout)
+        draws = tuple(model.graph_op.weights(self.salt_generator,
+                                             model.dropout)
+                      for _ in range(model.salt_pairs_per_step))
+        return draws[0] if len(draws) == 1 else draws
+
+    def epoch_step(self, step: int, batch):
+        """Step ``step`` of an epoch: its salts (``step_salts``), under
+        ``--refresh_every N`` the rest recomputed with the first pair of
+        them when ``step % N == 0`` (the model keeps it until the epoch
+        ends), then ``train_step``."""
+        model = self.model
+        w_pairs = self.step_salts()
         refresh = self.cfg.refresh_every
         if refresh and step % refresh == 0:
+            first = w_pairs if model.salt_pairs_per_step == 1 \
+                else w_pairs[0]
             with torch.no_grad():
-                model.cached_rest = model.propagate_rest(w_pairs=w_pairs)
+                model.cached_rest = model.propagate_rest(w_pairs=first)
         return self.train_step(batch, w_pairs)
 
     def train_epoch(self) -> dict[str, torch.Tensor]:
@@ -285,6 +300,14 @@ class Trainer:
             log.info('Updating best model at epoch %d', epoch)
             self._checkpointer.promote_best(self.cfg.save_path)
 
+    def _generators(self) -> dict[str, torch.Generator]:
+        """The generators a resume restores: the sampler's, the salts'
+        and a model's own (``model.generator``, where it has one)."""
+        gens = {'sampler': self.generator, 'salt': self.salt_generator}
+        if self.model.generator is not None:
+            gens['model'] = self.model.generator
+        return gens
+
     def _whole_rows(self, name: str) -> int | None:
         """On a mesh, the real row count of a row-sharded parameter (the
         tables); None for a parameter every rank holds whole."""
@@ -324,8 +347,8 @@ class Trainer:
             adam[str(i)] = entry
         return {
             'epoch': np.int64(epoch),
-            'generators': {'sampler': arr(self.generator.get_state()),
-                           'salt': arr(self.salt_generator.get_state())},
+            'generators': {name: arr(g.get_state())
+                           for name, g in self._generators().items()},
             'adam': adam,
             'metrics': {m: self.metrics_logger[m]
                         for m in self.metrics_names},
@@ -373,9 +396,8 @@ class Trainer:
         self.optimizer.state.clear()
         for p, st in restored.items():
             self.optimizer.state[p] = st
-        gens = rs['generators']
-        self.generator.set_state(torch.from_numpy(gens['sampler']))
-        self.salt_generator.set_state(torch.from_numpy(gens['salt']))
+        for name, g in self._generators().items():
+            g.set_state(torch.from_numpy(rs['generators'][name]))
         self.metrics_logger = {m: np.asarray(rs['metrics'][m])
                                for m in self.metrics_names}
         self._start_epoch = int(rs['epoch']) + 1
