@@ -130,6 +130,21 @@ Phases, each of which passes or ends the run with a non-zero exit:
 9i. mining: an ``adv_sampling`` step's (2048, 25,000) score, bf16 round
    and masks, ``mining_top_k`` and the whole selection, timed, beside
    ``torch.topk`` on the same scores;
+9j. boosted: ``marcus --load_base <phase 8's lgcn run> --neg_samples 1``
+   on S1 (one fit of 10 trees on every train edge and one negative each),
+   then ``gbdt`` and ``gbdt_pop --load_base <a random base>`` on 4,096
+   users of S1's generator with the whole catalogue (every item given a
+   train edge) and S1's 384-wide text: 16 fit batches of 256 users x
+   25,000 items, 160 trees; for each, K1 launches exactly 6 for each of
+   the base's evaluation, the fit, the evaluation and the prediction
+   (forward only), the tables stay the base's bit for bit, the metrics
+   are finite, ``predictions.tsv`` has a row per user, and ``--load RUN
+   --no_train`` restores ``forest.npz`` and re-serves the metrics
+   (1e-6, 6 launches); then ``fit_gbrt`` on the first fit batch on the
+   card against the same code on the CPU (the same node structure and
+   thresholds, leaf values within 1e-9 relative, scores within 1e-5),
+   and the fit and ``forest_predict`` (10 and 160 trees) timed against
+   the scorer's bound;
 10. timing: ms per training step and examples/s of each model at S1, and
    of the frozen ``ltr_linear``, the ``--refresh_every 8``,
    ``adv_sampling`` and ``text --pos user`` steps, split
@@ -218,12 +233,16 @@ def synth_edges(n_users, n_items, avg_deg, seed=0):
 
 
 def write_dataset(root: str, n_users: int, n_items: int, avg_deg: int,
-                  seed: int = 0) -> str:
-    """S1 interactions as ``train.tsv``/``test.tsv`` under ``root/s1``.
+                  seed: int = 0, every_item: bool = False,
+                  name: str = 's1') -> str:
+    """S1 interactions as ``train.tsv``/``test.tsv`` under ``root/name``.
 
     Every user keeps at least one train edge (a user without any edge
-    gets one random item); about ``HOLDOUT`` of each user's other edges
-    go to the test file, and only items that keep a train edge.
+    gets one random item); with ``every_item``, by the same rule, every
+    item too (an item without any edge gets one random user; a smaller
+    user count keeps the whole catalogue so); about ``HOLDOUT`` of each
+    user's other edges go to the test file, and only items that keep a
+    train edge.
     """
     rng = np.random.RandomState(seed)
     eu, ei, _ = synth_edges(n_users, n_items, avg_deg, seed)
@@ -233,12 +252,21 @@ def write_dataset(root: str, n_users: int, n_items: int, avg_deg: int,
         pairs = np.unique(np.concatenate(
             [np.stack([eu, ei], 1), np.stack([missing, extra], 1)]), axis=0)
         eu, ei = pairs[:, 0], pairs[:, 1]
+    if every_item:
+        lonely = np.setdiff1d(np.arange(n_items), ei)
+        extra = rng.randint(0, n_users, lonely.size)
+        pairs = np.unique(np.concatenate(
+            [np.stack([eu, ei], 1), np.stack([extra, lonely], 1)]), axis=0)
+        eu, ei = pairs[:, 0], pairs[:, 1]
+    keep = np.zeros(len(eu), bool)               # each item's train edge
+    if every_item:
+        keep[np.unique(ei, return_index=True)[1]] = True
     first = np.r_[True, eu[1:] != eu[:-1]]      # pairs are sorted by user
-    test = (rng.rand(len(eu)) < HOLDOUT) & ~first
+    test = (rng.rand(len(eu)) < HOLDOUT) & ~first & ~keep
     has_train = np.zeros(n_items, bool)
     has_train[ei[~test]] = True
     test &= has_train[ei]
-    out = os.path.join(root, 's1')
+    out = os.path.join(root, name)
     os.makedirs(out, exist_ok=True)
     for name, sel in (('train.tsv', ~test), ('test.tsv', test)):
         lines = [f'u{u}\ti{i}' for u, i in zip(eu[sel].tolist(),
@@ -1667,6 +1695,217 @@ def refresh_phase(data_dir: str) -> dict:
     return {'trainer': trainer, 'launches': launches, 'seconds': seconds}
 
 
+# the boosted heads: 4,096 users of S1's generator (every item kept), the
+# fit's batch at S1's size (256 users x 25,000 items), 16 batches of it
+BOOST_USERS = 4096
+# the fit on the card against the same code on the CPU: leaf values
+# (float64 means in another order of sums) and the forests' scores
+FIT_VALUE_TOL, FIT_SCORE_TOL = 1e-9, 1e-5
+
+
+def boosted_run(data_dir: str, base: str, model: str,
+                extra: tuple[str, ...] = ()) -> dict:
+    """``model --load_base base --predict`` through the CLI: K1 launches
+    exactly 6 for each of the base's evaluation, the fit's propagation,
+    the evaluation and the prediction (forward only); the loaded tables
+    stay the base's bit for bit; finite metrics; ``predictions.tsv`` a
+    row of ``max(KS)`` items per user; then ``--load RUN --no_train``
+    restores ``forest.npz`` and re-serves the metrics (1e-6) with 6
+    launches."""
+    common = ['--emb_size', str(D), '--n_layers', str(LAYERS),
+              '--batch_size', str(BATCH), '-k', *map(str, KS), '--quiet']
+    flags = ('--model', model)
+    reset_counts()
+    t0 = time.perf_counter()
+    trainer, run_dir = cli_run(data_dir, [*flags, '--load_base', base,
+                                          '--predict', *extra, '--uid',
+                                          f'boost-{model}', *common], 'cuda')
+    seconds = time.perf_counter() - t0
+    launches = counts()
+    per_pass = 2 * LAYERS
+    want = dict.fromkeys(_wrappers(), 0)
+    want['spmm_dropout'] = 4 * per_pass
+    m = trainer.model
+    state = m.forest_state
+    log(f'boosted {model}: cli.main took {seconds:.3f} s; {m.n_users} users '
+        f'x {m.n_items} items, {len(state.trees)} trees; launches '
+        f'{launches}; metrics {json.dumps(trainer.last_metrics)}')
+    check(launches == want, f'boosted {model}: launches {launches}, '
+          f'expected {want} (base eval, fit, eval, predict: forward only)')
+    path = base if base.endswith('.pkl') else os.path.join(base, 'best.pkl')
+    with open(path, 'rb') as f:
+        tables = pickle.load(f)['params']
+    for name, n in (('user_emb', m.n_users), ('item_emb', m.n_items)):
+        check(np.array_equal(getattr(m, name).detach().cpu().numpy(),
+                             tables[name][:n]),
+              f'boosted {model}: {name} is not the base\'s')
+    check(all(np.isfinite(v).all() for v in trainer.last_metrics.values()),
+          f'boosted {model}: metrics {trainer.last_metrics}')
+    preds = read_predictions(os.path.join(run_dir, 'predictions.tsv'))
+    check(len(preds) == m.n_users and all(len(p[1]) == max(KS)
+                                          for p in preds),
+          f'boosted {model}: predictions.tsv')
+    reset_counts()
+    served, _ = serve(data_dir, f'boost-{model}-serve',
+                      ['--load', run_dir, *common], 'cuda', model=flags)
+    serve_launches = counts()
+    check(serve_launches == dict(want, spmm_dropout=per_pass),
+          f'boosted {model}: re-serving launched {serve_launches}')
+    for name, got in served.last_metrics.items():
+        check(np.allclose(got, trainer.last_metrics[name], atol=1e-6,
+                          rtol=0),
+              f'boosted {model}: forest.npz serves {name} {got}, the fit '
+              f'measured {trainer.last_metrics[name]}')
+    log(f'boosted {model}: --load RUN --no_train re-serves the metrics '
+        f'from forest.npz; launches {serve_launches}')
+    return {'trainer': trainer, 'launches': launches,
+            'serve_launches': serve_launches, 'seconds': seconds,
+            'trees': len(state.trees),
+            'importances': state.feature_importances().tolist()}
+
+
+def first_difference(a, b) -> str | None:
+    """Where two fitted trees first differ in structure, or None."""
+    for name in ('children_left', 'children_right', 'feature', 'threshold'):
+        x, y = getattr(a, name), getattr(b, name)
+        if x.shape != y.shape:
+            return f'{name}: {x.shape[0]} nodes vs {y.shape[0]}'
+        bad = np.flatnonzero(x != y)
+        if bad.size:
+            i = int(bad[0])
+            return (f'node {i} {name}: {x[i]!r} vs {y[i]!r} (n = '
+                    f'{a.n_node_samples[i]}, impurity {a.impurity[i]!r})')
+    return None
+
+
+def boosted_fit_phase(trainer, card: str, during) -> dict:
+    """The first 256-user batch of ``trainer``'s model (a fit batch at
+    S1's size): ``fit_gbrt`` on the card against the same code on the
+    CPU (the same node structure and thresholds, leaf values within
+    ``FIT_VALUE_TOL`` relative, the two forests' scores within
+    ``FIT_SCORE_TOL``); the card's fit timed for a first and a
+    warm-started batch; ``forest_predict`` over the batch timed at 10
+    trees and at the model's whole forest, beside the bound: the rows'
+    features read once and one score written.  The CPU's fit runs in a
+    thread while ``during()`` runs (its time is reported, contended)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from textgcn_tpu_torch.ops.trees import (compile_forest, fit_gbrt,
+                                             forest_predict)
+    from textgcn_tpu_torch.tools import timing
+    m = trainer.model
+    bs = m.fit_batch_users
+    with torch.no_grad():
+        reprs = m.compute_reprs()
+        batches = []
+        for b in range(2):
+            users = torch.arange(b * bs, (b + 1) * bs, device=m.device)
+            x = m.batch_features(reprs, users).reshape(-1, m.n_features)
+            batches.append((x, m.labels(users, m.pos_padded,
+                                        m.pos_degree).reshape(-1)))
+    (x, y), (x2, y2) = batches
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    card_fit = fit_gbrt(x, y, **m.tree_params)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    warm = fit_gbrt(x2, y2, card_fit, **m.tree_params)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    rows = x.shape[0]
+    bound, by = timing.bound_ms(rows * (m.n_features + 1) * 4, 0)
+    f_card = compile_forest(card_fit, m.device)
+    f_all = m.forest
+    with torch.no_grad():
+        ms = time_ms({'predict_10': lambda: forest_predict(f_card, x)},
+                     ['predict_10'], strict=())
+        ms.update(time_ms({f'predict_{len(m.forest_state.trees)}':
+                           lambda: forest_predict(f_all, x)},
+                          [f'predict_{len(m.forest_state.trees)}'],
+                          strict=(), reps=3, warmup=2))
+
+    def cpu_job(x, y):
+        t0 = time.perf_counter()
+        return fit_gbrt(x, y, **m.tree_params), time.perf_counter() - t0
+
+    with ThreadPoolExecutor(1) as pool:
+        job = pool.submit(cpu_job, x.cpu(), y.cpu())
+        during()
+        cpu_fit, cpu_s = job.result()
+    value_err = 0.0
+    for t, (a, b) in enumerate(zip(card_fit.trees, cpu_fit.trees)):
+        where = first_difference(a, b)
+        check(where is None, f'boosted fit: tree {t} on the card differs '
+              f'from the CPU\'s at {where}')
+        rel = np.abs(a.value - b.value) / max(np.abs(b.value).max(), 1e-300)
+        value_err = max(value_err, float(rel.max()))
+    check(value_err <= FIT_VALUE_TOL, f'boosted fit: leaf values differ by '
+          f'{value_err:.3e} relative')
+    with torch.no_grad():
+        s_card = forest_predict(f_card, x)
+        s_cpu = forest_predict(compile_forest(cpu_fit), x.cpu())
+    score_err = float((s_card.cpu() - s_cpu).abs().max())
+    check(score_err <= FIT_SCORE_TOL, f'boosted fit: the forests\' scores '
+          f'differ by {score_err:.3e}')
+    log(f'boosted fit ({card}): {rows} rows x {m.n_features} features, '
+        f'card fit of 10 trees {fit_s:.3f} s (warm-started batch '
+        f'{warm_s:.3f} s), the CPU\'s {cpu_s:.3f} s (beside the card\'s '
+        f'next run); same nodes and '
+        f'thresholds, leaf values within {value_err:.3e} relative, scores '
+        f'within {score_err:.3e}; forest_predict {json.dumps(ms)} ms, bound '
+        f'{bound:.4f} ms ({by})')
+    return {'rows': rows, 'fit_s': fit_s, 'warm_fit_s': warm_s,
+            'cpu_fit_s': cpu_s, 'value_rel_err': value_err,
+            'score_err': score_err, 'forest_predict_ms': ms,
+            'forest_predict_bound_ms': bound, 'bound_by': by}
+
+
+def boosted_phase(root: str, s1_dir: str, lgcn_run: str, card: str,
+                  dev) -> dict:
+    """The five heads' code on the card: ``marcus --load_base <phase 8's
+    lgcn run> --neg_samples 1`` on S1, then ``gbdt`` and ``gbdt_pop`` on
+    ``BOOST_USERS`` users of S1's generator with the full catalogue, S1's
+    text widths and a random base (``boosted_run`` each), and the fit on
+    the card against the CPU's (``boosted_fit_phase``)."""
+    from textgcn_tpu_torch.config import Config
+    from textgcn_tpu_torch.data.core import load_interactions
+    from textgcn_tpu_torch.data.text import load_ltr_data
+    out = {'marcus': boosted_run(s1_dir, lgcn_run, 'marcus',
+                                 ('--neg_samples', '1'))}
+    marcus = out['marcus'].pop('trainer')
+    n_rows = int(marcus.data.pos_degree.sum()) * 2
+    check(out['marcus']['trees'] == 10, 'marcus: one fit of 10 trees')
+    log(f'boosted marcus: {n_rows} fit rows (positives and one negative '
+        'each)')
+    out['marcus']['fit_rows'] = n_rows
+    data_dir = write_dataset(root, BOOST_USERS, S1_ITEMS, S1_DEG,
+                             every_item=True, name='s1_boost')
+    data = load_interactions(data_dir)
+    check((data.n_users, data.n_items) == (BOOST_USERS, S1_ITEMS),
+          f'the boosted data loaded as {data.n_users} x {data.n_items}')
+    out['text'] = write_ltr_text(data_dir, data, dev)
+    t = time.perf_counter()
+    load_ltr_data(Config(data=data_dir).finalize())
+    out['text']['load_ltr_data_s'] = time.perf_counter() - t
+    ck = os.path.join(root, 'boost_base.pkl')
+    write_jax_checkpoint(ck, data.n_users, data.n_items, D, seed=5)
+    def run(model):
+        out[model] = boosted_run(data_dir, ck, model)
+        check(out[model]['trees'] == 10 * -(-BOOST_USERS // 256),
+              f'{model}: {out[model]["trees"]} trees')
+
+    run('gbdt')
+    # the CPU's fit of the comparison runs while the card runs gbdt_pop
+    out['fit'] = boosted_fit_phase(out['gbdt'].pop('trainer'), card,
+                                   lambda: run('gbdt_pop'))
+    out['gbdt_pop'].pop('trainer')
+    log(f'boosted data: {data.n_users} users x {data.n_items} items, '
+        f'{data.n_train} train / {data.n_test} test edges; load_ltr_data '
+        f'{out["text"]["load_ltr_data_s"]:.3f} s')
+    return out
+
+
 def mesh_phase(data_dir: str, single, card: str, trace_dir: str,
                dev) -> dict:
     """``lgcn --mesh 1x1`` trained through the CLI against the single-card
@@ -1992,6 +2231,10 @@ def main():
         t = time.perf_counter()
         mining = mining_phase(trained['adv_sampling']['trainer'], card)
         log(f'phase mining: {time.perf_counter() - t:.3f} s')
+        t = time.perf_counter()
+        boosted = boosted_phase(root, data_dir, trained['lgcn']['run_dir'],
+                                card, dev)
+        log(f'phase boosted: {time.perf_counter() - t:.3f} s')
 
         for model in timed:
             t = time.perf_counter()
@@ -2014,6 +2257,10 @@ def main():
                                     resumed['launches'].items() if n}
     by_path.update({f'probe_{m}': {k: n for k, n in r['launches'].items()
                                    if n} for m, r in probes.items()})
+    for m in ('marcus', 'gbdt', 'gbdt_pop'):
+        for path, key in (('train', 'launches'), ('serve', 'serve_launches')):
+            by_path[f'{path}_{m}'] = {k: n for k, n in
+                                      boosted[m][key].items() if n}
 
     def launch_fields(name, model):
         paths = {p: c[name] for p, c in by_path.items() if name in c}
@@ -2034,7 +2281,9 @@ def main():
         # --refresh_every 8 (forward only, at the refresh steps); train
         # adv_sampling (the rank pass forward, the loss pass forward and
         # backward), text --pos user, kg, reviews, ltr_reviews and ltr_kg;
-        # ltr_simple --load_base (the base's eval and two probes)
+        # ltr_simple --load_base (the base's eval and two probes); train
+        # marcus, gbdt and gbdt_pop --load_base (forward only: base eval,
+        # the fit's propagation, eval, predict) and their --load re-serve
         **launch_fields('spmm_dropout', 'lgcn'),
         'max_abs_err': k1['max_abs_err'],
         'max_abs_err_by_width': k1['max_abs_err_by_width'],
@@ -2143,6 +2392,7 @@ def main():
                     'ltr_text': ltr_text,
                     'resume_vs_uninterrupted': resumed,
                     'mining_ms': mining,
+                    'boosted': boosted,
                     'text_user_pair_table_bytes': pair_bytes}))
     print(json.dumps({'kernels': kernels}), flush=True)
     print(json.dumps({'ok': True, 'device': {

@@ -111,8 +111,8 @@ def test_parse_args_matches_jax(argv):
 
 
 @pytest.mark.parametrize('argv, err', [
-    (['--model', 'xgboost'], NotImplementedError),
-    (['--model', 'marcus'], NotImplementedError),
+    (['--model', 'xgboost', '--mesh', '2x4'], NotImplementedError),
+    (['--model', 'marcus', '--trace', 'out'], NotImplementedError),
     (['--model', 'kg', '--mesh', '2x4'], NotImplementedError),
     (['--model', 'ltr_simple'], ValueError),
     (['--model', 'adv_sampling', 'TEXTGCN_TPU_ADV_TOPK=0.9'],

@@ -286,7 +286,7 @@ def test_conv_model_init_and_refusals(dummy_dir):
         with pytest.raises(ValueError, match='--aggr'):
             tconfig.parse_args(['--model', name])
     with pytest.raises(NotImplementedError, match='not ported'):
-        tconfig.parse_args(['--model', 'xgboost'])
+        tconfig.parse_args(['--model', 'gbdt', '--mesh', '2x4'])
 
 
 def test_cli_trains_gat_and_jax_loads_it(tmp_path, monkeypatch, dummy_dir):

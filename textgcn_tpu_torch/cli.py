@@ -15,6 +15,8 @@
     python -m textgcn_tpu_torch --model ltr_reviews|ltr_kg --data D ...
     python -m textgcn_tpu_torch --model text_probe --data D
     python -m textgcn_tpu_torch --model ltr_simple --load_base RUN --data D
+    python -m textgcn_tpu_torch --model gbdt|gbdt_pop|xgboost|xgboost_pop|\
+        marcus --data D --load_base RUN [--predict] [--export_reprs]
     python -m textgcn_tpu_torch ... --resume runs/<data>/<uid>
     python -m textgcn_tpu_torch --model lgcn ... --refresh_every N
     python -m textgcn_tpu_torch --model lgcn --mesh 1x1|auto ...
@@ -28,7 +30,9 @@ of a stopped run), else ``--load`` or ``--load_base`` (with its
 evaluation; before training it warm-starts the params; ``--load_base``
 evaluates an LTR head's base with plain scoring, then switches the head
 on) -> ``fit`` unless ``--no_train`` -> ``--predict`` ->
-``--export_reprs``.  ``text_probe`` returns after its probe of the four
+``--export_reprs``; the boosted heads fit their trees in ``fit`` and
+load with their ``forest.npz`` (``BoostedTrainer``).  ``text_probe``
+returns after its probe of the four
 text representations, before any load; ``ltr_simple`` after the load and
 its probe of the two item texts.  Runs on the GPU;
 ``TEXTGCN_TPU_PLATFORM=cpu`` asks for the CPU (gloo for ``--mesh``).  A
@@ -38,7 +42,8 @@ process group this call started is destroyed before it returns, so
 
 from __future__ import annotations
 
-from .config import get_logger, parse_args, platform_device, warn_footguns
+from .config import (BOOSTED_MODELS, get_logger, parse_args,
+                     platform_device, warn_footguns)
 from .registry import get_class
 from .train.trainer import Trainer
 
@@ -78,7 +83,11 @@ def _run(cfg, device, mesh=None):
     model = model_cls(cfg, data, device=device)
     if mesh is not None:
         model = shard_model(mesh, model, data)
-    trainer = Trainer(cfg, model, data)
+    if cfg.model in BOOSTED_MODELS:
+        from .models.ltr_boosted import BoostedTrainer
+        trainer = BoostedTrainer(cfg, model, data)
+    else:
+        trainer = Trainer(cfg, model, data)
     if cfg.model == 'text_probe':
         from .models.text_loss import probe_text_representations
         for combo, res in probe_text_representations(data,

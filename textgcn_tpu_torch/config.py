@@ -2,13 +2,16 @@
 
 Counterpart of ``textgcn_tpu/config.py``: the same ``Config`` fields, the
 same flag names and defaults, the same ``finalize`` (``save_path =
-runs/<data-basename>/<uid>``, sorted k) and the same log format.  What the
-port does not run yet is refused in ``validate`` with "not ported yet".
+runs/<data-basename>/<uid>``, sorted k) and the same log format.  All 20
+models run; what the port does not run yet (a flag or a combination) is
+refused in ``validate`` with "not ported yet".
 
 Knobs that exist for the TPU:
 
 * ``--no_pallas`` and ``--steps_per_call`` are accepted and ignored: the
   port has one kernel per function and no device-call relay to bound.
+  ``--slurm`` is accepted and ignored: it hides the JAX package's
+  progress bars, and the port draws none.
 * ``--mesh DATAxMODEL|auto`` runs ``lgcn`` over ``torch.distributed``
   ranks, one per GPU (``parallel/``); the other models refuse it.
   ``--approx_topk`` is refused when set: the port serves an exact top-k;
@@ -43,10 +46,9 @@ MODEL_CHOICES = (
     'marcus', 'ltr_reviews', 'ltr_kg', 'ltr_simple', 'gcn', 'graphsage',
     'gat', 'gatv2',
 )
-PORTED_MODELS = ('lgcn', 'adv_sampling', 'gcn', 'graphsage', 'gat', 'gatv2',
-                 'ltr_linear', 'ltr_pop', 'text', 'kg', 'reviews',
-                 'text_probe', 'ltr_reviews', 'ltr_kg', 'ltr_simple')
 CONV_MODELS = ('gcn', 'graphsage', 'gat', 'gatv2')
+# the tree heads, which the CLI trains with models.ltr_boosted.BoostedTrainer
+BOOSTED_MODELS = ('xgboost', 'gbdt', 'xgboost_pop', 'gbdt_pop', 'marcus')
 # the models the JAX package warns about without a frozen, loaded base
 LTR_WARN_MODELS = ('ltr_linear', 'ltr_pop', 'ltr_simple', 'xgboost', 'gbdt',
                    'xgboost_pop', 'gbdt_pop', 'marcus')
@@ -158,10 +160,6 @@ class Config:
     def validate(self) -> None:
         if self.model not in MODEL_CHOICES:
             raise ValueError(f'unknown model {self.model!r}')
-        if self.model not in PORTED_MODELS:
-            raise NotImplementedError(
-                f'model {self.model!r} is not ported yet (ported: '
-                f'{", ".join(PORTED_MODELS)})')
         if self.load is not None and self.load_base is not None:
             raise ValueError('cannot load both base and trained model')
         if self.resume is not None and (self.load is not None
@@ -255,7 +253,9 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument('--quiet', '-q', action='store_true')
     p.add_argument('--logging_level', default=d.logging_level,
                    choices=['debug', 'info', 'warn', 'error'])
-    p.add_argument('--slurm', action='store_true')
+    p.add_argument('--slurm', action='store_true',
+                   help='accepted and ignored (the port draws no progress '
+                        'bars)')
     p.add_argument('--mesh', type=str, default=d.mesh,
                    help='DATAxMODEL or auto: lgcn over torch.distributed '
                         'ranks, one per GPU (torchrun for more than one)')

@@ -60,6 +60,9 @@ def collapse_tower(tower) -> tuple[torch.Tensor, torch.Tensor]:
 class LTRLinear(LightGCN):
 
     n_extra_features = 0
+    # scores are one product u_cat @ i_cat.T + bias: export_reprs writes
+    # the factors (the JAX package's flag for its fused sharded top-k)
+    supports_fused_sharded_topk = True
 
     def __init__(self, cfg, data, *, device=None, generator=None):
         """The tables as ``LightGCN`` draws them, then each tower layer's

@@ -30,6 +30,10 @@ ITEM_TEXT = {'reviews': 'items_as_avg_reviews', 'kg': 'items_as_desc'}
 class LTRCosine(LightGCN):
     """LightGCN scored in ``[gnn ++ text]`` space."""
 
+    # scores are one product u_cat @ i_cat.T: export_reprs writes the
+    # factors (the JAX package's flag for its fused sharded top-k)
+    supports_fused_sharded_topk = True
+
     def __init__(self, cfg, data, *, device=None, generator=None):
         super().__init__(cfg, data, device=device, generator=generator)
         for name in ('users_as_avg_reviews', *ITEM_TEXT.values()):

@@ -1,7 +1,8 @@
 """Full-catalogue scoring, train-item mask, exact top-k and negative mining.
 
 Counterpart of ``textgcn_tpu/ops/retrieval.py`` (``mask_train_items``,
-``score_and_topk``, ``mining_top_k``), exact only: the JAX package's
+``score_and_topk``, ``mining_top_k``, and ``lax.top_k``'s tie order as
+``top_k_lower_index``), exact only: the JAX package's
 approximate serving mode and its approximate mining (``lax.approx_max_k``)
 are not ported.
 
@@ -80,13 +81,19 @@ def _ordered_bits(scores: torch.Tensor) -> tuple[torch.Tensor, int]:
 
 
 def mining_top_k(scores: torch.Tensor, k: int):
+    """``top_k_lower_index`` for hard-negative mining: at the k-th place a
+    tie decides which item is a negative at all.  Refuses an approximate
+    ``TEXTGCN_TPU_ADV_TOPK``."""
+    check_adv_topk_env()
+    return top_k_lower_index(scores, k)
+
+
+def top_k_lower_index(scores: torch.Tensor, k: int):
     """Exact top-k ``(values, indices)`` over the last axis, ties to the
     lower index, as ``lax.top_k`` breaks them (``torch.topk`` promises no
-    order among equals, and at the k-th place a tie decides which item is
-    a negative at all).  One ``torch.topk`` over unique integer keys: the
+    order among equals).  One ``torch.topk`` over unique integer keys: the
     score's ordered bits above the complement of the index, in int32 when
     they fit (bf16 scores of up to 65,536 items), else int64."""
-    check_adv_topk_env()
     n = scores.shape[-1]
     shift = max(1, (n - 1).bit_length())
     bits, width = _ordered_bits(scores)

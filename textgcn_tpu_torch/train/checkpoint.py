@@ -10,6 +10,12 @@ arrays and plain Python values only, so a crafted file cannot run code.
 trainer's ``resume_state.pkl`` beside it, the file ``--resume`` reads
 (``load_resume``; its payload is ``Trainer.resume_payload``'s).  The
 orbax backend is not ported yet.
+
+The boosted heads write their fitted ensemble beside it as
+``forest.npz`` (``save_forest``, ``load_forest``): every tree's node
+arrays concatenated, with ``offsets`` into them, the initial prediction,
+the learning rate and the feature count; numeric arrays only, read with
+``allow_pickle=False``.
 """
 
 from __future__ import annotations
@@ -17,6 +23,10 @@ from __future__ import annotations
 import os
 import pickle
 import shutil
+
+import numpy as np
+
+from ..ops.trees import GBRTState, Tree
 
 # the classes a numpy-array pickle needs (numpy 1.x and 2.x module names)
 _ALLOWED = {
@@ -83,6 +93,43 @@ class PickleCheckpointer:
         if os.path.isdir(path):
             path = os.path.join(path, self.best_name)
         return _load(path)
+
+
+FOREST_NAME = 'forest.npz'
+_TREE_FIELDS = ('children_left', 'children_right', 'feature', 'threshold',
+                'value', 'impurity', 'n_node_samples')
+
+
+def save_forest(save_path: str, state: GBRTState) -> str:
+    """Write ``state`` (``ops.trees.GBRTState``) as ``forest.npz`` in
+    ``save_path``, atomically; returns the path."""
+    os.makedirs(save_path, exist_ok=True)
+    sizes = [t.node_count for t in state.trees]
+    arrays = {f: np.concatenate([np.asarray(getattr(t, f)).reshape(-1)
+                                 for t in state.trees])
+              for f in _TREE_FIELDS}
+    path = os.path.join(save_path, FOREST_NAME)
+    tmp = path + '.tmp.npz'
+    np.savez(tmp, offsets=np.concatenate([[0], np.cumsum(sizes)]),
+             init=np.float64(state.init),
+             learning_rate=np.float64(state.learning_rate),
+             n_features=np.int64(state.n_features), **arrays)
+    os.replace(tmp, path)
+    return path
+
+
+def load_forest(path: str):
+    """The ``ops.trees.GBRTState`` of a ``forest.npz`` (a file or the run
+    directory that holds it)."""
+    if os.path.isdir(path):
+        path = os.path.join(path, FOREST_NAME)
+    with np.load(path, allow_pickle=False) as z:
+        off = z['offsets']
+        cols = {f: z[f] for f in _TREE_FIELDS}
+        trees = [Tree(**{f: cols[f][a:b].copy() for f in _TREE_FIELDS})
+                 for a, b in zip(off[:-1], off[1:])]
+        return GBRTState(trees, float(z['init']), float(z['learning_rate']),
+                         int(z['n_features']))
 
 
 def make_checkpointer(backend: str = 'pickle') -> PickleCheckpointer:

@@ -38,8 +38,10 @@ Counterpart of ``textgcn_tpu/train/trainer.py`` on one device:
 * ``predict``: ranked items (+ scores rounded to 4 decimals) for any user
   list, optionally written to ``predictions.tsv`` with external ids, in
   the bytes pandas writes for the JAX package;
-* ``export_reprs``: the propagated tables as ``.npy``, and an LTR head's
-  collapsed factors.
+* ``export_reprs``: the propagated tables as ``.npy``, and the collapsed
+  factors of a model whose scores are one product (its
+  ``supports_fused_sharded_topk``, as the JAX package gates them: not a
+  tree head).
 
 Each ``evaluate``/``predict``/``export_reprs`` call propagates once, as
 the JAX package's eval function does.
@@ -502,8 +504,10 @@ class Trainer:
 
     def export_reprs(self) -> dict[str, str]:
         """Write the eval-mode propagated tables as ``users_repr.npy`` and
-        ``items_repr.npy`` in the run directory, and for an LTR head its
-        collapsed factors (``ltr_user_factors.npy``, ``ltr_item_factors
+        ``items_repr.npy`` in the run directory, and for a model with
+        ``supports_fused_sharded_topk`` (the LTR heads but the tree heads,
+        the concat scorers) its collapsed factors
+        (``ltr_user_factors.npy``, ``ltr_item_factors
         .npy``, ``ltr_bias.npy``: head scores are ``u @ i.T + bias``);
         returns {name: path}."""
         model = self.model
@@ -512,7 +516,7 @@ class Trainer:
             arrays = {
                 'users_repr': model.gathered(users_repr, model.n_users),
                 'items_repr': model.gathered(items_repr, model.n_items)}
-            if hasattr(model, 'fused_catalog_inputs'):
+            if getattr(model, 'supports_fused_sharded_topk', False):
                 users = torch.arange(model.n_users, device=model.device)
                 u_cat, i_cat, bias = model.fused_catalog_inputs(
                     (users_repr, items_repr), users)

@@ -12,6 +12,11 @@ shaped ``(d_in, d_out)``, vectors ``(d,)``): ``gcn`` {``w``, ``b``},
 LTR heads add ``tower``, a list of ``{'w': (fan_in, fan_out), 'b':
 (fan_out,)}`` per layer: the JAX layout, which ``models/ltr.py``
 transposes into and out of ``nn.Linear.weight`` (``(fan_out, fan_in)``).
+
+The boosted heads' fitted ensemble is carried across by
+``forest_from_estimator``: the JAX package pickles a scikit-learn
+estimator (``tree.pkl``), which the port reads duck-typed, never
+importing scikit-learn.
 """
 
 from __future__ import annotations
@@ -59,3 +64,43 @@ def params_to_jax(params: dict) -> dict:
             out[name] = [{k: arr(v) for k, v in layer.items()}
                          for layer in params[name]]
     return out
+
+
+def forest_from_estimator(est):
+    """The port's ensemble (``ops.trees.GBRTState``) of a fitted
+    scikit-learn ``GradientBoostingRegressor`` (its ``estimators_``' trees,
+    ``learning_rate`` and ``init_.constant_``; ``init='zero'`` gives 0) or
+    of one ``DecisionTreeRegressor`` (``tree_``: learning rate 1, init 0),
+    read duck-typed.  Refuses another ``init`` estimator and an ensemble
+    without trees."""
+    from .ops.trees import GBRTState, Tree
+    if hasattr(est, 'estimators_'):
+        if not hasattr(est, 'learning_rate'):
+            raise ValueError(f'{type(est).__name__} is not a gradient-'
+                             'boosted ensemble (no learning_rate)')
+        trees = [e.tree_ for e in np.asarray(est.estimators_).reshape(-1)]
+        init = getattr(est, 'init_', None)
+        if init is not None and hasattr(init, 'constant_'):
+            base = float(np.asarray(init.constant_).reshape(()))
+        elif init is None or (isinstance(init, str) and init == 'zero'):
+            base = 0.0
+        else:
+            raise ValueError(f'init estimator {type(init).__name__} is not '
+                             'supported: only a constant (DummyRegressor) '
+                             "or 'zero'")
+        scale = float(est.learning_rate)
+    elif hasattr(est, 'tree_'):
+        trees, base, scale = [est.tree_], 0.0, 1.0
+    else:
+        raise TypeError(f'{type(est).__name__} has no fitted trees')
+    if not trees:
+        raise ValueError('the estimator has no trees')
+    out = [Tree(np.asarray(t.children_left, np.int64).copy(),
+                np.asarray(t.children_right, np.int64).copy(),
+                np.asarray(t.feature, np.int64).copy(),
+                np.asarray(t.threshold, np.float64).copy(),
+                np.asarray(t.value, np.float64).reshape(-1).copy(),
+                np.asarray(t.impurity, np.float64).copy(),
+                np.asarray(t.n_node_samples, np.int64).copy())
+           for t in trees]
+    return GBRTState(out, base, scale, int(est.n_features_in_))
