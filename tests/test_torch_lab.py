@@ -126,6 +126,30 @@ def test_tile_layout_equals_pallas_direction(monkeypatch, group, use_native):
     assert lay.packed.dtype == np.int32 and lay.w.dtype == np.float32
 
 
+def test_tile_layout_without_edges_equals_native_pallas_direction(
+        monkeypatch):
+    """No edge at all: one group of zeros, every block empty, as the JAX
+    package's native builder lays it out (its numpy path cannot: it
+    concatenates no runs)."""
+    if not native.available():
+        # a first-use build raced another process: try once more
+        monkeypatch.setattr(native, '_TRIED', False)
+        native.ensure_built()
+        if not native.available():
+            pytest.skip('the native graph builder is not available')
+    src = dst = np.zeros(0, np.int64)
+    w = np.zeros(0, np.float32)
+    op = pallas_spmm.PallasDirection(src, dst, w, 1_300, 2_100)
+    lay = tile_layout(src, dst, w, 1_300, 2_100)
+    assert (lay.n_dst_blocks, lay.n_src_padded, lay.n_groups,
+            lay.n_slots) == (op.n_dst_blocks, op.n_src_padded, op.n_groups,
+                             0)
+    for name in ('packed', 'w', 'chunk_sb', 'group_ptr'):
+        np.testing.assert_array_equal(getattr(lay, name),
+                                      np.asarray(getattr(op, name)))
+    assert not lay.group_ptr.any() and not lay.w.any()
+
+
 def test_tile_layout_at_the_lab_shape():
     """The full lab graph's layout: the counts the chip run works with,
     from the JAX lab's own edge arrays."""

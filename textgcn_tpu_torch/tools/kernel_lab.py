@@ -26,6 +26,13 @@ So ``full`` against the two ablations splits the SpMM's time between its
 random row reads and its random adds.  ``spmm_lab_cuda`` launches the
 hand-written kernel (``csrc/spmm_lab.cu``) and counts its launches in
 ``.launches``; ``spmm_lab_plain`` is the same function in plain torch.
+The kernel's decomposition (a cluster of ``CLUSTER`` CTAs per destination
+block, each owning the rows ``cta_rows`` gives, the block's slots cut
+into stages and warps as ``work_split`` says, its kept slots sorted and
+walked in the epochs of ``epoch_stages`` by the runs of ``walk_rows``) is
+mirrored here: ``spmm_lab_split`` computes every mode by that decomposition
+in plain torch, so that the CPU tests can hold it against
+``spmm_lab_plain``; ``check_kernel_args`` holds what the wrapper refuses.
 
 ``TEXTGCN_TPU_LAB_XDTYPE=f32`` runs x in float32 (default bf16, as the
 JAX lab), ``TEXTGCN_TPU_LAB_GROUP`` sets the chunks per group (default 8).
@@ -56,10 +63,28 @@ DEFAULT_MODES = MODES[:4]
 # the kernel's mode argument: merged_scatter is full on the card
 MODE_IDS = {'full': 0, 'no_gather': 1, 'no_scatter': 2,
             'merged_scatter': 0, 'scat_bf16': 3}
-SLICE = 64   # columns of the output tile a thread block owns
+SLICE = 64   # columns of the output a cluster writes
 KERNEL_SOURCE = 'spmm_lab.cu'
 XDTYPE_ENV = 'TEXTGCN_TPU_LAB_XDTYPE'
 GROUP_ENV = 'TEXTGCN_TPU_LAB_GROUP'
+# csrc/spmm_lab.cu's constants; the library's spmm_lab_config() must
+# return CONFIG when it is loaded
+CLUSTER = 2          # CTAs of a (destination block, column slice) cluster
+CONSUMER_WARPS = 8   # warps of a CTA that collect, sort and walk
+STAGE_SLOTS = 512    # slots of a stage of the ring of ids and weights
+STAGES = 8
+CAP = 4096           # kept slots an epoch holds
+ROUNDS = {torch.float32: 4, torch.bfloat16: 8}   # gathers of a batch
+TILE_ROWS = 512 // CLUSTER            # rows of a block a CTA owns
+ROW_BITS = 8                          # log2(TILE_ROWS)
+WALKERS = 2 * CONSUMER_WARPS          # half-warps that walk the rows
+# the ring (packed int32 + w f32), the found and sorted lists (an int32
+# pair a slot), the row starts and counts, the count found, 8-byte
+# aligned, and three 8-byte barriers a stage
+SMEM_BYTES = (8 * STAGES * STAGE_SLOTS + 16 * CAP
+              + -(-(4 * (2 * TILE_ROWS + 2)) // 8) * 8 + 24 * STAGES)
+CONFIG = (CLUSTER, CONSUMER_WARPS, STAGE_SLOTS, STAGES, CAP,
+          ROUNDS[torch.float32], ROUNDS[torch.bfloat16], SMEM_BYTES)
 
 
 def x_dtype() -> torch.dtype:
@@ -142,30 +167,132 @@ def spmm_lab_plain(layout: TileLayout, x: torch.Tensor,
     return out.index_add_(0, row_out, v)
 
 
-@functools.cache
-def _kernel_fn():
-    """The kernel's C entry point, built and bound at first use."""
-    from .. import cuda_build
-    fn = cuda_build.load(KERNEL_SOURCE).spmm_lab
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, vp]
-    fn.restype = ci
-    return fn
+def cta_rows(rank: int) -> np.ndarray:
+    """The rows of a destination block (``dst_local``) that CTA ``rank`` of
+    its cluster owns, in the order of its tile rows: every ``CLUSTER``-th
+    row from ``rank`` on, so that ``no_scatter``'s first 128 rows spread
+    over the cluster as ``full``'s do."""
+    if not 0 <= rank < CLUSTER:
+        raise ValueError(f'rank must be in [0, {CLUSTER}), got {rank}')
+    return rank + CLUSTER * np.arange(TILE_ROWS)
 
 
-def spmm_lab_cuda(layout: TileLayout, x: torch.Tensor,
-                  mode: str) -> torch.Tensor:
-    """Launch L1 in ``mode`` on PyTorch's current stream; ``out`` is
-    allocated here.
+def _host(a) -> np.ndarray:
+    return a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
 
-    Raises on anything the kernel does not take: a tensor off the card,
-    another dtype or layout shape, a d that is not a multiple of 64, or a
-    refused launch.
-    """
+
+def work_split(layout: TileLayout) -> dict[str, np.ndarray]:
+    """How the kernel's CTAs read the slots each destination block owns:
+    per slot its ``block``, the ``stage`` of the block's ring it arrives in
+    (``STAGE_SLOTS`` slots a stage from the block's first slot, so a stage
+    starts on a chunk), the consumer ``warp`` whose share of the stage it
+    is (``STAGE_SLOTS // CONSUMER_WARPS`` consecutive slots), and the
+    ``chunk`` whose source block that warp reads: the chunk of the share's
+    first slot.  Every CTA of the block's cluster reads every slot and
+    keeps those of its rows.  ``n_stages`` holds each block's stages."""
+    gp = _host(layout.group_ptr).astype(np.int64)
+    per_block = np.diff(gp) * layout.group * layout.chunk
+    starts = gp[:-1] * layout.group * layout.chunk
+    block = np.repeat(np.arange(layout.n_dst_blocks), per_block)
+    offset = np.arange(layout.n_slots) - starts[block]
+    stage, in_stage = np.divmod(offset, STAGE_SLOTS)
+    share = STAGE_SLOTS // CONSUMER_WARPS
+    warp = in_stage // share
+    first = starts[block] + stage * STAGE_SLOTS + warp * share
+    return {'block': block, 'stage': stage, 'warp': warp,
+            'chunk': first // layout.chunk,
+            'n_stages': -(-per_block // STAGE_SLOTS)}
+
+
+def epoch_stages(kept_by_stage) -> list[range]:
+    """The kernel's epochs of one CTA: the runs of stages whose kept slots
+    it sorts and walks together, given the slots it keeps from each stage.
+    The count is read only once the stages since the last reading could
+    have filled ``CAP`` (``STAGE_SLOTS`` kept a stage at most), and an
+    epoch ends there if one more stage might not fit."""
+    epochs, start, n_found = [], 0, 0
+    unchecked = CAP // STAGE_SLOTS
+    n_stages = len(kept_by_stage)
+    for n, kept in enumerate(kept_by_stage):
+        n_found += int(kept)
+        unchecked -= 1
+        if unchecked == 0 and n + 1 < n_stages:
+            if n_found + STAGE_SLOTS > CAP:
+                epochs.append(range(start, n + 1))
+                start, n_found, unchecked = n + 1, 0, CAP // STAGE_SLOTS
+            else:
+                unchecked = (CAP - n_found) // STAGE_SLOTS
+    epochs.append(range(start, n_stages))
+    return epochs
+
+
+def walk_rows(row_counts) -> np.ndarray:
+    """The kernel's walk of one epoch: ``WALKERS + 1`` boundaries, half-warp
+    ``k`` summing tile rows ``[bounds[k], bounds[k + 1])``, from the first
+    row whose sorted slots start at or after its share of the slots."""
+    counts = np.asarray(row_counts, np.int64)
+    starts = np.concatenate([[0], np.cumsum(counts)])
+    n_found = int(starts[-1])
+    targets = n_found * np.arange(WALKERS + 1) // WALKERS
+    bounds = np.searchsorted(starts[:len(counts)], targets, side='left')
+    bounds[-1] = len(counts)
+    return bounds
+
+
+def spmm_lab_split(layout: TileLayout, x: torch.Tensor,
+                   mode: str) -> torch.Tensor:
+    """Every mode computed by the kernel's decomposition, in plain torch:
+    the slots with w = 0 skipped, each kept slot summed by the CTA that
+    owns its row (``cta_rows``) into that CTA's tile row, each epoch's sums
+    (``epoch_stages``) added in turn, and the tiles written out to their
+    rows.  Equal to ``spmm_lab_plain`` up to the order of the f32 sums."""
     _check_args(layout, x, mode)
-    if x.device.type != 'cuda':
-        raise ValueError(f'spmm_lab_cuda needs CUDA tensors, x is on '
-                         f'{x.device}')
+    dev = x.device
+    split = work_split(layout)
+    n, per_chunk = layout.n_slots, layout.chunk
+    packed = layout.packed.reshape(-1)[:n].to(torch.int64)
+    w = layout.w.reshape(-1)[:n]
+    in_chunk = torch.arange(n, device=dev) % per_chunk
+    src_local = in_chunk if mode == 'no_gather' else packed & 0xFFFF
+    dst_local = in_chunk if mode == 'no_scatter' else packed >> 16
+    # the source block of the warp's share (the slot's own chunk)
+    sb = layout.chunk_sb[torch.from_numpy(split['chunk']).to(dev)] \
+        .to(torch.int64)
+    kept = w != 0
+    v = x[(sb * layout.src_block + src_local)].float() * w[:, None]
+    if mode == 'scat_bf16':
+        v = v.to(torch.bfloat16).float()
+    rank, tile_row = dst_local % CLUSTER, dst_local // CLUSTER
+    cta = torch.from_numpy(split['block']).to(dev) * CLUSTER + rank
+    stage = torch.from_numpy(split['stage']).to(dev)
+    d = x.shape[1]
+    tiles = torch.zeros((layout.n_dst_blocks * CLUSTER * TILE_ROWS, d),
+                        dtype=torch.float32, device=dev)
+    n_cta = layout.n_dst_blocks * CLUSTER
+    n_stages = int(split['n_stages'].max(initial=0))
+    kept_by = torch.zeros((n_cta, max(n_stages, 1)), dtype=torch.int64,
+                          device=dev)
+    kept_by.index_put_((cta[kept], stage[kept]),
+                       torch.ones_like(cta[kept]), accumulate=True)
+    epoch = torch.zeros((n_cta, max(n_stages, 1)), dtype=torch.int64)
+    for c in range(n_cta):
+        for e, run in enumerate(epoch_stages(
+                _host(kept_by[c, :split['n_stages'][c // CLUSTER]]))):
+            epoch[c, run.start:run.stop] = e
+    epoch = epoch.to(dev)[cta, stage]
+    for e in range(int(epoch.max()) + 1 if n else 0):
+        sel = kept & (epoch == e)
+        tiles.index_add_(0, (cta * TILE_ROWS + tile_row)[sel], v[sel])
+    # tile row lr of CTA rank is the block's row lr * CLUSTER + rank
+    return tiles.view(layout.n_dst_blocks, CLUSTER, TILE_ROWS, d) \
+        .transpose(1, 2).reshape(-1, d)
+
+
+def check_kernel_args(layout: TileLayout, x: torch.Tensor):
+    """Raise on what the kernel does not take: a d that is not a multiple
+    of 64, other block or chunk sizes, layout arrays of another dtype,
+    shape or stride, an x that is not contiguous or not 16-byte aligned,
+    or more rows of x than its slot lists can index."""
     d = x.shape[1]
     if d % SLICE:
         raise ValueError(f'd must be a multiple of {SLICE}, got {d}')
@@ -183,15 +310,61 @@ def spmm_lab_cuda(layout: TileLayout, x: torch.Tensor,
                 not t.is_contiguous():
             raise ValueError(f'layout.{name} must be contiguous {dtype} '
                              f'{shape}, got {t.dtype} {tuple(t.shape)}')
-    if not x.is_contiguous() or x.data_ptr() % 8:
-        raise ValueError('x must be contiguous and 8-byte aligned')
+    # a found slot holds row_in << ROW_BITS, a sorted one row_in * d / 4
+    if layout.n_src_padded > min(2 ** (31 - ROW_BITS), 2 ** 33 // d):
+        raise ValueError(f'x has {layout.n_src_padded} rows of {d}: the '
+                         'kernel\'s slot lists index at most '
+                         f'{min(2 ** (31 - ROW_BITS), 2 ** 33 // d)}')
+    # 16-byte gathers of x, 16-byte bulk copies of packed and w
+    if not x.is_contiguous() or x.data_ptr() % 16:
+        raise ValueError('x must be contiguous and 16-byte aligned')
+    for name in ('packed', 'w'):
+        if getattr(layout, name).data_ptr() % 16:
+            raise ValueError(f'layout.{name} must be 16-byte aligned')
+
+
+@functools.cache
+def _kernel_fn():
+    """The kernel's C entry point, built and bound at first use, after
+    checking that the library was built with this module's constants."""
+    from .. import cuda_build
+    lib = cuda_build.load(KERNEL_SOURCE)
+    got = (ctypes.c_int * len(CONFIG))()
+    lib.spmm_lab_config.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    lib.spmm_lab_config.restype = ctypes.c_int
+    n = lib.spmm_lab_config(got, len(CONFIG))
+    if n != len(CONFIG) or tuple(got) != CONFIG:
+        raise RuntimeError(f'{KERNEL_SOURCE} was built with {tuple(got)}, '
+                           f'kernel_lab expects {CONFIG}')
+    fn = lib.spmm_lab
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, vp]
+    fn.restype = ci
+    return fn
+
+
+def spmm_lab_cuda(layout: TileLayout, x: torch.Tensor,
+                  mode: str) -> torch.Tensor:
+    """Launch L1 in ``mode`` on PyTorch's current stream; ``out`` is
+    allocated here.
+
+    Raises on anything the kernel does not take: a tensor off the card,
+    another dtype or layout shape, what ``check_kernel_args`` refuses, or
+    a refused launch.
+    """
+    _check_args(layout, x, mode)
+    if x.device.type != 'cuda':
+        raise ValueError(f'spmm_lab_cuda needs CUDA tensors, x is on '
+                         f'{x.device}')
+    check_kernel_args(layout, x)
+    d = x.shape[1]
     out = torch.empty((layout.n_dst_blocks * 512, d), dtype=torch.float32,
                       device=x.device)
     fn = _kernel_fn()
     stream = torch.cuda.current_stream(x.device).cuda_stream
     rc = fn(layout.group_ptr.data_ptr(), layout.chunk_sb.data_ptr(),
             layout.packed.data_ptr(), layout.w.data_ptr(), x.data_ptr(),
-            out.data_ptr(), layout.n_dst_blocks, gs, d,
+            out.data_ptr(), layout.n_dst_blocks, layout.group, d,
             int(x.dtype == torch.bfloat16), MODE_IDS[mode],
             x.device.index or 0, stream)
     if rc:
