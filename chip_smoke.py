@@ -148,6 +148,21 @@ Phases, each of which passes or ends the run with a non-zero exit:
    thresholds, leaf values within 1e-9 relative, scores within 1e-5),
    and the fit and ``forest_predict`` (10 and 160 trees) timed against
    the scorer's bound;
+9k. trace: ``lgcn --epochs 1 --trace DIR`` through ``cli.main`` on the
+   boosted phase's 4,096-user cut of S1 (S1's widths): K1 launches
+   exactly ``steps x 12 + 6``, the ``torch.profiler`` trace parses and
+   holds exactly that many device events of K1's kernel
+   (``spmm_dropout_kernel``);
+9l. quality: the 50,000 x 20,000 ``--sharp`` set written on the host by
+   the port's generator (``tools/make_synthetic.py``, seed 0), then
+   ``lgcn`` trained on it through ``cli.main`` with the quality sweep's
+   flags (``tools/conv_quality_sweep.run_argv``: 60 epochs, lr 0.005,
+   an evaluation every 5 epochs, batch 2048, the rest at their
+   defaults): the best recall@20 read from ``resume_state.pkl`` must
+   reach ``QUALITY_FLOOR`` (0.790; the JAX package's TPU control reached
+   0.8002), K1 launches exactly ``epochs x steps x 12 + evals x 6`` over
+   the epochs the run took, and the best metrics at 20 and 40 are logged
+   beside ``QUALITY_r05.jsonl``'s ``lgcn`` row;
 10. timing: ms per training step and examples/s of each model at S1, and
    of the frozen ``ltr_linear``, the ``--refresh_every 8``,
    ``adv_sampling`` and ``text --pos user`` steps, split
@@ -1952,7 +1967,125 @@ def boosted_phase(root: str, s1_dir: str, lgcn_run: str, card: str,
     log(f'boosted data: {data.n_users} users x {data.n_items} items, '
         f'{data.n_train} train / {data.n_test} test edges; load_ltr_data '
         f'{out["text"]["load_ltr_data_s"]:.3f} s')
+    out['data_dir'] = data_dir
     return out
+
+
+# the quality run: the sweep's configuration (60 epochs, lr 0.005, an
+# evaluation every 5 epochs, batch 2048, the other flags at their
+# defaults) on the 50k x 20k sharp set, held to a floor on best recall@20
+# (the JAX package's TPU control reached 0.8002, QUALITY_r05.jsonl)
+QUALITY_USERS, QUALITY_ITEMS, QUALITY_SEED = 50_000, 20_000, 0
+QUALITY_EPOCHS, QUALITY_EVAL_EVERY, QUALITY_LR = 60, 5, 0.005
+QUALITY_FLOOR = 0.790
+QUALITY_METRICS = tuple(f'{m}@{k}' for m in ('recall', 'precision', 'hit',
+                                             'ndcg', 'f1') for k in KS)
+
+
+def jax_quality_row(model: str = 'lgcn', seed: int = 0) -> dict | None:
+    """The JAX package's TPU row of ``QUALITY_r05.jsonl`` for ``model``
+    and ``seed``, where the checkout has the file."""
+    path = os.path.join(REPO, 'QUALITY_r05.jsonl')
+    if not os.path.exists(path):
+        return None
+    with open(path) as f:
+        for line in f:
+            row = json.loads(line)
+            if row['model'] == model and row['seed'] == seed:
+                return row
+    return None
+
+
+def quality_phase(root: str, card: str) -> dict:
+    """The sharp set written on the host by the port's generator, then
+    ``lgcn`` trained on it through the CLI with the sweep's flags: best
+    recall@20 at least ``QUALITY_FLOOR``, and K1 launched exactly 12 times
+    a step and 6 an evaluation over the epochs the run took (the early
+    stop may end it before ``QUALITY_EPOCHS``; ``resume_state.pkl`` says
+    where)."""
+    from textgcn_tpu_torch.tools import conv_quality_sweep as sweep
+    from textgcn_tpu_torch.tools.make_synthetic import generate
+    data_dir = os.path.join(root, 'sharp50k')
+    t0 = time.perf_counter()
+    rows = generate(data_dir, QUALITY_USERS, QUALITY_ITEMS,
+                    seed=QUALITY_SEED, sharp=True)
+    gen_s = time.perf_counter() - t0
+    argv = sweep.run_argv('lgcn', '0', data_dir, QUALITY_EPOCHS,
+                          QUALITY_EVAL_EVERY, QUALITY_LR)
+    reset_counts()
+    t0 = time.perf_counter()
+    trainer, run_dir = cli_run(data_dir, argv, 'cuda')
+    wall_s = time.perf_counter() - t0
+    launches = counts()
+    best = sweep.best_metrics(run_dir)
+    steps = trainer.model.num_batches(BATCH)
+    want = dict.fromkeys(_wrappers(), 0)
+    want['spmm_dropout'] = (best['epochs_run'] * steps * 4 * LAYERS
+                            + best['n_evals'] * 2 * LAYERS)
+    jax_row = jax_quality_row()
+    port = {k: best[k] for k in QUALITY_METRICS}
+    log(f'quality lgcn ({card}): {rows["train"]} train / {rows["test"]} '
+        f'test rows generated in {gen_s:.3f} s; {steps} steps an epoch, '
+        f'{best["epochs_run"]} epochs, {best["n_evals"]} evals, cli.main '
+        f'{wall_s:.3f} s; best {json.dumps(port)}; the JAX package on the '
+        f'TPU (QUALITY_r05.jsonl): '
+        + (json.dumps({k: jax_row[k] for k in (*QUALITY_METRICS, 'n_evals',
+                                                'wall_s')})
+           if jax_row else 'not in this checkout')
+        + f'; launches {launches}')
+    check(all(np.isfinite(v) for v in port.values()),
+          f'quality: metrics {port}')
+    check(launches == want, f'quality: launches {launches}, expected {want} '
+          f'({best["epochs_run"]} epochs x {steps} steps x 12 + '
+          f'{best["n_evals"]} evals x 6)')
+    check(best['recall@20'] >= QUALITY_FLOOR,
+          f'quality: best recall@20 {best["recall@20"]:.4f} is under '
+          f'{QUALITY_FLOOR}')
+    return {'launches': launches, 'generate_s': gen_s, 'wall_s': wall_s,
+            'train_rows': rows['train'], 'test_rows': rows['test'],
+            'steps_per_epoch': steps, 'epochs_run': best['epochs_run'],
+            'n_evals': best['n_evals'], 'best': port,
+            'jax_tpu_row': jax_row}
+
+
+def trace_phase(data_dir: str, root: str) -> dict:
+    """``lgcn --epochs 1 --trace DIR`` through the CLI on ``data_dir``
+    (the boosted phase's 4,096-user cut of S1, S1's widths): the trace
+    parses, names K1's kernel symbol (``spmm_dropout_kernel`` of
+    ``csrc/spmm_dropout.cu``) and holds one K1 device event for each
+    launch the wrapper counted in that run."""
+    from textgcn_tpu_torch.utils.profiling import device_events, trace_path
+    trace_dir = os.path.join(root, 'trace_lgcn')
+    argv = ['--model', 'lgcn', '--epochs', '1', '--evaluate_every', '1',
+            '--emb_size', str(D), '--n_layers', str(LAYERS), '--batch_size',
+            str(BATCH), '--dropout', '0.4', '-k', *map(str, KS), '--uid',
+            'trace-lgcn', '--quiet', '--trace', trace_dir]
+    reset_counts()
+    t0 = time.perf_counter()
+    trainer, _ = cli_run(data_dir, argv, 'cuda')
+    wall_s = time.perf_counter() - t0
+    launches = counts()
+    steps = trainer.model.num_batches(BATCH)
+    want = dict.fromkeys(_wrappers(), 0)
+    want['spmm_dropout'] = steps * 4 * LAYERS + 2 * LAYERS
+    check(launches == want, f'trace: launches {launches}, expected {want}')
+    path = trace_path(trace_dir, 0)
+    check(os.listdir(trace_dir) == [os.path.basename(path)],
+          f'trace: {os.listdir(trace_dir)} in {trace_dir}')
+    events = device_events(path)
+    k1 = [e for e in events if e.get('cat') == 'kernel'
+          and re.search(r'\bspmm_dropout_kernel\b', e.get('name', ''))]
+    names = sorted({e['name'] for e in k1})
+    log(f'trace lgcn: {os.path.getsize(path)} bytes, {len(events)} device '
+        f'events, {len(k1)} of K1 ({names}), cli.main {wall_s:.3f} s; '
+        f'launches {launches}')
+    check(len(k1) == launches['spmm_dropout'],
+          f'trace: {len(k1)} K1 device events, the wrapper counted '
+          f'{launches["spmm_dropout"]}')
+    return {'launches': launches, 'wall_s': wall_s,
+            'trace_bytes': os.path.getsize(path),
+            'device_events': len(events), 'k1_events': len(k1),
+            'k1_symbols': names}
 
 
 def mesh_phase(data_dir: str, single, card: str, trace_dir: str,
@@ -2284,6 +2417,12 @@ def main():
         boosted = boosted_phase(root, data_dir, trained['lgcn']['run_dir'],
                                 card, dev)
         log(f'phase boosted: {time.perf_counter() - t:.3f} s')
+        t = time.perf_counter()
+        traced = trace_phase(boosted.pop('data_dir'), root)
+        log(f'phase trace: {time.perf_counter() - t:.3f} s')
+        t = time.perf_counter()
+        quality = quality_phase(root, card)
+        log(f'phase quality: {time.perf_counter() - t:.3f} s')
 
         for model in timed:
             t = time.perf_counter()
@@ -2311,6 +2450,11 @@ def main():
             by_path[f'{path}_{m}'] = {k: n for k, n in
                                       boosted[m][key].items() if n}
 
+    by_path['train_lgcn_trace'] = {k: n for k, n in
+                                   traced['launches'].items() if n}
+    by_path['train_lgcn_quality'] = {k: n for k, n in
+                                     quality['launches'].items() if n}
+
     def launch_fields(name, model):
         paths = {p: c[name] for p, c in by_path.items() if name in c}
         return {'launches': sum(paths.values()),
@@ -2332,7 +2476,9 @@ def main():
         # backward), text --pos user, kg, reviews, ltr_reviews and ltr_kg;
         # ltr_simple --load_base (the base's eval and two probes); train
         # marcus, gbdt and gbdt_pop --load_base (forward only: base eval,
-        # the fit's propagation, eval, predict) and their --load re-serve
+        # the fit's propagation, eval, predict) and their --load re-serve;
+        # train lgcn --trace (1 epoch) and the quality run (60 epochs on
+        # the 50k x 20k sharp set, or fewer if the early stop ends it)
         **launch_fields('spmm_dropout', 'lgcn'),
         'max_abs_err': k1['max_abs_err'],
         'max_abs_err_by_width': k1['max_abs_err_by_width'],
@@ -2442,6 +2588,7 @@ def main():
                     'resume_vs_uninterrupted': resumed,
                     'mining_ms': mining,
                     'boosted': boosted,
+                    'trace': traced, 'quality': quality,
                     'text_user_pair_table_bytes': pair_bytes}))
     print(json.dumps({'kernels': kernels}), flush=True)
     print(json.dumps({'ok': True, 'device': {

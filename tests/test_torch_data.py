@@ -74,12 +74,17 @@ def test_loader_matches_jax_on_synthetic(tmp_path, seed):
 
 
 def test_loader_rejects_test_only_user_and_reshuffle(tmp_path, dummy_dir):
+    """A test-only user is an error; so is a reshuffle of a set where no
+    user has the 3 rows a stratified split needs (the JAX package's
+    scikit-learn split refuses it too)."""
     _write_tsv(tmp_path / 'train.tsv', [('a', 'x'), ('b', 'y')])
     _write_tsv(tmp_path / 'test.tsv', [('c', 'x')])
     with pytest.raises(ValueError, match="don't appear in train"):
         torch_load(str(tmp_path))
-    with pytest.raises(NotImplementedError, match='reshuffle'):
-        torch_load(dummy_dir, reshuffle=True)
+    with pytest.raises(ValueError, match='train set will be empty'):
+        torch_load(str(tmp_path), reshuffle=True)
+    with pytest.raises(ValueError):
+        jax_load(str(tmp_path), reshuffle=True, seed=1)
 
 
 def test_loader_rejects_ragged_row(tmp_path):
@@ -112,7 +117,7 @@ def test_parse_args_matches_jax(argv):
 
 @pytest.mark.parametrize('argv, err', [
     (['--model', 'xgboost', '--mesh', '2x4'], NotImplementedError),
-    (['--model', 'marcus', '--trace', 'out'], NotImplementedError),
+    (['--model', 'marcus', '--approx_topk', '0.9'], NotImplementedError),
     (['--model', 'kg', '--mesh', '2x4'], NotImplementedError),
     (['--model', 'ltr_simple'], ValueError),
     (['--model', 'adv_sampling', 'TEXTGCN_TPU_ADV_TOPK=0.9'],
@@ -123,7 +128,8 @@ def test_parse_args_matches_jax(argv):
     (['--model', 'lgcn', '--dropout', '1.5'], ValueError),
     (['--model', 'lgcn', '--load', 'a', '--load_base', 'b'], ValueError),
     (['--model', 'ltr_linear', '--mesh', '2x4'], NotImplementedError),
-    (['--model', 'lgcn', '--trace', 'out'], NotImplementedError),
+    (['--model', 'gatv2', '--aggr', 'mean', '--approx_topk', '0.5'],
+     NotImplementedError),
     (['--model', 'gat'], ValueError),
 ])
 def test_parse_args_refuses_what_is_not_ported(argv, err, monkeypatch):

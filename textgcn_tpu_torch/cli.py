@@ -20,6 +20,8 @@
     python -m textgcn_tpu_torch ... --resume runs/<data>/<uid>
     python -m textgcn_tpu_torch --model lgcn ... --refresh_every N
     python -m textgcn_tpu_torch --model lgcn --mesh 1x1|auto ...
+    python -m textgcn_tpu_torch ... --reshuffle [--seed S]
+    python -m textgcn_tpu_torch ... --trace DIR
     torchrun --nproc_per_node N -m textgcn_tpu_torch --model lgcn \
         --mesh AxB ...                                  # A * B == N
 
@@ -29,7 +31,8 @@ and row-sharded) -> model build -> ``--resume`` (the whole trainer state
 of a stopped run), else ``--load`` or ``--load_base`` (with its
 evaluation; before training it warm-starts the params; ``--load_base``
 evaluates an LTR head's base with plain scoring, then switches the head
-on) -> ``fit`` unless ``--no_train`` -> ``--predict`` ->
+on) -> ``fit`` unless ``--no_train`` (under ``--trace DIR`` inside a
+``torch.profiler`` trace, ``utils/profiling.trace``) -> ``--predict`` ->
 ``--export_reprs``; the boosted heads fit their trees in ``fit`` and
 load with their ``forest.npz`` (``BoostedTrainer``).  ``text_probe``
 returns after its probe of the four
@@ -115,7 +118,12 @@ def _run(cfg, device, mesh=None):
             logger.info('concat probe pos=%s: %s', mode, res)
         return trainer
     if not cfg.no_train:
-        trainer.fit()
+        if cfg.trace:
+            from .utils.profiling import trace
+            with trace(cfg.trace, device):
+                trainer.fit()
+        else:
+            trainer.fit()
     if cfg.predict:
         trainer.predict(range(data.n_users), with_scores=True, save=True)
     if cfg.export_reprs:

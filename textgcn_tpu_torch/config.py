@@ -196,9 +196,6 @@ class Config:
             raise NotImplementedError(
                 '--approx_topk is not ported yet: the port serves exact '
                 'top-k')
-        if self.trace:
-            raise NotImplementedError(
-                '--trace (a profiler trace of training) is not ported yet')
 
 
 def build_argparser() -> argparse.ArgumentParser:
@@ -270,7 +267,9 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument('--export_reprs', action='store_true',
                    help='write propagated user/item representations as '
                         '.npy into the run dir')
-    p.add_argument('--trace', type=str, default=d.trace)
+    p.add_argument('--trace', type=str, default=d.trace,
+                   help='write a torch.profiler trace of training into '
+                        'this directory')
     p.add_argument('--aggr', '--aggregator', dest='aggr', default=d.aggr,
                    choices=['mean', 'sum', 'max'])
     p.add_argument('--refresh_every', type=int, default=d.refresh_every,

@@ -11,7 +11,10 @@ numpy (no pandas).  The semantics are the JAX package's, field by field:
 * ``edge_weight = 1/sqrt(deg_u * deg_i)`` over the train edges,
   duplicates included;
 * ``pos_padded[u, :deg_u]`` holds u's sorted train items, padded with
-  ``n_items``.
+  ``n_items``;
+* ``reshuffle=True`` loads ``<data>/reshuffle_<seed>/``, which
+  ``reshuffle_train_test`` writes with the JAX package's bytes (its
+  stratified split drawn as scikit-learn draws it, ``data/split.py``).
 """
 
 from __future__ import annotations
@@ -23,6 +26,9 @@ import os
 from dataclasses import dataclass
 
 import numpy as np
+
+from .split import keep_frequent, stratified_split
+from .tsv import read_table, write_rows
 
 log = logging.getLogger('textgcn_tpu_torch')
 
@@ -97,17 +103,59 @@ def _read_interactions(path: str) -> list[tuple[str, str]]:
     return rows
 
 
+def _missing_last(v):
+    """Sort key of a field as ``sort_values`` orders it: a missing value
+    after every string."""
+    return (v is None, v or '')
+
+
+def reshuffle_train_test(data_dir: str, seed: int,
+                         train_size: float = 0.8) -> str:
+    """Re-split train + test stratified by user, as the JAX package's
+    ``reshuffle_train_test`` (``textgcn_tpu/data/core.py:110-134``):
+    concatenate the two files, keep users with 3 rows or more, split
+    ``train_size`` of them stratified by user (scikit-learn's draws),
+    sort each side by (user_id, asin), drop test rows whose item has no
+    train row, and write ``<data>/reshuffle_<seed>/{train,test}.tsv`` in
+    pandas' bytes.  An existing folder is reused.  Returns the folder."""
+    out = os.path.join(data_dir, f'reshuffle_{seed}')
+    if os.path.exists(os.path.join(out, 'train.tsv')):
+        return out
+    os.makedirs(out, exist_ok=True)
+    h_train, train = read_table(os.path.join(data_dir, 'train.tsv'))
+    h_test, test = read_table(os.path.join(data_dir, 'test.tsv'))
+    # pd.concat: the union of the columns in order of appearance, a
+    # column a file lacks missing in its rows
+    header = h_train + [c for c in h_test if c not in h_train]
+    rows = [r + [None] * (len(header) - len(r)) for r in train]
+    at = [h_test.index(c) if c in h_test else None for c in header]
+    rows += [[None if j is None else r[j] for j in at] for r in test]
+    ui, ai = header.index('user_id'), header.index('asin')
+    rows = [r for r, k in zip(rows, keep_frequent([r[ui] for r in rows]))
+            if k]
+    tr_idx, te_idx = stratified_split([r[ui] for r in rows], train_size,
+                                      seed)
+
+    def by_user_item(idx):
+        return sorted((rows[i] for i in idx), key=lambda r: (
+            _missing_last(r[ui]), _missing_last(r[ai])))
+
+    tr, te = by_user_item(tr_idx), by_user_item(te_idx)
+    items = {r[ai] for r in tr}
+    te = [r for r in te if r[ai] in items]
+    write_rows(os.path.join(out, 'train.tsv'), header, tr)
+    write_rows(os.path.join(out, 'test.tsv'), header, te)
+    return out
+
+
 def load_interactions(data_dir: str, *, reshuffle: bool = False,
                       seed: int = 0) -> InteractionData:
     """Load ``train.tsv``/``test.tsv`` of ``data_dir`` and build the graph
-    and the per-user tables.  ``seed`` only seeds ``reshuffle``, which is
-    not ported yet."""
-    if reshuffle:
-        raise NotImplementedError(
-            '--reshuffle is not ported yet (its stratified split needs '
-            'scikit-learn)')
-    train = _read_interactions(os.path.join(data_dir, 'train.tsv'))
-    test = _read_interactions(os.path.join(data_dir, 'test.tsv'))
+    and the per-user tables; with ``reshuffle``, those of the split that
+    ``reshuffle_train_test(data_dir, seed)`` writes."""
+    folder = reshuffle_train_test(data_dir, seed) if reshuffle else data_dir
+    train = _read_interactions(os.path.join(folder, 'train.tsv'))
+    test = _read_interactions(os.path.join(folder, 'test.tsv'))
 
     u_map: dict[str, int] = {}
     i_map: dict[str, int] = {}

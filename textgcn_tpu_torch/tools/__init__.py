@@ -1,7 +1,10 @@
-"""Lab entry points of the port: the SpMM lab (``kernel_lab``) and the
-row-gather lab (``gather_lab``), each on hand-written CUDA kernels, with
-their layouts (``lab_layout``) and the event timer (``timing``).
+"""Entry points of the port beside the CLI: the SpMM lab (``kernel_lab``)
+and the row-gather lab (``gather_lab``), each on hand-written CUDA
+kernels, with their layouts (``lab_layout``) and the event timer
+(``timing``); the synthetic data generator (``make_synthetic``) and the
+quality sweep over it (``conv_quality_sweep``).
 
-Counterparts of the JAX package's ``tools/kernel_lab.py`` and
-``tools/gather_lab.py``.  Nothing here runs at import time.
+Counterparts of the JAX package's ``tools/kernel_lab.py``,
+``tools/gather_lab.py``, ``tools/make_synthetic.py`` and
+``tools/conv_quality_sweep.py``.  Nothing here runs at import time.
 """

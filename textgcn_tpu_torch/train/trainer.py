@@ -74,6 +74,7 @@ from ..data.core import InteractionData
 from ..ops import metrics as metrics_mod
 from ..parallel.multihost import is_primary
 from ..parallel.sharded import all_reduce_sum
+from ..utils.profiling import StepTimer
 from ..weights import params_from_jax, params_to_jax
 from .checkpoint import make_checkpointer
 
@@ -252,12 +253,17 @@ class Trainer:
         ended them (both checkpointed already)."""
         cfg = self.cfg
         history = self.loss_history = []
+        # one tick an epoch over the epochs since the last evaluation
+        timer = self.step_timer = StepTimer(window=max(cfg.evaluate_every,
+                                                       1))
+        epoch_examples = self.model.num_batches(cfg.batch_size) \
+            * cfg.batch_size
         t0 = time.time()
-        t_window, n_window = time.perf_counter(), 0
+        timer.start()
         for epoch in range(self._start_epoch, cfg.epochs + 1):
             sums = self._finish_epoch(epoch, self.train_epoch())
             history.append(sums)
-            n_window += 1
+            timer.tick()
             if self._stop():
                 self.checkpoint(epoch)
                 log.warning('Stopped by SIGTERM at epoch %d; %s', epoch,
@@ -266,13 +272,12 @@ class Trainer:
                 return True
             if epoch % cfg.evaluate_every:
                 continue
-            eps = (self.model.iterable_len * n_window
-                   / (time.perf_counter() - t_window))
+            eps = epoch_examples / timer.mean_s if timer.mean_s else 0.0
             log.info('Epoch %d: %s (%.0f examples/s, %.1fs)', epoch,
                      self._format_components(sums), eps, time.time() - t0)
             self.evaluate(epoch)
             self.checkpoint(epoch)
-            t_window, n_window = time.perf_counter(), 0
+            timer.start()       # the evaluation is no epoch's time
             if metrics_mod.early_stop(self.metrics_logger):
                 log.warning('Early stopping triggerred at epoch %d', epoch)
                 return True
