@@ -47,6 +47,15 @@ Phases, each of which passes or ends the run with a non-zero exit:
    1e-4 of its largest entry), then K5 and K6 at ``ATT_WIDTHS``, to_user
    at keep 0.6, with ``a`` and ``g_num`` scaled by sqrt(64 / d) so that
    the logits spread as at d = 64;
+5a. shard kernels: K1 and K3-K6 on the W = 4 destination shards of S1
+   (``parallel.sharded_conv.MeshConvOp`` of each rank, built in this one
+   process: global ids, the edges into the rank's rows, the backward
+   kernels on the shard's own transpose), both directions at keep 0.6:
+   every launch against its plain version (K1, K3, K5 within 1e-5, K3's
+   ``m`` bit for bit, K4 and K6 within 1e-4), each shard's rows of the
+   forward outputs against the whole-graph kernel's, the backward
+   partials summed over the four shards against the whole-graph
+   kernel's; each kernel timed per shard against its bound;
 5b. labs: runs the two lab entry points at the JAX labs' full shapes, as
    a user runs them (``textgcn_tpu_torch.tools.kernel_lab.main`` with all
    five modes at bf16 and at f32 x, ``gather_lab.main`` with both modes):
@@ -91,6 +100,19 @@ Phases, each of which passes or ends the run with a non-zero exit:
    then ``--mesh 1x1 --no_train --load --predict`` in a group this script
    starts serves S1 with 12 K2 launches and those metrics, and that
    trainer is timed as in phase 10;
+9b'. mesh convs: ``gcn``, ``graphsage``, ``gat`` and ``gatv2`` (``--aggr
+   mean``) with ``--mesh 1x1`` through ``cli.main`` in a one-rank group
+   this script starts, for 1 epoch and 1 evaluation with phase 9's flags
+   and seed: K1 (``gcn``, ``graphsage``) or K3/K4, K5/K6 launch exactly
+   as on the single card, the epoch's loss sum and the metrics equal the
+   single-card run's first epoch within ``MESH_CONV_TOL`` (1e-5 relative
+   and 1e-6 for K1's deterministic sums; 1e-2 and 5e-3 for
+   ``gat``/``gatv2``, whose K4/K6 add with float atomics: a second
+   single-card epoch, run and logged here, differs by ~1e-3 too),
+   ``best.pkl`` serves its metrics
+   through the non-mesh CLI (1e-6), one step from the single card's
+   params, batch and salts gives its loss and gradients (``STEP_TOL``),
+   and each trainer is timed as in phase 10;
 9c. ltr text: writes S1's ``meta_synced.tsv`` (a title and a description
    per item), ``reviews_text.tsv`` (one review per train and test edge,
    times from the seed) and the loader's two embedding caches (random
@@ -107,6 +129,14 @@ Phases, each of which passes or ends the run with a non-zero exit:
    = 1e-4); then one unfrozen ``ltr_linear`` step with the kernels
    against one with the plain versions (``STEP_TOL``); then ``ltr_pop``
    the same (without the step);
+9d'. mesh ltr: ``ltr_linear`` and ``ltr_pop --load_base <phase 7's
+   pickle> --freeze --mesh 1x1`` through ``cli.main`` in a one-rank group
+   this script starts, for 1 epoch and 1 evaluation: K2 launches exactly
+   ``6 (base eval) + steps x 6 + 6`` (forward only), the tables stay the
+   checkpoint's bit for bit, the loss sum equals phase 9d's first epoch
+   within 1e-5 relative, and the fused
+   catalogue-sharded top-40 of 256 users equals the single-card head's
+   (phase 9d's model with this run's tower) up to ties (``LTR_TOL``);
 9e. resume: ``lgcn`` on S1 for 1 epoch, then ``--resume`` for the second
    (K1 as phase 8 a run), against phase 8's uninterrupted run: loss sums
    within 1e-4 relative, metrics 1e-3, tables 1e-3 (nothing promises the
@@ -1322,19 +1352,22 @@ def adv_step_vs_plain(trainer) -> tuple[float, float]:
     return compare_steps(model, k_loss, k_grads, p_loss, p_grads), agree
 
 
-def compare_steps(model, k_loss, k_grads, p_loss, p_grads) -> float:
+def compare_steps(model, k_loss, k_grads, p_loss, p_grads,
+                  names=('kernels', 'plain')) -> float:
     """Check a step's loss and gradients with the kernels against the
-    plain versions' (``STEP_TOL``); the largest difference."""
+    plain versions' (or ``names``' two paths; ``STEP_TOL``); the largest
+    difference."""
     model.zero_grad(set_to_none=True)
     err = float((k_loss - p_loss).abs())
+    a, b = names
     check(torch.allclose(k_loss, p_loss, atol=STEP_TOL, rtol=STEP_TOL),
-          f'loss with kernels {float(k_loss)} vs plain {float(p_loss)}')
+          f'loss with {a} {float(k_loss)} vs {b} {float(p_loss)}')
     for name, g in k_grads.items():
         e = float((g - p_grads[name]).abs().max())
         err = max(err, e)
         check(torch.allclose(g, p_grads[name], atol=STEP_TOL, rtol=STEP_TOL),
-              f'gradient of {name}: kernels vs plain max abs err {e:.3e}')
-    log(f'step vs plain ({model.cfg.model}): loss {float(k_loss):.6f} vs '
+              f'gradient of {name}: {a} vs {b} max abs err {e:.3e}')
+    log(f'step {a} vs {b} ({model.cfg.model}): loss {float(k_loss):.6f} vs '
         f'{float(p_loss):.6f}, max abs err over loss and '
         f'{len(k_grads)} gradients {err:.3e}')
     return err
@@ -2164,6 +2197,331 @@ def mesh_phase(data_dir: str, single, card: str, trace_dir: str,
             'seconds': seconds, 'timing': timing}
 
 
+# the conv family on --mesh 1x1: its epoch's loss sum and metrics against
+# the single card's within these (relative, absolute) limits.  K1 adds in
+# a fixed order.  K4 and K6 add with float atomics, and Adam carries the
+# differences through the epoch: a second single-card epoch with the same
+# seed, which mesh_conv_phase runs for gat and gatv2, differs from the
+# first by as much (gat on an H100: 8.0e-4 in the loss sum, where the
+# --mesh 1x1 epoch differed by 1.2e-3).  A step from the same params,
+# batch and salts is held to STEP_TOL besides.
+MESH_CONV_TOL = {'gcn': (TOL, 1e-6), 'graphsage': (TOL, 1e-6),
+                 'gat': (1e-2, 5e-3), 'gatv2': (1e-2, 5e-3)}
+SHARDS = 4
+
+
+def shard_kernel_phase(data, dev) -> dict:
+    """K1 and K3-K6 on the W = 4 destination shards of S1, in this one
+    process: each rank's ``MeshConvOp`` (global ids, the edges into its
+    rows; the backward kernels on the shard's own transpose), both
+    directions at keep 0.6.  Each launch against its plain version (K1
+    and K3/K5 ``TOL``, K3's ``m`` bit for bit, K4/K6 ``GAT_BWD_TOL``),
+    the forward outputs' rows of each shard against the whole-graph
+    kernel's, and the backward partials summed over the shards (K4's
+    ``dd`` and K6's ``dhd`` live on the shard's own rows) against the
+    whole-graph kernel's.  Returns per kernel the largest error and one
+    layer's (to_user + to_item) time and bound per shard, the mean over
+    the four."""
+    from textgcn_tpu_torch.ops import gat
+    from textgcn_tpu_torch.ops.spmm import (GraphOp, edge_mask,
+                                            spmm_dropout_cuda, spmm_plain)
+    from textgcn_tpu_torch.parallel.mesh import Mesh
+    from textgcn_tpu_torch.parallel.sharded_conv import MeshConvOp
+    g = data.graph
+    nu = -(-data.n_users // SHARDS) * SHARDS
+    ni = -(-data.n_items // SHARDS) * SHARDS
+    whole = GraphOp(g.edge_user, g.edge_item, np.ones(g.n_edges, np.float32),
+                    nu, ni, dev)
+    ops = [MeshConvOp(g.edge_user, g.edge_item, nu, ni,
+                      Mesh((1, SHARDS), r, dev)) for r in range(SHARDS)]
+    gen = torch.Generator().manual_seed(6)
+    names = ('spmm_dropout', 'gat_fwd', 'gat_bwd', 'gatv2_fwd', 'gatv2_bwd')
+    res = {n: {'max_abs_err': 0.0, 'ms': 0.0, 'bound_ms': 0.0}
+           for n in names}
+    pair = (SALT, KEEP_DROPOUT)
+
+    def rand(*shape, scale=1.0):
+        return (scale * torch.randn(*shape, generator=gen)).to(dev)
+
+    def hold(name, what, got, want, tol, whole_sum=(), exact=()):
+        torch.cuda.synchronize()
+        errs = [float((x - y).abs().max()) for x, y in zip(got, want)]
+        res[name]['max_abs_err'] = max(res[name]['max_abs_err'], *errs)
+        ok = all(agree(x, y, tol, j in whole_sum)
+                 for j, (x, y) in enumerate(zip(got, want)))
+        ok &= all(torch.equal(got[j], want[j]) for j in exact)
+        check(ok, f'{name} {what} disagrees (max abs err by output '
+              f'{errs})')
+        return errs
+
+    for direction in ('to_user', 'to_item'):
+        fwd, bwd = whole.csr_pair(direction)
+        x = rand(fwd.n_src, D)
+        h, s, d_dst = rand(fwd.n_src, D), rand(fwd.n_src), rand(fwd.n_dst)
+        hs, hd, a = rand(fwd.n_src, D), rand(fwd.n_dst, D), rand(D, scale=0.5)
+        g_num, g_den = rand(fwd.n_dst, D), rand(fwd.n_dst)
+        want = {'spmm_dropout': (spmm_dropout_cuda(fwd, x, *pair),),
+                'gat_fwd': gat.gat_fwd_cuda(fwd, h, s, d_dst, *pair),
+                'gatv2_fwd': gat.gatv2_fwd_cuda(fwd, hs, hd, a, *pair)}
+        want['gat_bwd'] = gat.gat_bwd_cuda(bwd, h, s, d_dst,
+                                           want['gat_fwd'][2], g_num, g_den,
+                                           *pair)
+        want['gatv2_bwd'] = gat.gatv2_bwd_cuda(bwd, hs, hd, a,
+                                               want['gatv2_fwd'][2], g_num,
+                                               g_den, *pair)
+        sums = {'spmm_dropout': [torch.zeros_like(want['spmm_dropout'][0])],
+                'gat_bwd': [torch.zeros_like(t) for t in want['gat_bwd']],
+                'gatv2_bwd': [torch.zeros_like(t) for t in want['gatv2_bwd']]}
+        for r, op in enumerate(ops):
+            sf, sb = op.csr_pair(direction)
+            own = op.mesh.rows(sf.n_dst)
+            calls = {
+                'spmm_dropout': lambda sf=sf: (spmm_dropout_cuda(
+                    sf, x, *pair),),
+                'gat_fwd': lambda sf=sf: gat.gat_fwd_cuda(sf, h, s, d_dst,
+                                                          *pair),
+                'gatv2_fwd': lambda sf=sf: gat.gatv2_fwd_cuda(sf, hs, hd, a,
+                                                              *pair)}
+            got = {n: fn() for n, fn in calls.items()}
+            m3, m5 = got['gat_fwd'][2], got['gatv2_fwd'][2]
+            calls['gat_bwd'] = lambda sb=sb, m3=m3: gat.gat_bwd_cuda(
+                sb, h, s, d_dst, m3, g_num, g_den, *pair)
+            calls['gatv2_bwd'] = lambda sb=sb, m5=m5: gat.gatv2_bwd_cuda(
+                sb, hs, hd, a, m5, g_num, g_den, *pair)
+            got['gat_bwd'] = calls['gat_bwd']()
+            got['gatv2_bwd'] = calls['gatv2_bwd']()
+            plain = {
+                'spmm_dropout': (spmm_plain(sf, x, *pair),),
+                'gat_fwd': gat.gat_att_plain(sf, h, s, d_dst, *pair),
+                'gatv2_fwd': gat.gatv2_att_plain(sf, hs, hd, a, *pair),
+                'gat_bwd': gat.gat_bwd_plain(sb, h, s, d_dst, m3, g_num,
+                                             g_den, *pair),
+                'gatv2_bwd': gat.gatv2_bwd_plain(sb, hs, hd, a, m5, g_num,
+                                                 g_den, *pair)}
+            what = f'{direction} shard {r}'
+            for n in names:
+                bwd_kernel = n.endswith('_bwd')
+                hold(n, f'{what} vs plain', got[n], plain[n],
+                     GAT_BWD_TOL if bwd_kernel else TOL,
+                     whole_sum=(2,) if n == 'gatv2_bwd' else (),
+                     exact=(2,) if n == 'gat_fwd' else ())
+            for n in ('gat_fwd', 'gatv2_fwd'):
+                hold(n, f'{what}: its rows vs the whole graph',
+                     [t[own] for t in got[n]], [t[own] for t in want[n]],
+                     TOL, exact=(2,) if n == 'gat_fwd' else ())
+            for n, parts in sums.items():
+                for acc, t in zip(parts, got[n]):
+                    acc += t
+            check(not got['spmm_dropout'][0][:own.start].any()
+                  and not got['spmm_dropout'][0][own.stop:].any(),
+                  f'K1 {what} wrote rows it does not own')
+            t = time_ms(calls, [*names, *names[::-1]], strict=names)
+            n_kept = int(edge_mask(sf, *pair)[2].sum())
+            bounds = {'spmm_dropout': bound_ms(sf, D, n_kept)[0]}
+            for n in names[1:]:
+                csr = sb if n.endswith('_bwd') else sf
+                bounds[n] = attention_bound_ms(n, csr, D, n_kept)[0]
+            log(f'shard kernels {what} (E={sf.n_edges}, kept {n_kept}, '
+                f'{sf.n_dst}x{sf.n_src}, d={D}): '
+                + ', '.join(f'{n} {t[n]:.4f} ms (bound {bounds[n]:.4f})'
+                            for n in names))
+            for n in names:
+                res[n]['ms'] += t[n] / SHARDS
+                res[n]['bound_ms'] += bounds[n] / SHARDS
+        for n, parts in sums.items():
+            hold(n, f'{direction}: the {SHARDS} shards summed vs the whole '
+                 'graph', parts, want[n],
+                 TOL if n == 'spmm_dropout' else GAT_BWD_TOL,
+                 whole_sum=(2,) if n == 'gatv2_bwd' else ())
+    log('shard kernels, W = 4 destination shards, a layer per shard: '
+        + json.dumps(res))
+    return res
+
+
+def mesh_conv_phase(data_dir: str, trained: dict, card: str,
+                    trace_dir: str, dev) -> dict:
+    """``gcn``, ``graphsage --aggr mean``, ``gat`` and ``gatv2`` with
+    ``--mesh 1x1`` through the CLI (in a one-rank group started here) for
+    1 epoch and 1 evaluation: exact K1/K3-K6 launches, the loss sum and
+    the metrics against the single-card run's first epoch
+    (``MESH_CONV_TOL``; for ``gat`` and ``gatv2`` a second single-card
+    epoch, without ``--mesh``, logs the card's own spread), ``best.pkl``
+    re-served through the non-mesh CLI, one step against the single
+    card's from the same params, batch and salts (``STEP_TOL``), and each
+    trainer timed."""
+    import torch.distributed as dist
+
+    from textgcn_tpu_torch.parallel import multihost
+    from textgcn_tpu_torch.parallel.sharded_conv import MeshConvOp
+    common = ['--emb_size', str(D), '--n_layers', str(LAYERS),
+              '--batch_size', str(BATCH), '-k', *map(str, KS)]
+    out = {}
+    created = multihost.maybe_initialize(multihost.local_device(dev.type))
+    try:
+        for model in ('gcn', 'graphsage', 'gat', 'gatv2'):
+            flags = MODEL_FLAGS[model]
+            argv = [*flags, '--epochs', '1', '--evaluate_every', '1',
+                    '--dropout', '0.4', *common, '--uid',
+                    f'train-{model}-mesh', '--quiet', '--mesh', '1x1']
+            reset_counts()
+            t0 = time.perf_counter()
+            trainer, run_dir = cli_run(data_dir, argv, 'cuda')
+            seconds = time.perf_counter() - t0
+            launches = counts()
+            steps = trainer.model.num_batches(BATCH)
+            want = expected_launches(model, steps, 1)
+            log(f'mesh {model} 1x1: cli.main took {seconds:.3f} s; '
+                f'launches {launches}')
+            check(isinstance(trainer.model.graph_op, MeshConvOp),
+                  f'mesh {model}: graph op {type(trainer.model.graph_op)}')
+            check(launches == want, f'mesh {model}: launches {launches}, '
+                  f'expected {want}')
+            single = trained[model]['trainer']
+            rel_tol, metric_tol = MESH_CONV_TOL[model]
+            got = trainer.loss_history[0]['loss']
+            ref = single.loss_history[0]['loss']
+            rel = abs(got - ref) / abs(ref)
+            metric_err = max(float(np.abs(v[0] - single.metrics_logger[n][0])
+                                   .max())
+                             for n, v in trainer.metrics_logger.items())
+            log(f'mesh {model}: epoch 1 loss sum {got} vs single card {ref} '
+                f'(relative difference {rel:.3e}, limit {rel_tol}); '
+                f'metrics differ by {metric_err:.3e} (limit {metric_tol})')
+            check(np.isfinite(got) and rel <= rel_tol,
+                  f'mesh {model}: loss sum {got} vs single card {ref}')
+            check(metric_err <= metric_tol,
+                  f'mesh {model}: metrics differ from the single card run '
+                  f'by {metric_err}')
+            if model in ('gat', 'gatv2'):
+                # the card's own spread: a second single-card epoch
+                again, _ = cli_run(data_dir, [
+                    *argv[:argv.index('--uid')], '--uid', f'again-{model}',
+                    '--quiet'], 'cuda')
+                spread = (abs(again.loss_history[0]['loss'] - ref)
+                          / abs(ref),
+                          max(float(np.abs(v[0] - single.metrics_logger[n][0])
+                                    .max())
+                              for n, v in again.metrics_logger.items()))
+                log(f'{model}: a second single-card epoch differs from the '
+                    f'first run\'s by {spread[0]:.3e} (loss sum, relative) '
+                    f'and {spread[1]:.3e} (metrics)')
+            rows = trainer.metrics_logger
+            served, _ = serve(data_dir, f'best-{model}-mesh',
+                              ['--load', run_dir, *common], 'cuda',
+                              model=flags)
+            for name, v in served.last_metrics.items():
+                check(np.allclose(v, rows[name][0], atol=1e-6, rtol=0),
+                      f'mesh {model}: best.pkl serves {name} {v} through '
+                      f'the non-mesh CLI, its epoch measured {rows[name][0]}')
+            # one step of each from the single card's params, batch, salts
+            m, one = trainer.model, single.model
+            m.load_params(one.param_tree())
+            batch = one.sample_batches(
+                torch.Generator(device=one.device).manual_seed(5), BATCH)[0]
+            w_pairs = ((SALT, KEEP_DROPOUT), (SALT ^ 0x5A5A5A5A,
+                                              KEEP_DROPOUT))
+            step_err = compare_steps(m, *loss_and_grads(m, batch, w_pairs),
+                                     *loss_and_grads(one, batch, w_pairs),
+                                     names=('--mesh 1x1', 'the single card'))
+            one.zero_grad(set_to_none=True)
+            out[model] = {'launches': launches, 'seconds': seconds,
+                          'loss_rel_diff': rel, 'metric_diff': metric_err,
+                          'step_err': step_err,
+                          **({'single_again_diffs': spread}
+                             if model in ('gat', 'gatv2') else {}),
+                          'timing': timing_phase(trainer, card, trace_dir,
+                                                 name=f'{model}_mesh')}
+    finally:
+        if created:
+            dist.destroy_process_group()
+    return out
+
+
+def mesh_ltr_phase(data_dir: str, ck: str, trained: dict, dev) -> dict:
+    """``ltr_linear`` and ``ltr_pop --load_base ck --freeze --mesh 1x1``
+    through the CLI (in a one-rank group started here) for 1 epoch and 1
+    evaluation: exact K2 launches (forward only: base eval, steps, eval),
+    the frozen tables the checkpoint's bit for bit, the loss sum within
+    ``TOL`` relative of the single-card run's first epoch (phase 9d); then
+    the fused catalogue-sharded top-40 of 256 users against the
+    single-card head's with the same tower (copied in and restored), up
+    to ties (``LTR_TOL``)."""
+    import torch.distributed as dist
+
+    from textgcn_tpu_torch.parallel import multihost
+    common = ['--emb_size', str(D), '--n_layers', str(LAYERS),
+              '--batch_size', str(BATCH), '-k', *map(str, KS)]
+    with open(ck, 'rb') as f:
+        base = pickle.load(f)['params']
+    out = {}
+    created = multihost.maybe_initialize(multihost.local_device(dev.type))
+    try:
+        for model in ('ltr_linear', 'ltr_pop'):
+            argv = ['--model', model, '--load_base', ck, '--freeze',
+                    '--epochs', '1', '--evaluate_every', '1', '--dropout',
+                    '0.4', '--uid', f'train-{model}-mesh', '--quiet',
+                    '--mesh', '1x1', *common]
+            reset_counts()
+            t0 = time.perf_counter()
+            trainer, _ = cli_run(data_dir, argv, 'cuda')
+            seconds = time.perf_counter() - t0
+            launches = counts()
+            m = trainer.model
+            per_pass = 2 * LAYERS
+            want = dict.fromkeys(_wrappers(), 0)
+            want['spmm_weighted'] = (per_pass + m.num_batches(BATCH)
+                                     * per_pass + per_pass)
+            log(f'mesh {model} 1x1: cli.main took {seconds:.3f} s; launches '
+                f'{launches}')
+            check(launches == want, f'mesh {model}: launches {launches}, '
+                  f'expected {want} (base eval + steps + eval, forward '
+                  'only)')
+            tree = m.param_tree()
+            for name, n in (('user_emb', m.n_users), ('item_emb', m.n_items)):
+                check(np.array_equal(tree[name].detach().cpu().numpy(),
+                                     base[name][:n]),
+                      f'mesh {model}: the frozen {name} changed in training')
+            loss = trainer.loss_history[0]['loss']
+            ref = trained[model]['trainer'].loss_history[0]['loss']
+            rel = abs(loss - ref) / abs(ref)
+            check(np.isfinite(loss) and rel <= TOL,
+                  f'mesh {model}: epoch 1 loss sum {loss} vs the single '
+                  f'card\'s {ref} (relative difference {rel:.3e})')
+            single = trained[model]['trainer'].model
+            saved = [p.detach().clone() for p in single.tower.parameters()]
+            users = torch.arange(N_CHECK_USERS, device=m.device)
+            try:
+                with torch.no_grad():
+                    for p, q in zip(single.tower.parameters(),
+                                    m.tower.parameters()):
+                        p.copy_(q)
+                    mesh_v, mesh_i = m.topk_for_users(m.scoring_reprs(),
+                                                      users, max(KS))
+                    ref_v, ref_i = single.topk_for_users(
+                        single.scoring_reprs(), users, max(KS))
+            finally:
+                with torch.no_grad():
+                    for p, v in zip(single.tower.parameters(), saved):
+                        p.copy_(v)
+            err = float((mesh_v - ref_v).abs().max())
+            same = same_up_to_ties(mesh_v.cpu().numpy(), mesh_i.tolist(),
+                                   ref_v.cpu().numpy(), ref_i.tolist(),
+                                   LTR_TOL)
+            log(f'mesh {model}: tables unchanged; epoch 1 loss sum {loss} vs '
+                f'the single card\'s {ref} (relative difference {rel:.3e}); '
+                f'fused sharded top-{max(KS)} of {N_CHECK_USERS} users vs '
+                f'the single-card head: max abs err {err:.3e}, same up to '
+                f'ties={same}')
+            check(same, f'mesh {model}: the fused sharded top-k differs '
+                  'from the single-card head\'s')
+            out[model] = {'launches': launches, 'seconds': seconds,
+                          'loss_rel_diff': rel, 'topk_err': err}
+    finally:
+        if created:
+            dist.destroy_process_group()
+    return out
+
+
 def device_ms_per_step(trainer, batches, trace_dir: str,
                        name: str) -> tuple:
     """Device time of ``len(batches)`` training steps from a
@@ -2344,6 +2702,10 @@ def main():
             log(f'phase {conv} kernel: {time.perf_counter() - t:.3f} s')
 
         t = time.perf_counter()
+        shard = shard_kernel_phase(data, dev)
+        log(f'phase shard kernels: {time.perf_counter() - t:.3f} s')
+
+        t = time.perf_counter()
         labs = lab_phase(dev)
         log(f'phase labs: {time.perf_counter() - t:.3f} s')
 
@@ -2365,6 +2727,11 @@ def main():
                           dev)
         timing['lgcn_mesh'] = mesh['timing']
         log(f'phase mesh: {time.perf_counter() - t:.3f} s')
+        t = time.perf_counter()
+        mesh_conv = mesh_conv_phase(data_dir, trained, card, root, dev)
+        for model, r in mesh_conv.items():
+            timing[f'{model}_mesh'] = r.pop('timing')
+        log(f'phase mesh convs: {time.perf_counter() - t:.3f} s')
 
         t = time.perf_counter()
         ltr_text = write_ltr_text(data_dir, data, dev)
@@ -2382,6 +2749,9 @@ def main():
             t = time.perf_counter()
             trained[model] = ltr_phase(data_dir, ck, model)
             log(f'phase ltr {model}: {time.perf_counter() - t:.3f} s')
+        t = time.perf_counter()
+        mesh_ltr = mesh_ltr_phase(data_dir, ck, trained, dev)
+        log(f'phase mesh ltr: {time.perf_counter() - t:.3f} s')
         t = time.perf_counter()
         resumed = resume_phase(data_dir, trained['lgcn']['trainer'])
         log(f'phase resume: {time.perf_counter() - t:.3f} s')
@@ -2440,6 +2810,9 @@ def main():
                                   mesh['launches']['spmm_weighted']}
     by_path['serve_lgcn_mesh'] = {'spmm_weighted':
                                   mesh['serve_launches']['spmm_weighted']}
+    for m, r in (*mesh_conv.items(), *mesh_ltr.items()):
+        by_path[f'train_{m}_mesh'] = {k: n for k, n in r['launches'].items()
+                                      if n}
     # the two runs of the resume phase (epoch 1, then --resume for 2)
     by_path['train_lgcn_resume'] = {k: n for k, n in
                                     resumed['launches'].items() if n}
@@ -2463,6 +2836,15 @@ def main():
                     part: timing[model]['launches_per_step'][part][name]
                     for part in ('forward', 'backward')}}
 
+    def shard_fields(name):
+        # one layer (to_user + to_item) of one W = 4 destination shard of
+        # S1 at keep 0.6 (the mean over the four), and the largest error
+        # of that check against the plain version and the whole graph
+        r = shard[name]
+        return {'max_abs_err_w4_dst_shards': r['max_abs_err'],
+                'ms_w4_dst_shard': r['ms'],
+                'bound_ms_w4_dst_shard': r['bound_ms']}
+
     kernels = [{
         'name': 'spmm_dropout',
         'route': 'cuda',
@@ -2478,7 +2860,8 @@ def main():
         # marcus, gbdt and gbdt_pop --load_base (forward only: base eval,
         # the fit's propagation, eval, predict) and their --load re-serve;
         # train lgcn --trace (1 epoch) and the quality run (60 epochs on
-        # the 50k x 20k sharp set, or fewer if the early stop ends it)
+        # the 50k x 20k sharp set, or fewer if the early stop ends it);
+        # train gcn and graphsage --mesh 1x1 (1 epoch)
         **launch_fields('spmm_dropout', 'lgcn'),
         'max_abs_err': k1['max_abs_err'],
         'max_abs_err_by_width': k1['max_abs_err_by_width'],
@@ -2490,12 +2873,14 @@ def main():
         'bound_ms': k1['bound_ms'],
         'bound_by': k1['bound_by'],
         'library_ms': k1['library_ms'],
+        **shard_fields('spmm_dropout'),
     }, {
         'name': 'spmm_weighted',
         'route': 'cuda',
         'source': 'textgcn_tpu_torch/csrc/spmm_weighted.cu',
         'replaces': 'textgcn_tpu/ops/pallas_spmm.py:61',
-        # train and serve lgcn --mesh 1x1 (forward and backward)
+        # train and serve lgcn --mesh 1x1 (forward and backward); train
+        # ltr_linear and ltr_pop --freeze --mesh 1x1 (forward only)
         **launch_fields('spmm_weighted', 'lgcn_mesh'),
         'max_abs_err': k2['max_abs_err'],
         'max_abs_err_4_shards_vs_k1': k2['max_abs_err_vs_k1'],
@@ -2542,6 +2927,7 @@ def main():
             'library_ms': None,
             'library_note': 'no single PyTorch call computes the masked '
                             'edge-softmax aggregation or its gradient',
+            **shard_fields(name),
         })
     for row, name, source, replaces, path in (
             ('L1', 'spmm_lab', 'spmm_lab.cu', 'tools/kernel_lab.py:129',
@@ -2586,6 +2972,7 @@ def main():
     log(json.dumps({'training_at_s1': steps, 'card': card,
                     'ltr_text': ltr_text,
                     'resume_vs_uninterrupted': resumed,
+                    'mesh_conv': mesh_conv, 'mesh_ltr': mesh_ltr,
                     'mining_ms': mining,
                     'boosted': boosted,
                     'trace': traced, 'quality': quality,

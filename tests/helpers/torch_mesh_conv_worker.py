@@ -1,0 +1,225 @@
+"""One rank of the port's mesh checks of the conv family and the LTR heads
+(``tests/test_torch_mesh_conv.py``, ``tests/test_torch_mesh_ltr.py``).
+
+Started by ``torch.multiprocessing`` (spawn) with ``run(rank, world,
+work_dir)``: joins a gloo group over a ``file://`` store in ``work_dir``,
+reads ``work_dir/inputs.pkl`` (made by the test with numpy; ``kind`` is
+``'conv'`` or ``'ltr'``), runs the port's mesh path on the CPU, on one
+torch thread, and writes what it found to ``work_dir/rank<r>.pkl``.
+Imports torch and the port only.
+"""
+
+import os
+import pickle
+import traceback
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+
+def _gather(t: torch.Tensor, n: int) -> np.ndarray:
+    """The first ``n`` rows of every rank's rows of ``t`` (no autograd)."""
+    t = t.detach().contiguous()
+    out = torch.empty((dist.get_world_size() * t.shape[0], *t.shape[1:]),
+                      dtype=t.dtype)
+    dist.all_gather_into_tensor(out, t)
+    return out[:n].numpy()
+
+
+def _summed(x: torch.Tensor) -> float:
+    x = x.detach().reshape(1).clone()
+    dist.all_reduce(x)
+    return float(x)
+
+
+def _batch(inp):
+    return tuple(torch.from_numpy(a.astype(np.int64)) for a in inp['batch'])
+
+
+def _phantom_check(model, batch, pairs):
+    """The real rows of the representation, the loss and the top-5 with
+    the phantom rows of both tables as they are and set to large random
+    values: ``{name: (before, after)}``."""
+    users = torch.arange(model.n_users)
+
+    def probe():
+        with torch.no_grad():
+            u, i = model.representation(training=True, w_pairs=pairs)
+            loss, _ = model.loss(batch, w_pairs=pairs)
+            vals, idx = model.topk_for_users(model.scoring_reprs(), users, 5)
+        return {'u': _gather(u, model.n_users), 'i': _gather(i, model.n_items),
+                'loss': _summed(loss), 'vals': vals.numpy(),
+                'idx': idx.numpy()}
+
+    before = probe()
+    saved = {}
+    gen = torch.Generator().manual_seed(7 + dist.get_rank())
+    with torch.no_grad():
+        for name, n in (('user_emb', model.n_users),
+                        ('item_emb', model.n_items)):
+            t = getattr(model, name)
+            saved[name] = t.detach().clone()
+            rows = model.mesh.rows(t.shape[0] * model.mesh.size)
+            phantom = torch.arange(rows.start, rows.stop) >= n
+            t[phantom] = 100.0 * torch.randn(int(phantom.sum()), t.shape[1],
+                                             generator=gen)
+    after = probe()
+    with torch.no_grad():
+        for name, t in saved.items():
+            getattr(model, name).copy_(t)
+    return {k: (before[k], after[k]) for k in before}
+
+
+def conv_checks(inp, mesh):
+    """Per conv, at the injected salts and at dropout 0: the whole
+    representation, the loss and the gradients of one ``train_step``; at
+    the salts also the phantom-row probe; for ``gcn`` the whole kept
+    degrees."""
+    from textgcn_tpu_torch import config
+    from textgcn_tpu_torch.data.core import load_interactions
+    from textgcn_tpu_torch.models.conv import ConvModel
+    from textgcn_tpu_torch.parallel.mesh import shard_model
+    from textgcn_tpu_torch.train.trainer import Trainer
+    from textgcn_tpu_torch.weights import params_from_jax
+    data = load_interactions(inp['dummy']).padded_to(inp['pad'])
+    batch = _batch(inp)
+    out = {}
+    for conv, aggr in inp['convs']:
+        for dropout, pairs in ((0.4, inp['pairs']),
+                               (0.0, ((0, 1.0), (0, 1.0)))):
+            cfg = config.Config(model=conv, aggr=aggr, data=inp['dummy'],
+                                emb_size=inp['d'], reg_lambda=inp['reg'],
+                                lr=inp['lr'], dropout=dropout, n_layers=2,
+                                save=False, k=(3,),
+                                save_path='/nonexistent').finalize()
+            model = shard_model(mesh, ConvModel(cfg, data, device='cpu'),
+                                data)
+            model.load_params(params_from_jax(inp['params'][conv],
+                                              data.n_users, data.n_items))
+            res = {}
+            if dropout:
+                res['phantom'] = _phantom_check(model, batch, pairs)
+            with torch.no_grad():
+                u, i = model.representation(training=True, w_pairs=pairs)
+            res['u'] = _gather(u, data.n_users)
+            res['i'] = _gather(i, data.n_items)
+            trainer = Trainer(cfg, model, data)
+            loss, _ = trainer.train_step(batch, pairs)
+            res['loss'] = _summed(loss)
+            res['grads'] = {
+                'user_emb': _gather(model.user_emb.grad, data.n_users),
+                'item_emb': _gather(model.item_emb.grad, data.n_items),
+                'convs': [{k: p.grad.numpy().copy() for k, p in lp.items()}
+                          for lp in model.convs]}
+            out[conv, aggr, dropout] = res
+            if conv == 'gcn' and dropout:
+                out['degrees'] = [d[:, 0].numpy() for d in
+                                  model.graph_op.kept_degrees(pairs)]
+    return out
+
+
+def ltr_checks(inp, mesh):
+    """Per head: the fused catalogue-sharded top-k of every user with the
+    head on (and the plain sharded one with it off); for ``ltr_pop
+    --freeze`` one ``train_step``: the whole tower and tables after it."""
+    from textgcn_tpu_torch import config
+    from textgcn_tpu_torch.data.text import load_ltr_data
+    from textgcn_tpu_torch.models.ltr import LTRLinear, LTRLinearWPop
+    from textgcn_tpu_torch.parallel.mesh import shard_model
+    from textgcn_tpu_torch.train.trainer import Trainer
+    from textgcn_tpu_torch.weights import params_from_jax, params_to_jax
+    out = {}
+    for name, cls in (('ltr_linear', LTRLinear), ('ltr_pop', LTRLinearWPop)):
+        cfg = config.Config(model=name, data=inp['dummy'],
+                            emb_size=inp['d'], reg_lambda=inp['reg'],
+                            lr=inp['lr'], dropout=0.4, n_layers=3,
+                            ltr_layers=tuple(inp['ltr_layers']),
+                            freeze=True, save=False, k=(3,),
+                            save_path='/nonexistent').finalize()
+        data = load_ltr_data(cfg).padded_to(inp['pad'])
+        model = shard_model(mesh, cls(cfg, data, device='cpu'), data)
+        model.load_params(params_from_jax(inp['params'][name], data.n_users,
+                                          data.n_items))
+        users = torch.arange(data.n_users)
+        res = {}
+        with torch.no_grad():
+            reprs = model.scoring_reprs()
+            res['head'] = [t.numpy() for t in
+                           model.topk_for_users(reprs, users, 5)]
+            model.score_with_head = False
+            res['plain'] = [t.numpy() for t in
+                            model.topk_for_users(reprs, users, 5)]
+            model.score_with_head = True
+        if name == 'ltr_pop':
+            trainer = Trainer(cfg, model, data)
+            trainer.train_step(_batch(inp), inp['pairs'])
+            res['after_step'] = params_to_jax(model.param_tree())
+        out[name] = res
+    return out
+
+
+def cli_check(inp, rank, work_dir):
+    """``inp['cli_argv']`` with ``--mesh 2x2`` through the CLI from a
+    directory of this rank's own."""
+    from textgcn_tpu_torch import cli
+    cwd = os.path.join(work_dir, f'cwd{rank}')
+    os.makedirs(cwd)
+    os.chdir(cwd)
+    trainer = cli.main([*inp['cli_argv'], '--mesh', '2x2', '--uid', 'mesh'])
+    return {'loss_history': trainer.loss_history,
+            'metrics': trainer.last_metrics,
+            'metrics_logger': trainer.metrics_logger}
+
+
+def resume_check(inp, world, work_dir):
+    """``inp['resume_argv']`` with ``--mesh 1xW`` through the CLI for
+    ``inp['epochs']`` epochs, for half as many, and the half run resumed
+    to the end; each run's loss sums, metrics history and whole params."""
+    from textgcn_tpu_torch import cli
+    from textgcn_tpu_torch.weights import params_to_jax
+    os.chdir(work_dir)
+    argv = [*inp['resume_argv'], '--mesh', f'1x{world}']
+    epochs = inp['epochs']
+    out = {}
+    for uid, extra in (
+            ('full', ['--epochs', str(epochs)]),
+            ('half', ['--epochs', str(epochs // 2)]),
+            ('resumed', ['--epochs', str(epochs), '--resume',
+                         os.path.join('runs', 'dummy', 'half')])):
+        trainer = cli.main([*argv, *extra, '--uid', uid])
+        out[uid] = {'loss_history': trainer.loss_history,
+                    'metrics_logger': trainer.metrics_logger,
+                    'params': params_to_jax(trainer.model.param_tree())}
+        dist.barrier()      # rank 0's files are written
+    return out
+
+
+def run(rank: int, world: int, work_dir: str):
+    os.environ['TEXTGCN_TPU_PLATFORM'] = 'cpu'
+    os.environ['TEXTGCN_TPU_TEXT_ENCODER'] = 'stub'
+    torch.set_num_threads(1)
+    dist.init_process_group('gloo', init_method=f'file://{work_dir}/store',
+                            rank=rank, world_size=world)
+    try:
+        from textgcn_tpu_torch.parallel.mesh import Mesh
+        with open(os.path.join(work_dir, 'inputs.pkl'), 'rb') as f:
+            inp = pickle.load(f)
+        mesh = Mesh((1, world), rank, torch.device('cpu'))
+        if inp['kind'] == 'conv':
+            out = {'conv': conv_checks(inp, mesh)}
+            if world == 4:
+                out['cli'] = cli_check(inp, rank, work_dir)
+            else:
+                out['resume'] = resume_check(inp, world, work_dir)
+        else:
+            out = {'ltr': ltr_checks(inp, mesh)}
+            if world == 4:
+                out['cli'] = cli_check(inp, rank, work_dir)
+        with open(os.path.join(work_dir, f'rank{rank}.pkl'), 'wb') as f:
+            pickle.dump(out, f)
+    except BaseException:
+        traceback.print_exc()
+        raise
+    finally:
+        dist.destroy_process_group()

@@ -122,12 +122,11 @@ def test_parse_args_matches_jax(argv):
     (['--model', 'ltr_simple'], ValueError),
     (['--model', 'adv_sampling', 'TEXTGCN_TPU_ADV_TOPK=0.9'],
      NotImplementedError),
-    (['--model', 'gcn', '--aggr', 'mean', '--mesh', '2x4'],
-     NotImplementedError),
+    (['--model', 'text_probe', '--mesh', '2x4'], NotImplementedError),
     (['--model', 'lgcn', '--approx_topk', '0.95'], NotImplementedError),
     (['--model', 'lgcn', '--dropout', '1.5'], ValueError),
     (['--model', 'lgcn', '--load', 'a', '--load_base', 'b'], ValueError),
-    (['--model', 'ltr_linear', '--mesh', '2x4'], NotImplementedError),
+    (['--model', 'ltr_reviews', '--mesh', '2x4'], NotImplementedError),
     (['--model', 'gatv2', '--aggr', 'mean', '--approx_topk', '0.5'],
      NotImplementedError),
     (['--model', 'gat'], ValueError),

@@ -388,10 +388,8 @@ def test_a_mesh_of_another_size_than_the_group_is_refused(ranks):
 
 
 @pytest.mark.parametrize('argv, err', [
-    (['--model', 'gcn', '--aggr', 'mean', '--mesh', '2x2'],
-     NotImplementedError),
-    (['--model', 'gat', '--aggr', 'mean', '--mesh', 'auto'],
-     NotImplementedError),
+    (['--model', 'adv_sampling', '--mesh', '2x2'], NotImplementedError),
+    (['--model', 'text', '--mesh', 'auto'], NotImplementedError),
     (['--model', 'lgcn', '--mesh', '2x2', '--approx_topk', '0.9'],
      NotImplementedError),
     (['--model', 'lgcn', '--mesh', '2by2'], ValueError),

@@ -32,6 +32,17 @@ carry across as copies (``W`` shaped ``(d_in, d_out)``):
 
 The kept degrees are constants for autograd: the gradient of a K1 sum is
 K1's own backward.
+
+On a mesh (``parallel.mesh.shard_model``) the tables hold this rank's rows
+and ``graph_op`` is the destination-sharded ``MeshConvOp``: each layer
+gathers its input tables whole, runs ``conv_layer`` at full size over the
+rank's shards (the dense ``x W`` and the logits repeated on every rank)
+and keeps the rank's rows of the output, so ``representation`` returns
+local rows as ``lgcn``'s does.  The conv layers are replicated: every
+rank holds them whole, and the trainer sums their gradients over the
+ranks.  A phantom row of the padded tables has no edge: it becomes ``b +
+x W_root`` (or the like) after a layer, but reaches no real row, no loss
+and no score.
 """
 
 from __future__ import annotations
@@ -45,6 +56,7 @@ from torch import nn
 from ..ops.gat import gat_direction, gatv2_direction
 from ..ops.propagate import salt_pairs
 from ..ops.spmm import edge_mask, kept_degree
+from ..parallel.sharded import all_gather_rows
 from .lightgcn import LightGCN
 
 PORTED_CONVS = ('gcn', 'graphsage', 'gat', 'gatv2')
@@ -88,8 +100,8 @@ def kept_degrees(op, w_pairs):
     """``(deg_u, deg_i)``: users' kept edges under the to_user salt and
     items' under the to_item salt, as ``(n, 1)`` float32 columns."""
     (salt_u, keep_u), (salt_i, keep_i) = w_pairs
-    return (kept_degree(op.l_i2u, salt_u, keep_u)[:, None],
-            kept_degree(op.l_u2i, salt_i, keep_i)[:, None])
+    return (kept_degree(op.csr_pair('to_user')[0], salt_u, keep_u)[:, None],
+            kept_degree(op.csr_pair('to_item')[0], salt_i, keep_i)[:, None])
 
 
 def _sage_max(csr, x_src: torch.Tensor, salt: int,
@@ -109,9 +121,10 @@ def _sage_max(csr, x_src: torch.Tensor, salt: int,
 def conv_layer(lp, conv: str, aggr: str, op, u: torch.Tensor,
                i: torch.Tensor, w_pairs, degrees=None):
     """One conv layer in both directions over the unit-weight ``GraphOp``
-    ``op``: ``(new_u, new_i)``.  ``w_pairs`` are the per-direction
-    ``(salt, keep)``; ``degrees`` are ``kept_degrees(op, w_pairs)``
-    (computed here when ``None``; ``gcn`` and ``graphsage`` mean use them).
+    (or ``MeshConvOp``) ``op``: ``(new_u, new_i)``.  ``w_pairs`` are the
+    per-direction ``(salt, keep)``; ``degrees`` are ``kept_degrees(op,
+    w_pairs)`` (computed here when ``None``; ``gcn`` and ``graphsage`` mean
+    use them).
     """
     pair_u, pair_i = w_pairs
     if conv == 'gat':
@@ -137,8 +150,8 @@ def conv_layer(lp, conv: str, aggr: str, op, u: torch.Tensor,
         return op.to_item(x, pair_i) * pair_i[1]
 
     if conv == 'graphsage' and aggr == 'max':
-        nbr_u = _sage_max(op.l_i2u, i, *pair_u)
-        nbr_i = _sage_max(op.l_u2i, u, *pair_i)
+        nbr_u = _sage_max(op.csr_pair('to_user')[0], i, *pair_u)
+        nbr_i = _sage_max(op.csr_pair('to_item')[0], u, *pair_i)
     elif conv in ('gcn', 'graphsage'):
         deg_u, deg_i = kept_degrees(op, w_pairs) if degrees is None \
             else degrees
@@ -229,16 +242,26 @@ class ConvModel(LightGCN):
     def representation(self, *, training: bool = False,
                        generator: torch.Generator | None = None,
                        w_pairs=None):
-        op = self.graph_op
+        """``LightGCN.representation`` through the conv layers; on a mesh
+        this rank's rows (see the module docstring)."""
+        op, mesh = self.graph_op, self.mesh
         w_pairs = salt_pairs(op, self.dropout if training else 0.0,
                              generator, w_pairs if training else None)
         degrees = None
         if self.conv == 'gcn' or (self.conv == 'graphsage'
                                   and self.aggr == 'mean'):
-            degrees = kept_degrees(op, w_pairs)   # once for all layers
+            # once for all layers
+            degrees = kept_degrees(op, w_pairs) if mesh is None \
+                else op.kept_degrees(w_pairs)
 
         def step(lp, u, i):
-            return conv_layer(lp, self.conv, self.aggr, op, u, i, w_pairs,
-                              degrees)
+            if mesh is None:
+                return conv_layer(lp, self.conv, self.aggr, op, u, i,
+                                  w_pairs, degrees)
+            new_u, new_i = conv_layer(
+                lp, self.conv, self.aggr, op, all_gather_rows(u, mesh),
+                all_gather_rows(i, mesh), w_pairs, degrees)
+            return (new_u[mesh.rows(op.n_users)],
+                    new_i[mesh.rows(op.n_items)])
 
         return self._layer_combine(step)

@@ -20,6 +20,14 @@ differentiates through every tower layer on the pairwise features
 the tower only and the propagation runs no backward.  While
 ``score_with_head`` is off (the ``--load_base`` evaluation of the base)
 the model scores as ``lgcn`` does.
+
+On a mesh the tables are row-sharded as ``lgcn``'s (K2 over source
+shards); the tower and the text and popularity buffers stay whole.  The
+head's top-k is then the fused catalogue-sharded one: ``u_cat`` of the
+batch's users against this rank's rows of ``i_cat`` through
+``parallel.sharded.sharded_topk``, the bias added to the values
+(``textgcn_tpu/train/trainer.py:287-300``); with the head off, the plain
+sharded top-k.
 """
 
 from __future__ import annotations
@@ -31,6 +39,7 @@ import torch
 from torch import nn
 
 from ..ops.retrieval import catalog_scores, mask_train_items
+from ..parallel.sharded import sharded_topk
 from .lightgcn import LightGCN
 
 log = logging.getLogger('textgcn_tpu_torch')
@@ -161,7 +170,9 @@ class LTRLinear(LightGCN):
 
     def fused_catalog_inputs(self, reprs, batch_users):
         """``(u_cat, i_cat, bias)`` with catalogue scores exactly
-        ``u_cat @ i_cat.T + bias`` under the collapsed tower."""
+        ``u_cat @ i_cat.T + bias`` under the collapsed tower.  ``reprs``
+        as ``scoring_reprs`` gives them: on a mesh ``i_cat`` holds this
+        rank's item rows (``local_rows`` of the whole item buffers)."""
         users_repr, items_repr = reprs
         w, b = collapse_tower(self.tower)
         u_emb = users_repr[batch_users]
@@ -169,8 +180,10 @@ class LTRLinear(LightGCN):
         u_desc = self.users_as_avg_desc[batch_users]
         u_cat = torch.cat([w[0] * u_emb, w[1] * u_rev + w[4] * u_desc,
                            w[2] * u_desc + w[3] * u_rev], dim=-1)
-        i_cat = torch.cat([items_repr, self.items_as_avg_reviews,
-                           self.items_as_desc], dim=-1)
+        n = items_repr.shape[0]
+        i_cat = torch.cat([items_repr,
+                           self.local_rows(self.items_as_avg_reviews, n),
+                           self.local_rows(self.items_as_desc, n)], dim=-1)
         u_cat, i_cat = self._popularity_factors(u_cat, i_cat, w,
                                                 batch_users)
         return u_cat, i_cat, b
@@ -191,6 +204,12 @@ class LTRLinear(LightGCN):
     def topk_for_users(self, reprs, batch_users: torch.Tensor, k: int):
         if not self.score_with_head:
             return super().topk_for_users(reprs, batch_users, k)
+        if self.mesh is not None:
+            u_cat, i_cat, b = self.fused_catalog_inputs(reprs, batch_users)
+            vals, idx = sharded_topk(self.mesh, u_cat, i_cat,
+                                     self.pos_padded[batch_users], k,
+                                     self.n_items)
+            return vals + b, idx
         scores = mask_train_items(self.fused_batch_scores(reprs, batch_users),
                                   self.pos_padded[batch_users], self.n_items)
         return torch.topk(scores, k, dim=1)
@@ -229,8 +248,8 @@ class LTRLinearWPop(LTRLinear):
         columns of the product."""
         ones_u = torch.ones_like(u_cat[:, :1])
         ones_i = torch.ones_like(i_cat[:, :1])
+        pop_i = self.local_rows(self.popularity_items, i_cat.shape[0])
         u_cat = torch.cat([u_cat, w[5] * self.popularity_users[batch_users],
                            ones_u], dim=-1)
-        i_cat = torch.cat([i_cat, ones_i, w[6] * self.popularity_items],
-                          dim=-1)
+        i_cat = torch.cat([i_cat, ones_i, w[6] * pop_i], dim=-1)
         return u_cat, i_cat

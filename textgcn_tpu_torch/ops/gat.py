@@ -51,6 +51,15 @@ and with ``m`` held constant, ``lam_ij = leaky'(u_ij) * a`` (a d-vector),
 * ``gatv2_direction`` folds in the self loop (logit ``a .
   leaky(hs_dst + hd_dst)``, message ``hs_dst``) as
   ``pallas_gat.py:974-987`` does.
+
+A direction reads its CSR and the transpose from ``op.csr_pair`` (on a
+destination shard the transpose is the shard's own, not the other
+direction's CSR).  Under ``TEXTGCN_TPU_PALLAS_XDTYPE=bf16`` (the op's
+``x_dtype``) the tables a kernel gathers are rounded to bfloat16 before
+the f32 kernel, the ones the JAX package casts to ``x_dtype``: K3's
+``h_src``, K5's ``hs_src``, K4's ``g_num``, K6's ``hd_dst`` and
+``g_num`` (``pallas_gat.py:559, 596, 909, 953-954``).  The default
+rounds nothing.
 """
 
 from __future__ import annotations
@@ -61,7 +70,7 @@ import functools
 import torch
 from torch.autograd.function import once_differentiable
 
-from .spmm import CSR, _check_args, edge_mask
+from .spmm import CSR, _check_args, edge_mask, round_to
 
 NEG = -2.0 ** 100    # masked-logit sentinel of the JAX package
 SLOPE = 0.2          # torch_geometric's LeakyReLU slope
@@ -268,11 +277,12 @@ class _GatAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, h_src, s_src, d_dst, fwd: CSR, bwd: CSR, salt: int,
-                keep: float):
+                keep: float, x_dtype: torch.dtype = torch.float32):
         fn = _by_device(h_src, gat_att_plain, gat_fwd_cuda)
-        num, den, m = fn(fwd, h_src, s_src, d_dst, salt, keep)
+        num, den, m = fn(fwd, round_to(h_src, x_dtype), s_src, d_dst, salt,
+                         keep)
         ctx.save_for_backward(h_src, s_src, d_dst, m)
-        ctx.bwd, ctx.salt, ctx.keep = bwd, salt, keep
+        ctx.bwd, ctx.salt, ctx.keep, ctx.x_dtype = bwd, salt, keep, x_dtype
         ctx.mark_non_differentiable(m)
         return num, den, m
 
@@ -282,26 +292,18 @@ class _GatAttention(torch.autograd.Function):
         h_src, s_src, d_dst, m = ctx.saved_tensors
         fn = _by_device(h_src, gat_bwd_plain, gat_bwd_cuda)
         dh, ds, dd = fn(ctx.bwd, h_src, s_src, d_dst, m,
-                        g_num.contiguous(), g_den.contiguous(), ctx.salt,
-                        ctx.keep)
-        return dh, ds, dd, None, None, None, None
-
-
-def _csr_pair(op, direction: str):
-    """``(forward CSR, its transpose)`` of ``direction`` over ``op``."""
-    if direction == 'to_user':
-        return op.l_i2u, op.l_u2i
-    if direction == 'to_item':
-        return op.l_u2i, op.l_i2u
-    raise ValueError(f'unknown direction {direction!r}')
+                        round_to(g_num.contiguous(), ctx.x_dtype),
+                        g_den.contiguous(), ctx.salt, ctx.keep)
+        return dh, ds, dd, None, None, None, None, None
 
 
 def gat_att(op, direction: str, h_src, s_src, d_dst, salt: int,
             keep: float):
     """``(num, den, m_edge)`` of ``direction`` ('to_user' | 'to_item') over
-    the ``GraphOp`` ``op``'s CSRs, differentiable in h, s and d."""
-    fwd, bwd = _csr_pair(op, direction)
-    return _GatAttention.apply(h_src, s_src, d_dst, fwd, bwd, salt, keep)
+    ``op.csr_pair(direction)``, differentiable in h, s and d."""
+    fwd, bwd = op.csr_pair(direction)
+    return _GatAttention.apply(h_src, s_src, d_dst, fwd, bwd, salt, keep,
+                               op.x_dtype)
 
 
 def _fold_self_loop(num, den, m_edge, z_self, msg_self) -> torch.Tensor:
@@ -474,11 +476,12 @@ class _Gatv2Attention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, hs_src, hd_dst, a, fwd: CSR, bwd: CSR, salt: int,
-                keep: float):
+                keep: float, x_dtype: torch.dtype = torch.float32):
         fn = _by_device(hs_src, gatv2_att_plain, gatv2_fwd_cuda)
-        num, den, m = fn(fwd, hs_src, hd_dst, a, salt, keep)
+        num, den, m = fn(fwd, round_to(hs_src, x_dtype), hd_dst, a, salt,
+                         keep)
         ctx.save_for_backward(hs_src, hd_dst, a, m)
-        ctx.bwd, ctx.salt, ctx.keep = bwd, salt, keep
+        ctx.bwd, ctx.salt, ctx.keep, ctx.x_dtype = bwd, salt, keep, x_dtype
         ctx.mark_non_differentiable(m)
         return num, den, m
 
@@ -487,18 +490,20 @@ class _Gatv2Attention(torch.autograd.Function):
     def backward(ctx, g_num, g_den, _g_m):
         hs_src, hd_dst, a, m = ctx.saved_tensors
         fn = _by_device(hs_src, gatv2_bwd_plain, gatv2_bwd_cuda)
-        dhs, dhd, da = fn(ctx.bwd, hs_src, hd_dst, a, m,
-                          g_num.contiguous(), g_den.contiguous(), ctx.salt,
-                          ctx.keep)
-        return dhs, dhd, da, None, None, None, None
+        x_dtype = ctx.x_dtype
+        dhs, dhd, da = fn(ctx.bwd, hs_src, round_to(hd_dst, x_dtype), a, m,
+                          round_to(g_num.contiguous(), x_dtype),
+                          g_den.contiguous(), ctx.salt, ctx.keep)
+        return dhs, dhd, da, None, None, None, None, None
 
 
 def gatv2_att(op, direction: str, hs_src, hd_dst, a, salt: int,
               keep: float):
     """``(num, den, m_edge)`` of ``direction`` ('to_user' | 'to_item') over
-    the ``GraphOp`` ``op``'s CSRs, differentiable in hs, hd and a."""
-    fwd, bwd = _csr_pair(op, direction)
-    return _Gatv2Attention.apply(hs_src, hd_dst, a, fwd, bwd, salt, keep)
+    ``op.csr_pair(direction)``, differentiable in hs, hd and a."""
+    fwd, bwd = op.csr_pair(direction)
+    return _Gatv2Attention.apply(hs_src, hd_dst, a, fwd, bwd, salt, keep,
+                                 op.x_dtype)
 
 
 def gatv2_direction(op, direction: str, hs_src, hs_dst, hd_dst, a,

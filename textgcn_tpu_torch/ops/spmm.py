@@ -31,13 +31,20 @@ direction is one destination-sorted CSR over the real rows.
 * ``GraphOp.to_user``/``to_item`` are differentiable: the gradient of one
   direction is the other direction's CSR run on the cotangent with the
   forward's ``(salt, keep)`` (``_pgs_bwd`` in ``pallas_spmm.py``), so the
-  backward is K1 again and drops the same edges.
+  backward is K1 again and drops the same edges.  ``GraphOp.csr_pair``
+  names a direction's CSR and its transpose for the attention kernels.
+* ``TEXTGCN_TPU_PALLAS_XDTYPE=bf16`` (``gathered_dtype``) rounds the
+  table K1 gathers, forward ``x`` and backward cotangent, to bfloat16
+  before the f32 kernel, as the JAX package's TPU default does
+  (``pallas_spmm.py:546-559``, ``x.astype(self.x_dtype)``).  The default
+  is f32: nothing is rounded.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import os
 from dataclasses import dataclass
 
 import numpy as np
@@ -51,6 +58,7 @@ _F2 = 0x846CA68B
 _U32 = 0xFFFFFFFF
 KERNEL_SOURCE = 'spmm_dropout.cu'
 WEIGHTED_SOURCE = 'spmm_weighted.cu'
+XDTYPE_ENV = 'TEXTGCN_TPU_PALLAS_XDTYPE'
 
 
 @dataclass(frozen=True)
@@ -127,6 +135,24 @@ def edge_dropout_scale(user_ids: torch.Tensor, item_ids: torch.Tensor,
     kept = (unif < float(keep32)) | bool(keep32 >= 1.0)
     return torch.where(kept, float(np.float32(1.0) / keep32), 0.0).to(
         torch.float32)
+
+
+def gathered_dtype() -> torch.dtype:
+    """The type the kernels' gathered tables are rounded to: float32 (no
+    rounding) unless ``TEXTGCN_TPU_PALLAS_XDTYPE=bf16`` asks for
+    bfloat16; another value raises."""
+    env = os.environ.get(XDTYPE_ENV, '').lower()
+    if env in ('', 'f32', 'float32'):
+        return torch.float32
+    if env in ('bf16', 'bfloat16'):
+        return torch.bfloat16
+    raise ValueError(f'{XDTYPE_ENV}={env!r}: use f32 or bf16')
+
+
+def round_to(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``x`` rounded to ``dtype`` and back to float32 (``x`` itself for
+    float32)."""
+    return x if dtype == torch.float32 else x.to(dtype).to(torch.float32)
 
 
 def _edges(csr: CSR):
@@ -345,18 +371,20 @@ class _SpMM(torch.autograd.Function):
     """One direction with its gradient: the backward runs ``spmm`` over
     the transpose CSR with the forward's salt and keep.  The hash is a
     function of the (user, item) pair, so both passes drop the same
-    edges."""
+    edges.  Each pass rounds the table it gathers to ``x_dtype``."""
 
     @staticmethod
-    def forward(ctx, x, fwd: CSR, bwd: CSR, salt: int, keep: float):
-        ctx.bwd, ctx.salt, ctx.keep = bwd, salt, keep
-        return spmm(fwd, x, salt, keep)
+    def forward(ctx, x, fwd: CSR, bwd: CSR, salt: int, keep: float,
+                x_dtype: torch.dtype = torch.float32):
+        ctx.bwd, ctx.salt, ctx.keep, ctx.x_dtype = bwd, salt, keep, x_dtype
+        return spmm(fwd, round_to(x, x_dtype), salt, keep)
 
     @staticmethod
     @once_differentiable
     def backward(ctx, g):
-        return (spmm(ctx.bwd, g.contiguous(), ctx.salt, ctx.keep),
-                None, None, None, None)
+        g = round_to(g.contiguous(), ctx.x_dtype)
+        return (spmm(ctx.bwd, g, ctx.salt, ctx.keep),
+                None, None, None, None, None)
 
 
 class GraphOp:
@@ -367,12 +395,14 @@ class GraphOp:
     ``to_user(item_emb, pair)`` and ``to_item(user_emb, pair)``.  Holds one
     destination-sorted CSR per direction, built on the host; each is the
     other's transpose, so a direction's backward runs on the other CSR.
+    ``x_dtype`` is ``gathered_dtype()`` at construction.
     """
 
     def __init__(self, edge_user, edge_item, edge_weight, n_users: int,
                  n_items: int, device):
         self.n_users = int(n_users)
         self.n_items = int(n_items)
+        self.x_dtype = gathered_dtype()
         self.l_i2u = build_csr(edge_user, edge_item, edge_weight,
                                self.n_users, self.n_items, True, device)
         self.l_u2i = build_csr(edge_item, edge_user, edge_weight,
@@ -382,10 +412,21 @@ class GraphOp:
                 dropout: float = 0.0):
         return hash_dropout_salts(generator, dropout)
 
+    def csr_pair(self, direction: str) -> tuple[CSR, CSR]:
+        """``(forward CSR, its transpose)`` of ``direction`` ('to_user' |
+        'to_item')."""
+        if direction == 'to_user':
+            return self.l_i2u, self.l_u2i
+        if direction == 'to_item':
+            return self.l_u2i, self.l_i2u
+        raise ValueError(f'unknown direction {direction!r}')
+
     def to_user(self, item_emb: torch.Tensor, w_pair) -> torch.Tensor:
         """users = R @ items."""
-        return _SpMM.apply(item_emb, self.l_i2u, self.l_u2i, *w_pair)
+        return _SpMM.apply(item_emb, self.l_i2u, self.l_u2i, *w_pair,
+                           self.x_dtype)
 
     def to_item(self, user_emb: torch.Tensor, w_pair) -> torch.Tensor:
         """items = R^T @ users."""
-        return _SpMM.apply(user_emb, self.l_u2i, self.l_i2u, *w_pair)
+        return _SpMM.apply(user_emb, self.l_u2i, self.l_i2u, *w_pair,
+                           self.x_dtype)

@@ -1,13 +1,17 @@
-"""The mesh path: ``lgcn`` over ``torch.distributed`` ranks, one per GPU.
+"""The mesh path: ``lgcn``, the conv family and the LTR heads over
+``torch.distributed`` ranks, one per GPU.
 
-Counterpart of ``textgcn_tpu/parallel/`` for ``lgcn``:
+Counterpart of ``textgcn_tpu/parallel/``:
 
 * ``multihost``: the process group (torchrun's environment, or one rank
   in-process), the rank's device, ``is_primary``;
 * ``mesh``: the ``Mesh`` of a run (shape, rank, device, the rows each rank
   owns), ``collective_dtype`` and ``shard_model``;
 * ``sharded_spmm``: ``MeshGraphOp``, the source-row-sharded propagation on
-  kernel K2 with a reduce-scatter (``pallas_sharded.MeshPallasGraphOp``);
+  kernel K2 with a reduce-scatter (``pallas_sharded.MeshPallasGraphOp``),
+  for ``lgcn`` and the LTR heads;
+* ``sharded_conv``: ``MeshConvOp``, the destination-row shards of the
+  conv family (K1, K3-K6 over the edges into a rank's rows);
 * ``sharded``: the catalogue-sharded exact top-k and the differentiable
   row gather of the loss.
 """

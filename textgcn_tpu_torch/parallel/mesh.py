@@ -1,12 +1,23 @@
-"""The mesh of a run and the row-sharded ``lgcn`` model.
+"""The mesh of a run and the row-sharded models.
 
-Counterpart of ``textgcn_tpu/parallel/mesh.py`` for ``lgcn``.  The
-``(data, model)`` shape of ``--mesh`` is kept for its product: the ranks
-of the group, one per GPU.  Rank ``r`` owns rows ``[r*R, (r+1)*R)`` of
-each embedding table, ``R = n_padded / W``, and the edges whose source row
-falls there (``sharded_spmm.py``).  The JAX package orders its devices
+Counterpart of ``textgcn_tpu/parallel/mesh.py``.  The ``(data, model)``
+shape of ``--mesh`` is kept for its product: the ranks of the group, one
+per GPU.  Rank ``r`` owns rows ``[r*R, (r+1)*R)`` of each embedding
+table, ``R = n_padded / W``.  The JAX package orders its devices
 model-major for the same split (``mesh.py:196-200``); the flat rank order
 gives the same rows to the same shard index, and the same outputs.
+
+``shard_model`` takes ``lgcn``, the conv family (``gcn``, ``graphsage``,
+``gat``, ``gatv2``) and the LTR heads (``ltr_linear``, ``ltr_pop``):
+
+* ``lgcn`` and the LTR heads propagate over the edges whose SOURCE row
+  the rank owns, on K2 with a reduce-scatter (``sharded_spmm.py``); an
+  LTR head's tower and its text and popularity buffers stay whole;
+* the conv family propagates over the edges whose DESTINATION row the
+  rank owns (``sharded_conv.py``), with its conv layers whole.
+
+The parameters held whole (conv layers, tower) are replicated: the
+trainer sums their gradients over the ranks before each Adam step.
 """
 
 from __future__ import annotations
@@ -18,6 +29,7 @@ import torch
 import torch.distributed as dist
 from torch import nn
 
+from ..config import MESH_MODELS
 from . import multihost
 
 RS_DTYPE_ENV = 'TEXTGCN_TPU_RS_DTYPE'
@@ -102,18 +114,25 @@ def make_mesh(shape: tuple[int, int], device_type: str):
 
 
 def shard_model(mesh: Mesh, model, data):
-    """Row-shard an ``lgcn`` model in place: its tables keep this rank's
-    rows of the zero-padded tables and its graph op becomes the
-    source-sharded ``MeshGraphOp``.
+    """Row-shard a model in place: its tables keep this rank's rows of the
+    zero-padded tables (and their ``requires_grad``: a frozen head's stay
+    frozen) and its graph op becomes ``MeshConvOp`` (the conv family) or
+    ``MeshGraphOp`` (``lgcn``, the LTR heads).  Everything else stays
+    whole.
 
     ``data`` is ``padded_to(mesh.size)``: phantom rows have no edges, are
-    never sampled and never scored, so their zeros stay zero.
+    never sampled and never scored.  ``lgcn``'s stay zero; a conv layer
+    maps them to its bias and root terms, which reach no real row.
     """
+    from ..models.conv import ConvModel
     from ..models.lightgcn import LightGCN
+    from ..models.ltr import LTRLinear, LTRLinearWPop
+    from .sharded_conv import MeshConvOp
     from .sharded_spmm import MeshGraphOp
-    if type(model) is not LightGCN:
-        raise NotImplementedError(f'{type(model).__name__} on a mesh is not '
-                                  'ported yet (ported: lgcn)')
+    if type(model) not in (LightGCN, ConvModel, LTRLinear, LTRLinearWPop):
+        raise NotImplementedError(
+            f'{type(model).__name__} on a mesh is not ported yet (ported: '
+            f'{", ".join(MESH_MODELS)})')
     nu, ni = data.n_users_padded, data.n_items_padded
     with torch.no_grad():
         for name, n in (('user_emb', nu), ('item_emb', ni)):
@@ -121,9 +140,15 @@ def shard_model(mesh: Mesh, model, data):
             padded = torch.zeros((n, full.shape[1]), dtype=full.dtype,
                                  device=full.device)
             padded[:full.shape[0]] = full
-            setattr(model, name, nn.Parameter(padded[mesh.rows(n)].clone()))
+            setattr(model, name, nn.Parameter(
+                padded[mesh.rows(n)].clone(),
+                requires_grad=full.requires_grad))
     g = data.graph
-    model.graph_op = MeshGraphOp(g.edge_user, g.edge_item,
-                                 model.graph_edge_weight(g), nu, ni, mesh)
+    if isinstance(model, ConvModel):
+        model.graph_op = MeshConvOp(g.edge_user, g.edge_item, nu, ni, mesh)
+    else:
+        model.graph_op = MeshGraphOp(g.edge_user, g.edge_item,
+                                     model.graph_edge_weight(g), nu, ni,
+                                     mesh)
     model.mesh = mesh
     return model

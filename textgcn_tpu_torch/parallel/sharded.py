@@ -1,15 +1,17 @@
 """Collectives of the mesh path outside the propagation.
 
-Counterpart of ``textgcn_tpu/parallel/sharded.py`` for ``lgcn``:
+Counterpart of ``textgcn_tpu/parallel/sharded.py``:
 
 * ``all_gather_rows``: the whole table from every rank's rows, as a
   differentiable op whose backward reduce-scatters the gradient, so each
   rank gets the sum over all ranks' losses for its own rows.  The loss
-  gathers the propagated and the layer-0 tables through it; checkpoints
-  and exports gather the tables with it;
+  gathers the propagated and the layer-0 tables through it, each conv
+  layer its input tables; checkpoints and exports gather the tables with
+  it;
 * ``sharded_topk`` (``sharded.py:72-151``): each rank scores its item
   shard, takes a local top-k with global ids, and the candidates of all
-  ranks are gathered and merged exactly;
+  ranks are gathered and merged exactly (an LTR head passes its fused
+  factors ``u_cat`` and its rows of ``i_cat``);
 * ``all_reduce_sum``: the loss sums of an epoch.
 """
 

@@ -104,6 +104,14 @@ class MeshGraphOp:
                 dropout: float = 0.0):
         return hash_dropout_salts(generator, dropout)
 
+    def csr_pair(self, direction: str):
+        """Refused: a source shard's partial spans every destination, so a
+        destination's softmax would span the ranks.  The attention layers
+        run on ``sharded_conv.MeshConvOp``'s destination shards."""
+        raise NotImplementedError(
+            f'{direction}: the source-row shards of MeshGraphOp cannot '
+            'carry an attention layer; the conv family runs on MeshConvOp')
+
     def apply(self, shard: Shard, x: torch.Tensor, salt: int,
               keep: float) -> torch.Tensor:
         """Steps 1-3 of the module docstring: this rank's rows of one

@@ -48,12 +48,17 @@ the JAX package's eval function does.
 
 On a mesh (``model.mesh``) every rank runs the same loop: the same epochs
 and salts from the same seeds, its part of each batch (``model.loss``),
-Adam on its rows (elementwise, so it is the global Adam), the loss sums
+the gradients of the replicated parameters (conv layers, an LTR tower:
+every one but the row-sharded tables) summed over the ranks in one
+flattened all-reduce, Adam on its rows and on the whole replicated
+parameters (elementwise, so it is the global Adam), the loss sums
 all-reduced once an epoch, the catalogue-sharded top-k.  Every rank
 computes the metrics; logs, ``predictions.tsv``, exports and checkpoints
 come from rank 0 only, after the collectives that gather the tables
 (``trainer.py:244, 407, 499, 527, 577`` in the JAX package); a resume
-restores every rank's own rows of the tables and of their Adam state.
+restores every rank's own rows of the tables and of their Adam state, and
+the replicated parameters' Adam state as rank 0 held it (every rank's is
+the same).
 
 ``--steps_per_call`` is accepted and ignored.
 """
@@ -119,6 +124,10 @@ class Trainer:
         self._last_eval_epoch: int | None = None
         self._start_epoch = 1           # advanced by resume()
         self._stop_requested = False    # set by the SIGTERM handler
+        # on a mesh, the stepped parameters every rank holds whole
+        self._replicated = [p for n, p in self._adam_entries()
+                            if model.mesh is not None
+                            and self._whole_rows(n) is None]
 
     # ------------------------------------------------------------------
     # training
@@ -129,8 +138,21 @@ class Trainer:
         self.optimizer.zero_grad(set_to_none=True)
         loss, aux = self.model.loss(batch, w_pairs=w_pairs)
         loss.backward()
+        if self._replicated:
+            self._sum_replicated_grads()
         self.optimizer.step()
         return loss.detach(), {c: v.detach() for c, v in aux.items()}
+
+    def _sum_replicated_grads(self):
+        """On a mesh, the replicated parameters' gradients summed over the
+        ranks, in one all-reduce of their concatenation: each rank's loss
+        is its share of the batch, so the sum is the single-card gradient.
+        """
+        params = self._replicated
+        flat = torch.cat([p.grad.reshape(-1) for p in params])
+        all_reduce_sum(flat)
+        for p, g in zip(params, flat.split([p.numel() for p in params])):
+            p.grad = g.view_as(p)
 
     def step_salts(self):
         """One step's dropout salts from the salt generator: a model's
@@ -522,11 +544,15 @@ class Trainer:
                 'users_repr': model.gathered(users_repr, model.n_users),
                 'items_repr': model.gathered(items_repr, model.n_items)}
             if getattr(model, 'supports_fused_sharded_topk', False):
+                # the whole users and, on a mesh, this rank's items, as
+                # scoring_reprs gives them
                 users = torch.arange(model.n_users, device=model.device)
                 u_cat, i_cat, bias = model.fused_catalog_inputs(
-                    (users_repr, items_repr), users)
-                arrays.update(ltr_user_factors=u_cat,
-                              ltr_item_factors=i_cat, ltr_bias=bias)
+                    (arrays['users_repr'], items_repr), users)
+                arrays.update(
+                    ltr_user_factors=u_cat,
+                    ltr_item_factors=model.gathered(i_cat, model.n_items),
+                    ltr_bias=bias)
         paths = {}
         for name, arr in arrays.items():
             path = os.path.join(self.cfg.save_path, f'{name}.npy')
