@@ -1036,6 +1036,29 @@ def attention_bound_ms(name: str, csr, d: int, n_kept: int):
     return timing.bound_ms(nbytes, per_kept * n_kept + 8 * csr.n_edges)
 
 
+def shard_bound_ms(name: str, fwd, bwd, d: int, n_kept: int,
+                   owned: int) -> float:
+    """``bound_ms``/``attention_bound_ms`` of one launch on a destination
+    shard, counting only what the rank keeps: its ``owned`` destination
+    rows (a ``rowptr`` of ``owned + 1`` entries; the destination-side
+    inputs and outputs on those rows), the shard's own edges and the whole
+    source-side tables.  The backward kernels walk the shard's transpose,
+    whose rows are every source, so their ``rowptr`` stays whole."""
+    from textgcn_tpu_torch.tools import timing
+    if name == 'spmm_dropout':
+        nbytes = 4 * (fwd.n_src * d + owned + 1 + fwd.col.numel()
+                      + fwd.w.numel() + owned * d)
+        return timing.bound_ms(nbytes, 2 * n_kept * d)[0]
+    if name.endswith('_fwd'):
+        csr, rowptr = fwd, owned + 1
+        floats, per_kept = ATTENTION_WORK[name](owned, fwd.n_src, d)
+    else:
+        csr, rowptr = bwd, bwd.rowptr.numel()
+        floats, per_kept = ATTENTION_WORK[name](bwd.n_dst, owned, d)
+    nbytes = 4 * (rowptr + csr.col.numel() + floats)
+    return timing.bound_ms(nbytes, per_kept * n_kept + 8 * csr.n_edges)[0]
+
+
 def agree(got, want, tol: float, whole: bool) -> bool:
     """Within ``tol`` entry by entry (atol = rtol), or, for a ``whole``
     sum such as GATv2's ``da``, within ``tol`` times its largest entry."""
@@ -2189,7 +2212,8 @@ def mesh_phase(data_dir: str, single, card: str, trace_dir: str,
               and all(len(p[1]) == max(KS) for p in preds),
               'mesh predictions.tsv: one row of top-40 per user')
         log(f'mesh serve 1x1: launches {serve_launches}, metrics as trained')
-        timing = timing_phase(mesh_served, card, trace_dir)
+        timing = timing_phase(mesh_served, card, trace_dir,
+                              name='lgcn_mesh')
     finally:
         if created:
             dist.destroy_process_group()
@@ -2198,15 +2222,20 @@ def mesh_phase(data_dir: str, single, card: str, trace_dir: str,
 
 
 # the conv family on --mesh 1x1: its epoch's loss sum and metrics against
-# the single card's within these (relative, absolute) limits.  K1 adds in
-# a fixed order.  K4 and K6 add with float atomics, and Adam carries the
-# differences through the epoch: a second single-card epoch with the same
-# seed, which mesh_conv_phase runs for gat and gatv2, differs from the
-# first by as much (gat on an H100: 8.0e-4 in the loss sum, where the
-# --mesh 1x1 epoch differed by 1.2e-3).  A step from the same params,
-# batch and salts is held to STEP_TOL besides.
+# the single card's first epoch within these (relative, absolute) limits.
+# K1 adds in a fixed order.  K4 and K6 add with float atomics, and Adam
+# carries the differences through the epoch (gat on an H100: up to 5.3e-3
+# in the loss sum between two single-card epochs of one seed).  So for gat
+# and gatv2 mesh_conv_phase first runs SPREAD_EPOCHS more single-card
+# epochs and holds the mesh epoch, one more draw of that noise, to
+# MESH_SPREAD_FACTOR times the largest difference between any two of them
+# (six pairs), or to the floor below if that is larger.  A step from the
+# same params, batch and salts is held to STEP_TOL besides: that check is
+# deterministic, and it is the one that would see a drifting mesh path.
 MESH_CONV_TOL = {'gcn': (TOL, 1e-6), 'graphsage': (TOL, 1e-6),
-                 'gat': (1e-2, 5e-3), 'gatv2': (1e-2, 5e-3)}
+                 'gat': (1e-3, 1e-3), 'gatv2': (1e-3, 1e-3)}
+SPREAD_EPOCHS = 3
+MESH_SPREAD_FACTOR = 4.0
 SHARDS = 4
 
 
@@ -2221,7 +2250,8 @@ def shard_kernel_phase(data, dev) -> dict:
     ``dd`` and K6's ``dhd`` live on the shard's own rows) against the
     whole-graph kernel's.  Returns per kernel the largest error and one
     layer's (to_user + to_item) time and bound per shard, the mean over
-    the four."""
+    the four (the bound counts the rows the rank keeps,
+    ``shard_bound_ms``)."""
     from textgcn_tpu_torch.ops import gat
     from textgcn_tpu_torch.ops.spmm import (GraphOp, edge_mask,
                                             spmm_dropout_cuda, spmm_plain)
@@ -2317,10 +2347,9 @@ def shard_kernel_phase(data, dev) -> dict:
                   f'K1 {what} wrote rows it does not own')
             t = time_ms(calls, [*names, *names[::-1]], strict=names)
             n_kept = int(edge_mask(sf, *pair)[2].sum())
-            bounds = {'spmm_dropout': bound_ms(sf, D, n_kept)[0]}
-            for n in names[1:]:
-                csr = sb if n.endswith('_bwd') else sf
-                bounds[n] = attention_bound_ms(n, csr, D, n_kept)[0]
+            bounds = {n: shard_bound_ms(n, sf, sb, D, n_kept,
+                                        own.stop - own.start)
+                      for n in names}
             log(f'shard kernels {what} (E={sf.n_edges}, kept {n_kept}, '
                 f'{sf.n_dst}x{sf.n_src}, d={D}): '
                 + ', '.join(f'{n} {t[n]:.4f} ms (bound {bounds[n]:.4f})'
@@ -2338,14 +2367,24 @@ def shard_kernel_phase(data, dev) -> dict:
     return res
 
 
+def epoch_diffs(a, b) -> tuple[float, float]:
+    """Two trainers' first epochs: the relative difference of their loss
+    sums and the largest difference of their metrics."""
+    la, lb = a.loss_history[0]['loss'], b.loss_history[0]['loss']
+    return (abs(la - lb) / abs(lb),
+            max(float(np.abs(v[0] - b.metrics_logger[n][0]).max())
+                for n, v in a.metrics_logger.items()))
+
+
 def mesh_conv_phase(data_dir: str, trained: dict, card: str,
                     trace_dir: str, dev) -> dict:
     """``gcn``, ``graphsage --aggr mean``, ``gat`` and ``gatv2`` with
     ``--mesh 1x1`` through the CLI (in a one-rank group started here) for
     1 epoch and 1 evaluation: exact K1/K3-K6 launches, the loss sum and
     the metrics against the single-card run's first epoch
-    (``MESH_CONV_TOL``; for ``gat`` and ``gatv2`` a second single-card
-    epoch, without ``--mesh``, logs the card's own spread), ``best.pkl``
+    (``MESH_CONV_TOL``; for ``gat`` and ``gatv2`` at least
+    ``MESH_SPREAD_FACTOR`` times the spread of ``SPREAD_EPOCHS`` more
+    single-card epochs, run first), ``best.pkl``
     re-served through the non-mesh CLI, one step against the single
     card's from the same params, batch and salts (``STEP_TOL``), and each
     trainer timed."""
@@ -2363,6 +2402,22 @@ def mesh_conv_phase(data_dir: str, trained: dict, card: str,
             argv = [*flags, '--epochs', '1', '--evaluate_every', '1',
                     '--dropout', '0.4', *common, '--uid',
                     f'train-{model}-mesh', '--quiet', '--mesh', '1x1']
+            single = trained[model]['trainer']
+            rel_tol, metric_tol = MESH_CONV_TOL[model]
+            if model in ('gat', 'gatv2'):
+                # the card's own spread: more single-card epochs
+                runs = [single] + [cli_run(data_dir, [
+                    *argv[:argv.index('--uid')], '--uid', f'again-{model}-{j}',
+                    '--quiet'], 'cuda')[0] for j in range(SPREAD_EPOCHS)]
+                spread = [max(epoch_diffs(a, b)[j]
+                              for k, a in enumerate(runs) for b in runs[:k])
+                          for j in (0, 1)]
+                rel_tol = max(rel_tol, MESH_SPREAD_FACTOR * spread[0])
+                metric_tol = max(metric_tol, MESH_SPREAD_FACTOR * spread[1])
+                log(f'{model}: {len(runs)} single-card epochs differ by up '
+                    f'to {spread[0]:.3e} (loss sum, relative) and '
+                    f'{spread[1]:.3e} (metrics); the mesh epoch\'s limits: '
+                    f'{rel_tol:.3e} and {metric_tol:.3e}')
             reset_counts()
             t0 = time.perf_counter()
             trainer, run_dir = cli_run(data_dir, argv, 'cuda')
@@ -2376,14 +2431,9 @@ def mesh_conv_phase(data_dir: str, trained: dict, card: str,
                   f'mesh {model}: graph op {type(trainer.model.graph_op)}')
             check(launches == want, f'mesh {model}: launches {launches}, '
                   f'expected {want}')
-            single = trained[model]['trainer']
-            rel_tol, metric_tol = MESH_CONV_TOL[model]
             got = trainer.loss_history[0]['loss']
             ref = single.loss_history[0]['loss']
-            rel = abs(got - ref) / abs(ref)
-            metric_err = max(float(np.abs(v[0] - single.metrics_logger[n][0])
-                                   .max())
-                             for n, v in trainer.metrics_logger.items())
+            rel, metric_err = epoch_diffs(trainer, single)
             log(f'mesh {model}: epoch 1 loss sum {got} vs single card {ref} '
                 f'(relative difference {rel:.3e}, limit {rel_tol}); '
                 f'metrics differ by {metric_err:.3e} (limit {metric_tol})')
@@ -2392,19 +2442,6 @@ def mesh_conv_phase(data_dir: str, trained: dict, card: str,
             check(metric_err <= metric_tol,
                   f'mesh {model}: metrics differ from the single card run '
                   f'by {metric_err}')
-            if model in ('gat', 'gatv2'):
-                # the card's own spread: a second single-card epoch
-                again, _ = cli_run(data_dir, [
-                    *argv[:argv.index('--uid')], '--uid', f'again-{model}',
-                    '--quiet'], 'cuda')
-                spread = (abs(again.loss_history[0]['loss'] - ref)
-                          / abs(ref),
-                          max(float(np.abs(v[0] - single.metrics_logger[n][0])
-                                    .max())
-                              for n, v in again.metrics_logger.items()))
-                log(f'{model}: a second single-card epoch differs from the '
-                    f'first run\'s by {spread[0]:.3e} (loss sum, relative) '
-                    f'and {spread[1]:.3e} (metrics)')
             rows = trainer.metrics_logger
             served, _ = serve(data_dir, f'best-{model}-mesh',
                               ['--load', run_dir, *common], 'cuda',
@@ -2427,7 +2464,8 @@ def mesh_conv_phase(data_dir: str, trained: dict, card: str,
             out[model] = {'launches': launches, 'seconds': seconds,
                           'loss_rel_diff': rel, 'metric_diff': metric_err,
                           'step_err': step_err,
-                          **({'single_again_diffs': spread}
+                          'limits': (rel_tol, metric_tol),
+                          **({'single_card_spread': spread}
                              if model in ('gat', 'gatv2') else {}),
                           'timing': timing_phase(trainer, card, trace_dir,
                                                  name=f'{model}_mesh')}
@@ -2528,8 +2566,8 @@ def device_ms_per_step(trainer, batches, trace_dir: str,
     ``torch.profiler`` trace: the summed durations of its kernel, memcpy
     and memset events (one stream, so they do not overlap) per step, the
     number of those events per step, the five kernels that take most of
-    the time, and the time of each hand-written kernel (``<name>_kernel``
-    of a ``_wrappers()`` name) per step."""
+    the time, the time of each hand-written kernel (``<name>_kernel`` of a
+    ``_wrappers()`` name) per step, and ``host_ms_per_step``."""
     from torch.profiler import ProfilerActivity, profile
     model = trainer.model
     with profile(activities=[ProfilerActivity.CPU,
@@ -2554,7 +2592,26 @@ def device_ms_per_step(trainer, batches, trace_dir: str,
     ours = {name: by_name[f'{name}_kernel'] / n for name in _wrappers()
             if f'{name}_kernel' in by_name}
     return (sum(by_name.values()) / n, n_events / n,
-            [(name, ms / n) for name, ms in top], ours)
+            [(name, ms / n) for name, ms in top], ours,
+            host_ms_per_step(prof, n))
+
+
+def host_ms_per_step(prof, n: int) -> dict:
+    """The host's side of ``n`` profiled steps, per step: the summed self
+    time of every operator and runtime call the profiler saw (Python
+    between them not included), the collectives (``c10d::`` operators:
+    how many, and their time with what they call), and the six that take
+    most of the host's time (self ms, calls).  The profiler adds its own
+    cost to each call, the same on both sides of a comparison."""
+    host = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CPU]
+    coll = [e for e in host if e.key.startswith('c10d::')]
+    top = sorted(host, key=lambda e: -e.self_cpu_time_total)[:6]
+    return {'ops': sum(e.self_cpu_time_total for e in host) / 1e3 / n,
+            'collectives': sum(e.count for e in coll) / n,
+            'collectives_ms': sum(e.cpu_time_total for e in coll) / 1e3 / n,
+            'top': [(e.key, e.self_cpu_time_total / 1e3 / n, e.count / n)
+                    for e in top]}
 
 
 def timing_phase(trainer, card: str, trace_dir: str, n_steps: int = 30,
@@ -2626,10 +2683,11 @@ def timing_phase(trainer, card: str, trace_dir: str, n_steps: int = 30,
     out['examples_per_s'] = BATCH * n_steps / t_total
     out['host_enqueue_share'] = t_enqueue / t_total
     out['launches_per_step'] = per_step
-    (out['device'], out['device_events'], top,
-     out['kernel_ms']) = device_ms_per_step(
+    (out['device'], out['device_events'], top, out['kernel_ms'],
+     out['host']) = device_ms_per_step(
         trainer, batches[n_steps:n_steps + 10], trace_dir, name)
     out['device_busy_share'] = out['device'] / out['step']
+    host = out['host']
     refresh_note = (f', refresh {out["refresh"]:.3f} ms every {refresh} '
                     'steps' if refresh else '')
     log(f'timing train {name} at S1 ({card}): sampling '
@@ -2645,7 +2703,12 @@ def timing_phase(trainer, card: str, trace_dir: str, n_steps: int = 30,
         + ', '.join(f'{name} {ms:.3f} ms' for name, ms in top)
         + '; hand-written kernels a step: '
         + ', '.join(f'{name} {ms:.4f} ms'
-                    for name, ms in out['kernel_ms'].items()))
+                    for name, ms in out['kernel_ms'].items())
+        + f'; host (profiled) {host["ops"]:.3f} ms of operators a step, '
+        f'{host["collectives"]:.0f} collectives taking '
+        f'{host["collectives_ms"]:.3f} ms, most in '
+        + ', '.join(f'{k} {ms:.3f} ms ({c:g} calls)'
+                    for k, ms, c in host['top']))
     return out
 
 
@@ -2838,8 +2901,9 @@ def main():
 
     def shard_fields(name):
         # one layer (to_user + to_item) of one W = 4 destination shard of
-        # S1 at keep 0.6 (the mean over the four), and the largest error
-        # of that check against the plain version and the whole graph
+        # S1 at keep 0.6 (the mean over the four; the bound counts only the
+        # destination rows the rank keeps), and the largest error of that
+        # check against the plain version and the whole graph
         r = shard[name]
         return {'max_abs_err_w4_dst_shards': r['max_abs_err'],
                 'ms_w4_dst_shard': r['ms'],
@@ -2957,6 +3021,7 @@ def main():
     steps = {m: {'step_ms': timing[m]['step'],
                  'examples_per_s': timing[m]['examples_per_s'],
                  'host_enqueue_share': timing[m]['host_enqueue_share'],
+                 'host_profiled_ms_per_step': timing[m]['host'],
                  'device_ms_per_step': timing[m]['device'],
                  'device_busy_share': timing[m]['device_busy_share'],
                  'kernel_device_ms_per_step': timing[m]['kernel_ms'],

@@ -125,11 +125,9 @@ def shard_model(mesh: Mesh, model, data):
     maps them to its bias and root terms, which reach no real row.
     """
     from ..models.conv import ConvModel
-    from ..models.lightgcn import LightGCN
-    from ..models.ltr import LTRLinear, LTRLinearWPop
     from .sharded_conv import MeshConvOp
     from .sharded_spmm import MeshGraphOp
-    if type(model) not in (LightGCN, ConvModel, LTRLinear, LTRLinearWPop):
+    if model.cfg.model not in MESH_MODELS:
         raise NotImplementedError(
             f'{type(model).__name__} on a mesh is not ported yet (ported: '
             f'{", ".join(MESH_MODELS)})')

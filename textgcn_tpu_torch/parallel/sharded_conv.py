@@ -15,9 +15,9 @@ The CSRs keep GLOBAL row and column ids, with a ``rowptr`` over the whole
 padded destination range (the rows of other ranks are empty): K1 and
 K3-K6 hash the CSR's own (row, col) pair, so the masks and the kernels'
 outputs on this rank's rows are the single card's, and no kernel changes.
-``kept_degrees`` all-gathers each rank's rows of the kept degrees
-(outside autograd), because ``gcn``'s source normalisation reads the
-degrees of every source row.
+``kept_degrees`` sums each rank's kept degrees, which are 0 off its rows,
+over the ranks (outside autograd), because ``gcn``'s source normalisation
+reads the degrees of every source row.
 
 Counterpart of the JAX package's GSPMD conv path
 (``textgcn_tpu/parallel/mesh.py:160-172``), which drops edges with
@@ -29,11 +29,11 @@ from __future__ import annotations
 
 import numpy as np
 import torch
-import torch.distributed as dist
 
 from ..ops.spmm import (CSR, _SpMM, build_csr, gathered_dtype,
                         hash_dropout_salts, kept_degree)
 from .mesh import Mesh
+from .sharded import all_reduce_sum
 
 
 class MeshConvOp:
@@ -93,18 +93,14 @@ class MeshConvOp:
         return _SpMM.apply(user_emb, self.l_u2i, self.t_u2i, *w_pair,
                            self.x_dtype)
 
-    def _whole(self, v: torch.Tensor) -> torch.Tensor:
-        """A whole ``(n,)`` vector from every rank's rows of ``v``."""
-        part = v[self.mesh.rows(v.shape[0])].contiguous()
-        out = torch.empty_like(v)
-        dist.all_gather_into_tensor(out, part)
-        return out
-
     @torch.no_grad()
     def kept_degrees(self, w_pairs):
         """``(deg_u, deg_i)``, whole ``(n, 1)`` float32 columns: users'
         kept edges under the to_user salt, items' under the to_item salt
-        (``models/conv.kept_degrees`` on one card)."""
+        (``models/conv.kept_degrees`` on one card).  A shard's count is 0
+        off its own rows, so the sum over the ranks is the whole vector."""
         (salt_u, keep_u), (salt_i, keep_i) = w_pairs
-        return (self._whole(kept_degree(self.l_i2u, salt_u, keep_u))[:, None],
-                self._whole(kept_degree(self.l_u2i, salt_i, keep_i))[:, None])
+        return (all_reduce_sum(kept_degree(self.l_i2u, salt_u,
+                                           keep_u))[:, None],
+                all_reduce_sum(kept_degree(self.l_u2i, salt_i,
+                                           keep_i))[:, None])
