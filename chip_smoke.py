@@ -118,6 +118,9 @@ Phases, each of which passes or ends the run with a non-zero exit:
    times from the seed) and the loader's two embedding caches (random
    unit vectors from the seed at the encoder's width, 384, with their
    ``.meta`` fingerprints: no encoder runs), and times ``load_ltr_data``;
+   from here on each configuration of the text is loaded for real once
+   and served from a memo after (``memoize_ltr_loader``: the phases below
+   call the CLI on S1's text some twenty times);
 9d. ltr: ``ltr_linear --load_base <phase 7's JAX-format pickle> --freeze``
    trained through ``cli.main`` for 2 epochs with ``--predict``: K1
    launches exactly ``6 (base eval) + steps x 6 + evals x 6 + 6
@@ -163,6 +166,23 @@ Phases, each of which passes or ends the run with a non-zero exit:
 9i. mining: an ``adv_sampling`` step's (2048, 25,000) score, bf16 round
    and masks, ``mining_top_k`` and the whole selection, timed, beside
    ``torch.topk`` on the same scores;
+9i'. mesh slice: phase 9g's six models with ``--mesh 1x1`` through
+   ``cli.main`` in one one-rank group this script starts, for 1 epoch and
+   1 evaluation: K2 launches exactly as K1 does on the single card
+   (``steps x 18 + 6`` for ``adv_sampling``, ``steps x 12 + 6`` for the
+   others) and no other wrapper launches; one step from the single card's
+   params, batch, draws and salts within 1e-6 (``adv_sampling``'s hard
+   negatives the same in every row: K2 at W = 1 gives K1's bits); the
+   epoch's loss sum and metrics against phase 9g's first epoch within
+   1e-5 relative and 1e-6, unless a repeated single-card epoch (run here
+   first, in-process) already differs by more, when the limits are 4x
+   that difference, at least 1e-3 (the log says which rule applied); for
+   ``ltr_reviews`` and ``ltr_kg`` the fused sharded top-40 of 256 users
+   against the single-card scorer's on the same tables, up to ties; the
+   ``adv_sampling`` mesh trainer timed as in phase 10; then
+   ``text_probe`` (0 launches) and ``ltr_simple --load_base <phase 8's
+   lgcn run>`` (18 K2 launches) with ``--mesh 1x1``: every metric of
+   every probe equals phase 9h's within 1e-6;
 9j. boosted: ``marcus --load_base <phase 8's lgcn run> --neg_samples 1``
    on S1 (one fit of 10 trees on every train edge and one negative each),
    then ``gbdt`` and ``gbdt_pop --load_base <a random base>`` on 4,096
@@ -175,8 +195,9 @@ Phases, each of which passes or ends the run with a non-zero exit:
    --no_train`` restores ``forest.npz`` and re-serves the metrics
    (1e-6, 6 launches); then ``fit_gbrt`` on the first fit batch on the
    card against the same code on the CPU (the same node structure and
-   thresholds, leaf values within 1e-9 relative, scores within 1e-5),
-   and the fit and ``forest_predict`` (10 and 160 trees) timed against
+   thresholds, leaf values within 1e-9 relative, scores within 1e-5) on
+   the batch's first 64 users' rows (1.6M), and the card's fit of the
+   whole batch and ``forest_predict`` (10 and 160 trees) timed against
    the scorer's bound;
 9k. trace: ``lgcn --epochs 1 --trace DIR`` through ``cli.main`` on the
    boosted phase's 4,096-user cut of S1 (S1's widths): K1 launches
@@ -195,7 +216,8 @@ Phases, each of which passes or ends the run with a non-zero exit:
    beside ``QUALITY_r05.jsonl``'s ``lgcn`` row;
 10. timing: ms per training step and examples/s of each model at S1, and
    of the frozen ``ltr_linear``, the ``--refresh_every 8``,
-   ``adv_sampling`` and ``text --pos user`` steps, split
+   ``adv_sampling`` and ``text --pos user`` steps (and in phase 9i' the
+   ``adv_sampling --mesh 1x1`` step), split
    into sampling, forward, backward and Adam (and the refresh), host clock
    around synchronised work, the host's enqueue share of an
    unsynchronised run of steps, and the device's busy time per step, and
@@ -1376,19 +1398,19 @@ def adv_step_vs_plain(trainer) -> tuple[float, float]:
 
 
 def compare_steps(model, k_loss, k_grads, p_loss, p_grads,
-                  names=('kernels', 'plain')) -> float:
+                  names=('kernels', 'plain'), tol: float = STEP_TOL) -> float:
     """Check a step's loss and gradients with the kernels against the
-    plain versions' (or ``names``' two paths; ``STEP_TOL``); the largest
+    plain versions' (or ``names``' two paths; within ``tol``); the largest
     difference."""
     model.zero_grad(set_to_none=True)
     err = float((k_loss - p_loss).abs())
     a, b = names
-    check(torch.allclose(k_loss, p_loss, atol=STEP_TOL, rtol=STEP_TOL),
+    check(torch.allclose(k_loss, p_loss, atol=tol, rtol=tol),
           f'loss with {a} {float(k_loss)} vs {b} {float(p_loss)}')
     for name, g in k_grads.items():
         e = float((g - p_grads[name]).abs().max())
         err = max(err, e)
-        check(torch.allclose(g, p_grads[name], atol=STEP_TOL, rtol=STEP_TOL),
+        check(torch.allclose(g, p_grads[name], atol=tol, rtol=tol),
               f'gradient of {name}: {a} vs {b} max abs err {e:.3e}')
     log(f'step {a} vs {b} ({model.cfg.model}): loss {float(k_loss):.6f} vs '
         f'{float(p_loss):.6f}, max abs err over loss and '
@@ -1424,10 +1446,15 @@ def expected_launches(model: str, steps: int, evals: int) -> dict[str, int]:
     evaluations: a layer runs both directions once forward and, in a step,
     once backward.  K1 serves as its own backward; ``adv_sampling`` runs a
     rank pass forward before each step's loss pass; the attention kernels
-    have a backward kernel each; on the mesh path (``lgcn_mesh``) K2 takes
-    K1's place."""
+    have a backward kernel each; on the mesh path (``lgcn_mesh``, and a
+    slice 7-9 path's name with ``_mesh``) K2 takes K1's place."""
     per_pass = 2 * LAYERS
     want = dict.fromkeys(_wrappers(), 0)
+    if model.endswith('_mesh') and model != 'lgcn_mesh':
+        # slices 7-9 on --mesh: K2 in K1's place
+        single = expected_launches(model.removesuffix('_mesh'), steps, evals)
+        want['spmm_weighted'] = single['spmm_dropout']
+        return want
     if model == 'adv_sampling':
         want['spmm_dropout'] = steps * 3 * per_pass + evals * per_pass
     elif model in ('lgcn', 'gcn', 'graphsage', *SLICE_FLAGS):
@@ -1530,7 +1557,8 @@ def probe_phase(data_dir: str, base_dir: str) -> dict:
         check(all(v.shape[0] == n_sets and np.isfinite(v).all()
                   for v in rows.values()),
               f'probe {name}: {n_sets} finite metric sets expected')
-        out[name] = {'launches': launches, 'seconds': seconds}
+        out[name] = {'launches': launches, 'seconds': seconds,
+                     'metrics': rows}
     return out
 
 
@@ -1631,6 +1659,32 @@ def write_ltr_text(data_dir: str, data, dev, seed: int = 0) -> dict:
         f'{out["seconds"]:.3f} s; caches {sizes} bytes; np.load of the '
         f'review cache {out["review_cache_load_s"]:.3f} s')
     return out
+
+
+def memoize_ltr_loader() -> dict[str, int]:
+    """Make ``data.text.load_ltr_data`` load each configuration once.  The
+    text phases run ``cli.main`` on one set with the same text flags some
+    twenty times, and a real load of S1's text takes ~10 s; every
+    configuration is still loaded for real once (the ltr text and boosted
+    phases time that load).  The key is every ``Config`` field the loader
+    reads.  Returns the counts of real loads and of memo hits."""
+    from textgcn_tpu_torch.data import text
+    real, cache = text.load_ltr_data, {}
+    stats = {'loads': 0, 'hits': 0}
+
+    def load(cfg, popularity_mode=None):
+        key = (os.path.abspath(cfg.data), cfg.reshuffle, cfg.seed,
+               cfg.bert_model, cfg.sep, cfg.emb_batch_size,
+               popularity_mode or cfg.popularity_mode)
+        if key in cache:
+            stats['hits'] += 1
+        else:
+            stats['loads'] += 1
+            cache[key] = real(cfg, popularity_mode)
+        return cache[key]
+
+    text.load_ltr_data = load
+    return stats
 
 
 def reference_topk(model, users: torch.Tensor, k: int, chunk: int = 16):
@@ -1821,6 +1875,9 @@ BOOST_USERS = 4096
 # the fit on the card against the same code on the CPU: leaf values
 # (float64 means in another order of sums) and the forests' scores
 FIT_VALUE_TOL, FIT_SCORE_TOL = 1e-9, 1e-5
+# the users of the first fit batch whose rows the CPU fits for that
+# comparison (1.6M rows; the whole batch's 6.4M took the CPU 50-74 s)
+CPU_FIT_USERS = 64
 
 
 def boosted_run(data_dir: str, base: str, model: str,
@@ -1901,9 +1958,10 @@ def first_difference(a, b) -> str | None:
 def boosted_fit_phase(trainer, card: str, during) -> dict:
     """The first 256-user batch of ``trainer``'s model (a fit batch at
     S1's size): ``fit_gbrt`` on the card against the same code on the
-    CPU (the same node structure and thresholds, leaf values within
-    ``FIT_VALUE_TOL`` relative, the two forests' scores within
-    ``FIT_SCORE_TOL``); the card's fit timed for a first and a
+    CPU over the batch's first ``CPU_FIT_USERS`` users' rows (the same
+    node structure and thresholds, leaf values within ``FIT_VALUE_TOL``
+    relative, the two forests' scores within ``FIT_SCORE_TOL``); the
+    card's fit of the whole batch timed for a first and a
     warm-started batch; ``forest_predict`` over the batch timed at 10
     trees and at the model's whole forest, beside the bound: the rows'
     features read once and one score written.  The CPU's fit runs in a
@@ -1949,10 +2007,13 @@ def boosted_fit_phase(trainer, card: str, during) -> dict:
         t0 = time.perf_counter()
         return fit_gbrt(x, y, **m.tree_params), time.perf_counter() - t0
 
+    n_cmp = CPU_FIT_USERS * m.n_items
+    xc, yc = x[:n_cmp], y[:n_cmp]
     with ThreadPoolExecutor(1) as pool:
-        job = pool.submit(cpu_job, x.cpu(), y.cpu())
+        job = pool.submit(cpu_job, xc.cpu(), yc.cpu())
         during()
         cpu_fit, cpu_s = job.result()
+    card_fit = fit_gbrt(xc, yc, **m.tree_params)
     value_err = 0.0
     for t, (a, b) in enumerate(zip(card_fit.trees, cpu_fit.trees)):
         where = first_difference(a, b)
@@ -1963,20 +2024,21 @@ def boosted_fit_phase(trainer, card: str, during) -> dict:
     check(value_err <= FIT_VALUE_TOL, f'boosted fit: leaf values differ by '
           f'{value_err:.3e} relative')
     with torch.no_grad():
-        s_card = forest_predict(f_card, x)
-        s_cpu = forest_predict(compile_forest(cpu_fit), x.cpu())
+        s_card = forest_predict(compile_forest(card_fit, m.device), xc)
+        s_cpu = forest_predict(compile_forest(cpu_fit), xc.cpu())
     score_err = float((s_card.cpu() - s_cpu).abs().max())
     check(score_err <= FIT_SCORE_TOL, f'boosted fit: the forests\' scores '
           f'differ by {score_err:.3e}')
     log(f'boosted fit ({card}): {rows} rows x {m.n_features} features, '
         f'card fit of 10 trees {fit_s:.3f} s (warm-started batch '
-        f'{warm_s:.3f} s), the CPU\'s {cpu_s:.3f} s (beside the card\'s '
-        f'next run); same nodes and '
+        f'{warm_s:.3f} s); the CPU\'s fit of the first {n_cmp} of them '
+        f'{cpu_s:.3f} s (beside the card\'s next run); same nodes and '
         f'thresholds, leaf values within {value_err:.3e} relative, scores '
         f'within {score_err:.3e}; forest_predict {json.dumps(ms)} ms, bound '
         f'{bound:.4f} ms ({by})')
     return {'rows': rows, 'fit_s': fit_s, 'warm_fit_s': warm_s,
-            'cpu_fit_s': cpu_s, 'value_rel_err': value_err,
+            'cpu_fit_rows': n_cmp, 'cpu_fit_s': cpu_s,
+            'value_rel_err': value_err,
             'score_err': score_err, 'forest_predict_ms': ms,
             'forest_predict_bound_ms': bound, 'bound_by': by}
 
@@ -2560,6 +2622,211 @@ def mesh_ltr_phase(data_dir: str, ck: str, trained: dict, dev) -> dict:
     return out
 
 
+# slices 7-9 on --mesh 1x1 against their single-card runs: a step from the
+# same params, batch, draws and salts within MESH_STEP_TOL (W = 1 runs K2,
+# which gives K1's bits, and the gathers are copies); the first epoch's
+# loss sum and metrics within (TOL, 1e-6), unless a repeated single-card
+# epoch already differs from the first by more, when the limits become
+# MESH_SPREAD_FACTOR times that difference, at least MESH_SPREAD_FLOOR
+MESH_STEP_TOL = 1e-6
+MESH_SPREAD_FLOOR = 1e-3
+
+
+def repeat_epoch(single):
+    """The single-card run's first epoch again, in this process: the same
+    class, config and loaded data, a fresh model from the seed, one epoch
+    and its evaluation, nothing saved."""
+    import dataclasses
+
+    from textgcn_tpu_torch.train.trainer import Trainer
+    cfg = dataclasses.replace(single.cfg, epochs=1, save=False)
+    model = type(single.model)(cfg, single.data, device=single.model.device)
+    again = Trainer(cfg, model, single.data)
+    again.fit()
+    return again
+
+
+def mesh_epoch_limits(model: str, single) -> dict:
+    """The limits of a mesh epoch against ``single``'s first: strict when a
+    repeated single-card epoch repeats it within them, else the spread
+    rule (see ``MESH_STEP_TOL``)."""
+    rel, metric = epoch_diffs(repeat_epoch(single), single)
+    strict = rel <= TOL and metric <= 1e-6
+    limits = ((TOL, 1e-6) if strict else
+              (max(MESH_SPREAD_FLOOR, MESH_SPREAD_FACTOR * rel),
+               max(MESH_SPREAD_FLOOR, MESH_SPREAD_FACTOR * metric)))
+    log(f'{model}: a repeated single-card epoch differs from the first by '
+        f'{rel:.3e} (loss sum, relative) and {metric:.3e} (metrics): the '
+        f'{"strict" if strict else "spread"} rule, limits {limits[0]:.3e} '
+        f'and {limits[1]:.3e}')
+    return {'rule': 'strict' if strict else 'spread',
+            'single_card_repeat': (rel, metric), 'limits': limits}
+
+
+def mesh_slice_step(model: str, m, one) -> dict:
+    """One step of the mesh model ``m`` and of the single-card model
+    ``one`` from ``one``'s params and the same batch, draws and salts
+    (``MESH_STEP_TOL``); ``adv_sampling``'s hard negatives must agree in
+    every row."""
+    m.load_params(one.param_tree())
+    w_pairs = ((SALT, KEEP_DROPOUT), (SALT ^ 0x5A5A5A5A, KEEP_DROPOUT))
+    names = ('--mesh 1x1', 'the single card')
+    if model != 'adv_sampling':
+        batch = one.sample_batches(
+            torch.Generator(device=one.device).manual_seed(5), BATCH)[0]
+        err = compare_steps(m, *loss_and_grads(m, batch, w_pairs),
+                            *loss_and_grads(one, batch, w_pairs),
+                            names=names, tol=MESH_STEP_TOL)
+        one.zero_grad(set_to_none=True)
+        return {'step_err': err}
+    users, keep, ridx = adv_draws(one, 5)
+    w_loss = ((SALT ^ 0x1234567, KEEP_DROPOUT),
+              (SALT ^ 0x7654321, KEEP_DROPOUT))
+    mined = {}
+
+    def step(model_):
+        mine = model_.hard_negatives
+        model_.hard_negatives = lambda *a: mined.setdefault(
+            id(model_), mine(*a))
+        try:
+            model_.zero_grad(set_to_none=True)
+            loss, _ = model_.loss_given(users, keep, ridx, w_pairs, w_loss)
+            loss.backward()
+            torch.cuda.synchronize()
+        finally:
+            del model_.hard_negatives
+        return loss.detach(), {n: p.grad.detach().clone()
+                               for n, p in model_.named_parameters()}
+
+    err = compare_steps(m, *step(m), *step(one), names=names,
+                        tol=MESH_STEP_TOL)
+    one.zero_grad(set_to_none=True)
+    (negs, valid), (ref_negs, ref_valid) = mined[id(m)], mined[id(one)]
+    agree = float(((negs == ref_negs) & (valid == ref_valid)).all(dim=1)
+                  .float().mean())
+    check(agree == 1.0, f'mesh adv_sampling: the hard negatives agree with '
+          f'the single card\'s in {agree:.4f} of the rows')
+    log(f'mesh adv_sampling: the hard negatives of {users.shape[0]} users '
+        'are the single card\'s in every row')
+    return {'step_err': err, 'selection_agreement': agree}
+
+
+def mesh_slice_phase(data_dir: str, trained: dict, probes: dict, dev,
+                     card: str, trace_dir: str) -> dict:
+    """Slices 7-9 with ``--mesh 1x1`` through the CLI, in one one-rank
+    group started here: each ``SLICE_FLAGS`` model for 1 epoch and 1
+    evaluation (exact K2 launches and no other; the epoch against the
+    single-card run's first, ``mesh_epoch_limits``; one step,
+    ``mesh_slice_step``; for ``ltr_reviews`` and ``ltr_kg`` the fused
+    sharded top-40 of 256 users against the single-card scorer's on the
+    same tables, up to ties), ``adv_sampling``'s mesh step timed; then
+    ``text_probe`` and ``ltr_simple --load_base <phase 8's lgcn run>``:
+    every metric of every probe the single-card probe's (1e-6)."""
+    import torch.distributed as dist
+
+    from textgcn_tpu_torch.parallel import multihost
+    from textgcn_tpu_torch.parallel.sharded_spmm import MeshGraphOp
+    common = ['--emb_size', str(D), '--n_layers', str(LAYERS),
+              '--batch_size', str(BATCH), '-k', *map(str, KS), '--quiet',
+              '--mesh', '1x1']
+    out = {}
+    created = multihost.maybe_initialize(multihost.local_device(dev.type))
+    try:
+        for model, (flags, _) in SLICE_FLAGS.items():
+            t0 = time.perf_counter()
+            single = trained[model]['trainer']
+            res = mesh_epoch_limits(model, single)
+            rel_tol, metric_tol = res['limits']
+            argv = [*flags, '--epochs', '1', '--evaluate_every', '1',
+                    '--dropout', '0.4', '--uid', f'train-{model}-mesh',
+                    *common]
+            reset_counts()
+            t1 = time.perf_counter()
+            trainer, _ = cli_run(data_dir, argv, 'cuda')
+            run_s = time.perf_counter() - t1
+            launches = counts()
+            m = trainer.model
+            steps = m.num_batches(BATCH)
+            want = expected_launches(f'{model}_mesh', steps, 1)
+            log(f'mesh {model} 1x1: cli.main took {run_s:.3f} s; launches '
+                f'{launches}')
+            check(isinstance(m.graph_op, MeshGraphOp),
+                  f'mesh {model}: graph op {type(m.graph_op)}')
+            check(launches == want, f'mesh {model}: launches {launches}, '
+                  f'expected {want}')
+            rel, metric_err = epoch_diffs(trainer, single)
+            hist = trainer.loss_history[0]
+            log(f'mesh {model}: epoch 1 loss sums {json.dumps(hist)} vs the '
+                f'single card\'s {json.dumps(single.loss_history[0])} '
+                f'(relative difference {rel:.3e}, limit {rel_tol:.3e}); '
+                f'metrics differ by {metric_err:.3e} (limit '
+                f'{metric_tol:.3e})')
+            check(all(np.isfinite(v) for v in hist.values())
+                  and rel <= rel_tol, f'mesh {model}: loss sum '
+                  f'{hist["loss"]} vs {single.loss_history[0]["loss"]}')
+            check(metric_err <= metric_tol, f'mesh {model}: metrics differ '
+                  f'from the single card run by {metric_err}')
+            res.update(mesh_slice_step(model, m, single.model))
+            if model in ('ltr_reviews', 'ltr_kg'):
+                users = torch.arange(N_CHECK_USERS, device=m.device)
+                with torch.no_grad():
+                    mesh_v, mesh_i = m.topk_for_users(m.scoring_reprs(),
+                                                      users, max(KS))
+                    one = single.model
+                    ref_v, ref_i = one.topk_for_users(one.scoring_reprs(),
+                                                      users, max(KS))
+                err = float((mesh_v - ref_v).abs().max())
+                same = same_up_to_ties(mesh_v.cpu().numpy(), mesh_i.tolist(),
+                                       ref_v.cpu().numpy(), ref_i.tolist(),
+                                       LTR_TOL)
+                log(f'mesh {model}: fused sharded top-{max(KS)} of '
+                    f'{N_CHECK_USERS} users vs the single-card scorer on '
+                    f'the same tables: max abs err {err:.3e}, same up to '
+                    f'ties={same}')
+                check(same, f'mesh {model}: the fused sharded top-k '
+                      'differs from the single card\'s')
+                res['topk_err'] = err
+            if model == 'adv_sampling':
+                res['timing'] = timing_phase(trainer, card, trace_dir,
+                                             name='adv_sampling_mesh')
+            res.update(launches=launches, seconds=run_s, loss_rel_diff=rel,
+                       metric_diff=metric_err)
+            out[model] = res
+            log(f'phase mesh slice {model}: {time.perf_counter() - t0:.3f} '
+                's')
+        base = trained['lgcn']['run_dir']
+        for name, argv, n_evals in (
+                ('text_probe', ['--model', 'text_probe'], 0),
+                ('ltr_simple', ['--model', 'ltr_simple', '--load_base',
+                                base], 3)):
+            reset_counts()
+            t0 = time.perf_counter()
+            trainer, _ = cli_run(data_dir, [*argv, '--uid',
+                                            f'probe-{name}-mesh', *common],
+                                 'cuda')
+            seconds = time.perf_counter() - t0
+            launches = counts()
+            want = expected_launches('lgcn_mesh', 0, n_evals)
+            check(launches == want, f'mesh probe {name}: launches '
+                  f'{launches}, expected {want}')
+            ref = probes[name]['metrics']
+            err = max(float(np.abs(v - ref[k]).max())
+                      for k, v in trainer.metrics_logger.items())
+            log(f'mesh probe {name} 1x1: cli.main took {seconds:.3f} s; '
+                f'launches {launches}; every metric of every probe within '
+                f'{err:.3e} of the single card\'s')
+            check(all(v.shape == ref[k].shape
+                      for k, v in trainer.metrics_logger.items())
+                  and err <= 1e-6, f'mesh probe {name}: metrics differ '
+                  f'from the single card\'s by {err}')
+            out[f'probe_{name}'] = {'launches': launches, 'seconds': seconds,
+                                    'metric_diff': err}
+    finally:
+        if created:
+            dist.destroy_process_group()
+    return out
+
+
 def device_ms_per_step(trainer, batches, trace_dir: str,
                        name: str) -> tuple:
     """Device time of ``len(batches)`` training steps from a
@@ -2798,6 +3065,7 @@ def main():
 
         t = time.perf_counter()
         ltr_text = write_ltr_text(data_dir, data, dev)
+        ltr_loads = memoize_ltr_loader()
         t_load = time.perf_counter()
         from textgcn_tpu_torch.config import Config
         from textgcn_tpu_torch.data.text import load_ltr_data
@@ -2827,8 +3095,6 @@ def main():
         for model in SLICE_FLAGS:
             t = time.perf_counter()
             trained[model] = train_phase(data_dir, model)
-            if model not in timed:
-                trained[model].pop('trainer')
             log(f'phase train {model}: {time.perf_counter() - t:.3f} s')
         m = trained['text_user']['trainer'].model
         pair_bytes = m.pair_vectors.numel() * m.pair_vectors.element_size()
@@ -2847,6 +3113,15 @@ def main():
         mining = mining_phase(trained['adv_sampling']['trainer'], card)
         log(f'phase mining: {time.perf_counter() - t:.3f} s')
         t = time.perf_counter()
+        mesh_slice = mesh_slice_phase(data_dir, trained, probes, dev, card,
+                                      root)
+        timing['adv_sampling_mesh'] = mesh_slice['adv_sampling'].pop(
+            'timing')
+        for model in SLICE_FLAGS:
+            if model not in timed:
+                trained[model].pop('trainer')
+        log(f'phase mesh slice: {time.perf_counter() - t:.3f} s')
+        t = time.perf_counter()
         boosted = boosted_phase(root, data_dir, trained['lgcn']['run_dir'],
                                 card, dev)
         log(f'phase boosted: {time.perf_counter() - t:.3f} s')
@@ -2862,6 +3137,8 @@ def main():
             timing[model] = timing_phase(trained[model].pop('trainer'), card,
                                          root, name=model)
             log(f'phase timing {model}: {time.perf_counter() - t:.3f} s')
+        log(f'load_ltr_data: {ltr_loads["loads"]} real loads, '
+            f'{ltr_loads["hits"]} served from the memo')
         trained['ltr_pop'].pop('trainer')
 
     # each path's launches, counted from 0 just before its run
@@ -2873,9 +3150,10 @@ def main():
                                   mesh['launches']['spmm_weighted']}
     by_path['serve_lgcn_mesh'] = {'spmm_weighted':
                                   mesh['serve_launches']['spmm_weighted']}
-    for m, r in (*mesh_conv.items(), *mesh_ltr.items()):
-        by_path[f'train_{m}_mesh'] = {k: n for k, n in r['launches'].items()
-                                      if n}
+    for m, r in (*mesh_conv.items(), *mesh_ltr.items(),
+                 *mesh_slice.items()):
+        path = f'{m}_mesh' if m.startswith('probe_') else f'train_{m}_mesh'
+        by_path[path] = {k: n for k, n in r['launches'].items() if n}
     # the two runs of the resume phase (epoch 1, then --resume for 2)
     by_path['train_lgcn_resume'] = {k: n for k, n in
                                     resumed['launches'].items() if n}
@@ -2944,7 +3222,11 @@ def main():
         'source': 'textgcn_tpu_torch/csrc/spmm_weighted.cu',
         'replaces': 'textgcn_tpu/ops/pallas_spmm.py:61',
         # train and serve lgcn --mesh 1x1 (forward and backward); train
-        # ltr_linear and ltr_pop --freeze --mesh 1x1 (forward only)
+        # ltr_linear and ltr_pop --freeze --mesh 1x1 (forward only); train
+        # adv_sampling (the rank pass forward, the loss pass forward and
+        # backward), text --pos user, kg, reviews, ltr_reviews and ltr_kg
+        # --mesh 1x1 (1 epoch); ltr_simple --load_base --mesh 1x1 (the
+        # base's eval and two probes)
         **launch_fields('spmm_weighted', 'lgcn_mesh'),
         'max_abs_err': k2['max_abs_err'],
         'max_abs_err_4_shards_vs_k1': k2['max_abs_err_vs_k1'],
@@ -3038,6 +3320,7 @@ def main():
                     'ltr_text': ltr_text,
                     'resume_vs_uninterrupted': resumed,
                     'mesh_conv': mesh_conv, 'mesh_ltr': mesh_ltr,
+                    'mesh_slice': mesh_slice, 'ltr_loads': ltr_loads,
                     'mining_ms': mining,
                     'boosted': boosted,
                     'trace': traced, 'quality': quality,

@@ -1,12 +1,14 @@
-"""One rank of the port's mesh checks of the conv family and the LTR heads
-(``tests/test_torch_mesh_conv.py``, ``tests/test_torch_mesh_ltr.py``).
+"""One rank of the port's mesh checks of the conv family, the LTR heads,
+``adv_sampling`` and the text-loss, concat and probe models
+(``tests/test_torch_mesh_conv.py``, ``tests/test_torch_mesh_ltr.py``,
+``tests/test_torch_mesh_adv.py``, ``tests/test_torch_mesh_text.py``).
 
 Started by ``torch.multiprocessing`` (spawn) with ``run(rank, world,
 work_dir)``: joins a gloo group over a ``file://`` store in ``work_dir``,
 reads ``work_dir/inputs.pkl`` (made by the test with numpy; ``kind`` is
-``'conv'`` or ``'ltr'``), runs the port's mesh path on the CPU, on one
-torch thread, and writes what it found to ``work_dir/rank<r>.pkl``.
-Imports torch and the port only.
+``'conv'``, ``'ltr'``, ``'adv'`` or ``'text'``), runs the port's mesh path
+on the CPU, on one torch thread, and writes what it found to
+``work_dir/rank<r>.pkl``.  Imports torch and the port only.
 """
 
 import os
@@ -159,6 +161,131 @@ def ltr_checks(inp, mesh):
     return out
 
 
+def _step(model, n_users, n_items, loss, aux):
+    """A step's loss and components summed over the ranks and the whole
+    gradients of both tables, after ``loss.backward()``."""
+    loss.backward()
+    return {'loss': _summed(loss),
+            'aux': {c: _summed(v) for c, v in aux.items()},
+            'grads': {'user_emb': _gather(model.user_emb.grad, n_users),
+                      'item_emb': _gather(model.item_emb.grad, n_items)}}
+
+
+def adv_checks(inp, mesh):
+    """``adv_sampling``: one ``loss_given`` with the draws and salts of
+    ``inp`` (the step, and this rank's hard negatives), then one
+    ``Trainer.train_step`` that draws from the model's own generator (its
+    loss and the whole tables after Adam)."""
+    from textgcn_tpu_torch import config
+    from textgcn_tpu_torch.data.core import load_interactions
+    from textgcn_tpu_torch.models.adv_sampling import AdvSamplModel
+    from textgcn_tpu_torch.parallel.mesh import shard_model
+    from textgcn_tpu_torch.train.trainer import Trainer
+    from textgcn_tpu_torch.weights import params_from_jax, params_to_jax
+    cfg = config.Config(model='adv_sampling', data=inp['dummy'],
+                        emb_size=inp['d'], k=tuple(inp['k']),
+                        reg_lambda=inp['reg'], lr=inp['lr'], dropout=0.4,
+                        n_layers=3, save=False,
+                        save_path='/nonexistent').finalize()
+    data = load_interactions(inp['dummy']).padded_to(inp['pad'])
+    model = shard_model(mesh, AdvSamplModel(cfg, data, device='cpu'), data)
+    model.load_params(params_from_jax(inp['params'], data.n_users,
+                                      data.n_items))
+    mined = []
+    mine = model.hard_negatives
+    model.hard_negatives = lambda *a: mined.append(mine(*a)) or mined[-1]
+    users, keep, ridx = (torch.from_numpy(a) for a in inp['draws'])
+    out = _step(model, data.n_users, data.n_items,
+                *model.loss_given(users, keep, ridx, *inp['w_pairs']))
+    out['negs'], out['valid'] = (t.numpy() for t in mined[0])
+    model.zero_grad(set_to_none=True)
+    loss, _ = Trainer(cfg, model, data).train_step((users,), inp['w_pairs'])
+    out['train_step'] = {'loss': _summed(loss),
+                         'params': params_to_jax(model.param_tree())}
+    return out
+
+
+def text_checks(inp, mesh):
+    """The text-loss models and the concat scorers: one ``loss`` with the
+    batch and salts of ``inp`` (the step); for the concat scorers the
+    fused catalogue-sharded top-5 of every user with the head on, and the
+    plain sharded one with it off."""
+    from textgcn_tpu_torch import config
+    from textgcn_tpu_torch.data.text import load_ltr_data
+    from textgcn_tpu_torch.parallel.mesh import shard_model
+    from textgcn_tpu_torch.registry import get_class
+    from textgcn_tpu_torch.weights import params_from_jax
+    out = {}
+    for name, (model_name, kw) in inp['text_models'].items():
+        cfg = config.Config(model=model_name, data=inp['dummy'],
+                            emb_size=inp['d'], reg_lambda=inp['reg'],
+                            lr=inp['lr'], dropout=0.4, n_layers=3,
+                            k=(3, 5), save=False, save_path='/nonexistent',
+                            **inp['formulas'], **kw).finalize()
+        data = load_ltr_data(cfg).padded_to(inp['pad'])
+        model = shard_model(mesh, get_class(model_name)[1](
+            cfg, data, device='cpu'), data)
+        model.load_params(params_from_jax(inp['params'][name], data.n_users,
+                                          data.n_items))
+        res = _step(model, data.n_users, data.n_items,
+                    *model.loss(_batch(inp), w_pairs=inp['pairs']))
+        if hasattr(model, 'score_with_head'):
+            users = torch.arange(data.n_users)
+            with torch.no_grad():
+                reprs = model.scoring_reprs()
+                res['head'] = [t.numpy() for t in
+                               model.topk_for_users(reprs, users, 5)]
+                model.score_with_head = False
+                res['plain'] = [t.numpy() for t in
+                                model.topk_for_users(reprs, users, 5)]
+        out[name] = res
+    out['probe_rows'] = probe_rows(inp, mesh)
+    return out
+
+
+def probe_rows(inp, mesh):
+    """``{combo: (user rows, item rows)}`` of the representation each of
+    ``text_probe``'s evaluations scores on this rank."""
+    from types import SimpleNamespace
+
+    from textgcn_tpu_torch import config
+    from textgcn_tpu_torch.data.text import load_ltr_data
+    from textgcn_tpu_torch.models.lightgcn import LightGCN
+    from textgcn_tpu_torch.models.text_loss import probe_text_representations
+    from textgcn_tpu_torch.parallel.mesh import shard_model
+    cfg = config.Config(model='text_probe', data=inp['dummy'],
+                        emb_size=inp['d'], save=False,
+                        save_path='/nonexistent').finalize()
+    data = load_ltr_data(cfg).padded_to(inp['pad'])
+    model = shard_model(mesh, LightGCN(cfg, data, device='cpu'), data)
+    probe = SimpleNamespace(model=model, evaluate=lambda: tuple(
+        t.shape[0] for t in model.representation()))
+    return probe_text_representations(data, probe)
+
+
+def cli_runs(inp, world, rank, work_dir):
+    """``inp['cli_runs']``: ``(uid, argv, {W: mesh shape})`` run through the
+    CLI with ``--mesh`` at the shape of this W, from a directory of this
+    rank's own: each run's loss sums, metrics and the state of the model's
+    own generator (where it has one)."""
+    from textgcn_tpu_torch import cli
+    cwd = os.path.join(work_dir, f'cwd{rank}')
+    os.makedirs(cwd)
+    os.chdir(cwd)
+    out = {}
+    for uid, argv, shapes in inp['cli_runs']:
+        if world not in shapes:
+            continue
+        trainer = cli.main([*argv, '--mesh', shapes[world], '--uid', uid])
+        gen = trainer.model.generator
+        out[uid] = {'loss_history': trainer.loss_history,
+                    'metrics_logger': trainer.metrics_logger,
+                    'generator': None if gen is None
+                    else gen.get_state().numpy()}
+        dist.barrier()      # rank 0's files are written
+    return out
+
+
 def cli_check(inp, rank, work_dir):
     """``inp['cli_argv']`` with ``--mesh 2x2`` through the CLI from a
     directory of this rank's own."""
@@ -173,13 +300,15 @@ def cli_check(inp, rank, work_dir):
 
 
 def resume_check(inp, world, work_dir):
-    """``inp['resume_argv']`` with ``--mesh 1xW`` through the CLI for
+    """``inp['resume_argv']`` with ``--mesh inp['resume_mesh']`` (default
+    ``1xW``) through the CLI, from ``work_dir`` (rank 0 writes there), for
     ``inp['epochs']`` epochs, for half as many, and the half run resumed
     to the end; each run's loss sums, metrics history and whole params."""
     from textgcn_tpu_torch import cli
     from textgcn_tpu_torch.weights import params_to_jax
     os.chdir(work_dir)
-    argv = [*inp['resume_argv'], '--mesh', f'1x{world}']
+    shape = inp.get('resume_mesh', '1x{w}').format(w=world)
+    argv = [*inp['resume_argv'], '--mesh', shape]
     epochs = inp['epochs']
     out = {}
     for uid, extra in (
@@ -212,10 +341,18 @@ def run(rank: int, world: int, work_dir: str):
                 out['cli'] = cli_check(inp, rank, work_dir)
             else:
                 out['resume'] = resume_check(inp, world, work_dir)
-        else:
+        elif inp['kind'] == 'ltr':
             out = {'ltr': ltr_checks(inp, mesh)}
             if world == 4:
                 out['cli'] = cli_check(inp, rank, work_dir)
+        else:
+            checks = adv_checks if inp['kind'] == 'adv' else text_checks
+            out = {inp['kind']: checks(inp, mesh),
+                   'cli': cli_runs(inp, world, rank, work_dir)}
+            if world in inp.get('resume_worlds', ()):
+                shared = os.path.join(work_dir, 'resume')
+                os.makedirs(shared, exist_ok=True)
+                out['resume'] = resume_check(inp, world, shared)
         with open(os.path.join(work_dir, f'rank{rank}.pkl'), 'wb') as f:
             pickle.dump(out, f)
     except BaseException:

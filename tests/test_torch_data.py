@@ -118,15 +118,15 @@ def test_parse_args_matches_jax(argv):
 @pytest.mark.parametrize('argv, err', [
     (['--model', 'xgboost', '--mesh', '2x4'], NotImplementedError),
     (['--model', 'marcus', '--approx_topk', '0.9'], NotImplementedError),
-    (['--model', 'kg', '--mesh', '2x4'], NotImplementedError),
+    (['--model', 'gbdt_pop', '--mesh', '2x4'], NotImplementedError),
     (['--model', 'ltr_simple'], ValueError),
     (['--model', 'adv_sampling', 'TEXTGCN_TPU_ADV_TOPK=0.9'],
      NotImplementedError),
-    (['--model', 'text_probe', '--mesh', '2x4'], NotImplementedError),
+    (['--model', 'gbdt', '--mesh', '2x4'], NotImplementedError),
     (['--model', 'lgcn', '--approx_topk', '0.95'], NotImplementedError),
     (['--model', 'lgcn', '--dropout', '1.5'], ValueError),
     (['--model', 'lgcn', '--load', 'a', '--load_base', 'b'], ValueError),
-    (['--model', 'ltr_reviews', '--mesh', '2x4'], NotImplementedError),
+    (['--model', 'xgboost_pop', '--mesh', '2x4'], NotImplementedError),
     (['--model', 'gatv2', '--aggr', 'mean', '--approx_topk', '0.5'],
      NotImplementedError),
     (['--model', 'gat'], ValueError),
@@ -138,3 +138,12 @@ def test_parse_args_refuses_what_is_not_ported(argv, err, monkeypatch):
             monkeypatch.setenv(*item.split('=', 1))
     with pytest.raises(err):
         tconfig.parse_args([a for a in argv if '=' not in a])
+
+
+@pytest.mark.parametrize('model', ['adv_sampling', 'text', 'kg', 'reviews',
+                                   'ltr_reviews', 'ltr_kg', 'text_probe',
+                                   'ltr_simple'])
+def test_parse_args_takes_mesh_for_the_lightgcn_family(model):
+    extra = ['--load_base', 'base'] if model == 'ltr_simple' else []
+    cfg = tconfig.parse_args(['--model', model, '--mesh', '2x4', *extra])
+    assert cfg.mesh_shape == (2, 4)

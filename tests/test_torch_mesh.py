@@ -388,8 +388,8 @@ def test_a_mesh_of_another_size_than_the_group_is_refused(ranks):
 
 
 @pytest.mark.parametrize('argv, err', [
-    (['--model', 'adv_sampling', '--mesh', '2x2'], NotImplementedError),
-    (['--model', 'text', '--mesh', 'auto'], NotImplementedError),
+    (['--model', 'gbdt', '--mesh', '2x2'], NotImplementedError),
+    (['--model', 'marcus', '--mesh', 'auto'], NotImplementedError),
     (['--model', 'lgcn', '--mesh', '2x2', '--approx_topk', '0.9'],
      NotImplementedError),
     (['--model', 'lgcn', '--mesh', '2by2'], ValueError),

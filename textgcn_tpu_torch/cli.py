@@ -24,15 +24,21 @@
         --aggr mean|sum|max --mesh 1x1|auto ...
     python -m textgcn_tpu_torch --model ltr_linear|ltr_pop \
         --load_base RUN [--freeze] --mesh 1x1|auto ...
+    python -m textgcn_tpu_torch --model adv_sampling|text|kg|reviews|\
+        ltr_reviews|ltr_kg --mesh 1x1|auto ...
+    python -m textgcn_tpu_torch --model text_probe --mesh 1x1|auto ...
+    python -m textgcn_tpu_torch --model ltr_simple --load_base RUN \
+        --mesh 1x1|auto ...
     python -m textgcn_tpu_torch ... --reshuffle [--seed S]
     python -m textgcn_tpu_torch ... --trace DIR
     torchrun --nproc_per_node N -m textgcn_tpu_torch --model lgcn \
         --mesh AxB ...                                  # A * B == N
-    (the conv family and the LTR heads the same way under torchrun)
+    (every model but the boosted heads the same way under torchrun)
 
 Drives: config parse -> (``--mesh``: the process group, one rank per
 GPU) -> dataset load -> (``--mesh``: tables padded to the number of ranks
-and row-sharded; conv layers and LTR towers whole) -> model build ->
+and row-sharded; conv layers, LTR towers and text buffers whole) -> model
+build ->
 ``--resume`` (the whole trainer state of a stopped run), else ``--load`` or ``--load_base`` (with its
 evaluation; before training it warm-starts the params; ``--load_base``
 evaluates an LTR head's base with plain scoring, then switches the head

@@ -12,9 +12,9 @@ Knobs that exist for the TPU:
   port has one kernel per function and no device-call relay to bound.
   ``--slurm`` is accepted and ignored: it hides the JAX package's
   progress bars, and the port draws none.
-* ``--mesh DATAxMODEL|auto`` runs ``MESH_MODELS`` (``lgcn``, the conv
-  family, ``ltr_linear`` and ``ltr_pop``) over ``torch.distributed``
-  ranks, one per GPU (``parallel/``); the other models refuse it.
+* ``--mesh DATAxMODEL|auto`` runs ``MESH_MODELS`` (every model but the
+  boosted heads) over ``torch.distributed`` ranks, one per GPU
+  (``parallel/``); the boosted heads refuse it.
   ``--approx_topk`` is refused when set: the port serves an exact top-k;
   so is a ``TEXTGCN_TPU_ADV_TOPK`` recall target for ``adv_sampling``: it
   mines exactly.
@@ -50,8 +50,11 @@ MODEL_CHOICES = (
 CONV_MODELS = ('gcn', 'graphsage', 'gat', 'gatv2')
 # the tree heads, which the CLI trains with models.ltr_boosted.BoostedTrainer
 BOOSTED_MODELS = ('xgboost', 'gbdt', 'xgboost_pop', 'gbdt_pop', 'marcus')
-# the models --mesh runs (parallel/mesh.shard_model); the others refuse it
-MESH_MODELS = ('lgcn', *CONV_MODELS, 'ltr_linear', 'ltr_pop')
+# the models --mesh runs (parallel/mesh.shard_model): every one but the
+# boosted heads, which refuse it
+MESH_MODELS = ('lgcn', *CONV_MODELS, 'ltr_linear', 'ltr_pop',
+               'adv_sampling', 'text', 'kg', 'reviews', 'ltr_reviews',
+               'ltr_kg', 'text_probe', 'ltr_simple')
 # the models the JAX package warns about without a frozen, loaded base
 LTR_WARN_MODELS = ('ltr_linear', 'ltr_pop', 'ltr_simple', 'xgboost', 'gbdt',
                    'xgboost_pop', 'gbdt_pop', 'marcus')

@@ -15,6 +15,16 @@ the top-k is exact with ties to the lower index (``ops.retrieval
 .mining_top_k``).  The candidate mask and the positive draws come from
 the model's own device generator (``generator``, seeded with ``cfg.seed
 + 2``), which a resume restores.
+
+On a mesh every rank draws the whole batch's candidate mask and positive
+draws, so the draws, and the generator's state, are the single card's;
+it keeps its ``tensor_split`` of the batch's rows.  The rank pass
+propagates on K2's source shards and gathers the whole propagated
+tables once; each rank mines its own users' rows against the whole item
+table (the single card's selection, ties included: no catalogue-sharded
+merge).  The loss pass gathers the tables as ``LightGCN.loss`` does and
+divides by the whole batch's count of valid pairs, summed over the
+ranks, so the ranks' losses sum to the single card's.
 """
 
 from __future__ import annotations
@@ -23,6 +33,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.retrieval import catalog_scores, mask_train_items, mining_top_k
+from ..parallel.sharded import all_reduce_sum
 from .lightgcn import LightGCN
 
 POS_SAMPLES = 5
@@ -84,17 +95,21 @@ class AdvSamplModel(LightGCN):
         """The loss with the random draws given: ``keep`` (B, n_items) the
         candidate mask, ``ridx`` (B, P) the positive draws (taken modulo
         the user's degree), ``w_rank`` and ``w_loss`` the passes' salt
-        pairs."""
+        pairs; on a mesh the whole batch's, of which this rank takes its
+        share (see the module docstring)."""
+        _, (users, keep, ridx) = self.rank_share((users, keep, ridx))
         with torch.no_grad():
             users_r, items_r = self.representation(training=True,
                                                    w_pairs=w_rank)
-            negs, neg_valid = self.hard_negatives(users_r, items_r, users,
-                                                  keep)
-        users_repr, items_repr = self.representation(training=True,
-                                                     w_pairs=w_loss)
+            negs, neg_valid = self.hard_negatives(
+                self.gathered(users_r, self.n_users),
+                self.gathered(items_r, self.n_items), users, keep)
+        users_repr, items_repr, user_emb, item_emb = self.whole_tables(
+            *self.representation(training=True, w_pairs=w_loss),
+            self.user_emb, self.item_emb)
         l_bpr, l_reg = self.expanded_loss(users_repr, items_repr, users,
                                           self.positives(users, ridx), negs,
-                                          neg_valid)
+                                          neg_valid, user_emb, item_emb)
         return l_bpr + l_reg, {'bpr': l_bpr, 'reg': l_reg}
 
     def positives(self, users, ridx):
@@ -104,10 +119,15 @@ class AdvSamplModel(LightGCN):
             torch.int64)
 
     def expanded_loss(self, users_repr, items_repr, users, pos, negs,
-                      neg_valid):
+                      neg_valid, user_emb=None, item_emb=None):
         """``(bpr, reg)`` over the (B, P, K) grid of each user's positives
         and valid negatives: the base losses of the flat expanded batch,
-        each row's layer-0 norms counted once per pair it is in."""
+        each row's layer-0 norms counted once per pair it is in.  The
+        layer-0 tables default to the model's; on a mesh they are the
+        gathered whole ones and the count of valid pairs the loss divides
+        by is summed over the ranks."""
+        if user_emb is None:
+            user_emb, item_emb = self.user_emb, self.item_emb
         p = pos.shape[1]
         u = users_repr[users]
         pos_s = self.score_pairwise(u[:, None, :], items_repr[pos],
@@ -116,13 +136,16 @@ class AdvSamplModel(LightGCN):
                                     users[:, None], negs)
         diff = F.selu(neg_s[:, None, :] - pos_s[:, :, None])
         valid = neg_valid[:, None, :].expand_as(diff)
-        denom = valid.sum().clamp(min=1).to(diff.dtype)
+        denom = valid.sum()
+        if self.mesh is not None:
+            denom = all_reduce_sum(denom)
+        denom = denom.clamp(min=1).to(diff.dtype)
         l_bpr = torch.where(valid, diff, 0.0).sum() / denom
 
         kv = neg_valid.sum(dim=1).to(diff.dtype)
-        u_sq = (self.user_emb[users].square().sum(1) * p * kv).sum()
-        p_sq = (self.item_emb[pos].square().sum(2).sum(1) * kv).sum()
-        n_sq = ((self.item_emb[negs].square().sum(2) * neg_valid).sum(1)
+        u_sq = (user_emb[users].square().sum(1) * p * kv).sum()
+        p_sq = (item_emb[pos].square().sum(2).sum(1) * kv).sum()
+        n_sq = ((item_emb[negs].square().sum(2) * neg_valid).sum(1)
                 * p).sum()
         l_reg = self.reg_lambda * (u_sq + p_sq + n_sq) / denom / 2.0
         return l_bpr, l_reg

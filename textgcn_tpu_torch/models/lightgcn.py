@@ -112,6 +112,24 @@ class LightGCN(nn.Module):
     def graph_op(self, op):
         self._graph_op = op
 
+    def rank_share(self, parts):
+        """``(count, parts)`` of a step's batch tensors ``parts``: without a
+        mesh ``(None, parts)``; on a mesh the whole batch's row count and
+        this rank's ``tensor_split`` of each, so that a loss over the share
+        that divides by ``count`` is this rank's part of the batch's."""
+        if self.mesh is None:
+            return None, parts
+        return parts[0].shape[0], tuple(
+            t.tensor_split(self.mesh.size)[self.mesh.rank] for t in parts)
+
+    def whole_tables(self, *tables):
+        """``tables`` whole, for global ids: on a mesh gathered from every
+        rank's rows (the backward reduce-scatters the gradient, so each
+        rank gets the sum over all ranks' losses for its rows)."""
+        if self.mesh is None:
+            return tables
+        return tuple(all_gather_rows(t, self.mesh) for t in tables)
+
     def gathered(self, table: torch.Tensor, n: int) -> torch.Tensor:
         """The first ``n`` rows of a whole table: on a mesh gathered from
         every rank's rows (a collective), else ``table`` itself."""
@@ -230,17 +248,9 @@ class LightGCN(nn.Module):
         mask = batch[3] if len(batch) > 3 else None
         users_repr, items_repr = self.representation(
             training=True, generator=generator, w_pairs=w_pairs)
-        tables = (users_repr, items_repr, self.user_emb, self.item_emb)
-        count = None
-        if self.mesh is not None:
-            if mask is not None:
-                raise ValueError('a mesh step takes ragged batches, not '
-                                 'masked ones')
-            count = users.shape[0]
-            users, pos, negs = (t.tensor_split(self.mesh.size)[self.mesh.rank]
-                                for t in (users, pos, negs))
-            tables = tuple(all_gather_rows(t, self.mesh) for t in tables)
-        users_repr, items_repr, user_emb, item_emb = tables
+        count, (users, pos, negs), (users_repr, items_repr, user_emb,
+                                    item_emb) = self.mesh_step(
+            (users, pos, negs), mask, users_repr, items_repr)
         u = users_repr[users]
         pos_scores = self.score_pairwise(u, items_repr[pos], users, pos)
         neg_scores = self.score_pairwise(u[:, None, :], items_repr[negs],
@@ -249,6 +259,18 @@ class LightGCN(nn.Module):
         l_reg = reg_loss(user_emb, item_emb, users, pos, negs,
                          self.reg_lambda, mask, count)
         return l_bpr + l_reg, {'bpr': l_bpr, 'reg': l_reg}
+
+    def mesh_step(self, parts, mask, users_repr, items_repr):
+        """``(count, parts, tables)``: ``rank_share`` of a step's batch
+        ``parts`` and ``whole_tables`` of the propagated and the layer-0
+        tables ``(users_repr, items_repr, user_emb, item_emb)``.  A mesh
+        step takes ragged batches, not masked ones."""
+        if self.mesh is not None and mask is not None:
+            raise ValueError('a mesh step takes ragged batches, not masked '
+                             'ones')
+        count, parts = self.rank_share(parts)
+        return count, parts, self.whole_tables(users_repr, items_repr,
+                                               self.user_emb, self.item_emb)
 
     # --- epoch sampling -----------------------------------------------------
 

@@ -15,6 +15,13 @@ the model scores as ``lgcn`` does.
 
 ``LTRSimple`` (``ltr_simple``) trains nothing: the CLI loads a base and
 ``probe_concat_scoring`` evaluates the concat scores with each item text.
+
+On a mesh the tables are row-sharded as ``lgcn``'s (K2 over source
+shards) and the text buffers stay whole: training scores pairs through
+``score_pairwise`` with global ids, and the top-k is the fused
+catalogue-sharded one, ``u_cat`` against this rank's rows of ``i_cat``
+(``parallel.sharded.sharded_topk``); with the head off, the plain
+sharded top-k.
 """
 
 from __future__ import annotations
@@ -22,6 +29,7 @@ from __future__ import annotations
 import torch
 
 from ..ops.retrieval import catalog_scores, score_and_topk
+from ..parallel.sharded import sharded_topk
 from .lightgcn import LightGCN
 
 ITEM_TEXT = {'reviews': 'items_as_avg_reviews', 'kg': 'items_as_desc'}
@@ -64,11 +72,14 @@ class LTRCosine(LightGCN):
 
     def fused_catalog_inputs(self, reprs, batch_users):
         """``(u_cat, i_cat, bias)``: the catalogue scores are exactly
-        ``u_cat @ i_cat.T + bias``, bias 0."""
+        ``u_cat @ i_cat.T + bias``, bias 0.  ``reprs`` as
+        ``scoring_reprs`` gives them: on a mesh ``i_cat`` holds this
+        rank's item rows (``local_rows`` of the whole item text)."""
         users_repr, items_repr = reprs
         u_cat = torch.cat([users_repr[batch_users],
                            self.users_as_avg_reviews[batch_users]], dim=-1)
-        i_cat = torch.cat([items_repr, self.items_text], dim=-1)
+        i_cat = torch.cat([items_repr, self.local_rows(
+            self.items_text, items_repr.shape[0])], dim=-1)
         return u_cat, i_cat, u_cat.new_zeros(())
 
     def score_batchwise(self, reprs, users: torch.Tensor) -> torch.Tensor:
@@ -81,6 +92,9 @@ class LTRCosine(LightGCN):
         if not self.score_with_head:
             return super().topk_for_users(reprs, batch_users, k)
         u_cat, i_cat, _ = self.fused_catalog_inputs(reprs, batch_users)
+        if self.mesh is not None:
+            return sharded_topk(self.mesh, u_cat, i_cat,
+                                self.pos_padded[batch_users], k, self.n_items)
         return score_and_topk(u_cat, i_cat, self.pos_padded[batch_users],
                               k=k, n_items=self.n_items)
 

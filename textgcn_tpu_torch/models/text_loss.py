@@ -102,19 +102,23 @@ class TextLossModel(LightGCN):
         raise NotImplementedError
 
     def semantic_loss(self, users, pos, negs, pos_scores, neg_scores,
-                      mask=None):
+                      mask=None, item_emb=None, count=None):
         """The mean over the negative columns of the batch mean of
         ``weight * distance``: ``pos``/``pos_scores`` (B,),
-        ``negs``/``neg_scores`` (B, K)."""
+        ``negs``/``neg_scores`` (B, K); ``item_emb`` the whole layer-0 item
+        table (default ``self.item_emb``), ``count`` the rows the mean
+        divides by (default the batch's; on a mesh the whole batch's)."""
+        if item_emb is None:
+            item_emb = self.item_emb
         b = self.dist_fn(self.pos_items_reprs(pos, users)[:, None, :],
                          self.neg_items_reprs(negs, users[:, None]))
-        g = self.dist_fn(self.item_emb[pos][:, None, :], self.item_emb[negs])
+        g = self.dist_fn(item_emb[pos][:, None, :], item_emb[negs])
         val = (self.weight_formula(pos_scores[:, None], neg_scores)
                * self.distance_formula(b, g))
         if mask is not None:
             val = torch.where(mask[:, None], val, 0.0)
             count = mask.to(val.dtype).sum().clamp(min=1.0)
-        else:
+        elif count is None:
             count = float(max(val.shape[0], 1))
         return (val.sum(dim=0) / count).mean()
 
@@ -122,20 +126,24 @@ class TextLossModel(LightGCN):
              w_pairs=None):
         """``(loss, {'bpr', 'sem', 'reg'})`` of one batch ``(users, pos,
         negs[, mask])``: one propagation with edge dropout, BPR,
-        ``semantic_loss`` and L2 on the layer-0 rows."""
+        ``semantic_loss`` and L2 on the layer-0 rows; on a mesh this
+        rank's share, as ``LightGCN.loss``."""
         users, pos, negs = batch[:3]
         mask = batch[3] if len(batch) > 3 else None
         users_repr, items_repr = self.representation(
             training=True, generator=generator, w_pairs=w_pairs)
+        count, (users, pos, negs), (users_repr, items_repr, user_emb,
+                                    item_emb) = self.mesh_step(
+            (users, pos, negs), mask, users_repr, items_repr)
         u = users_repr[users]
         pos_scores = self.score_pairwise(u, items_repr[pos], users, pos)
         neg_scores = self.score_pairwise(u[:, None, :], items_repr[negs],
                                          users[:, None], negs)
-        l_bpr = bpr_loss(pos_scores, neg_scores, mask)
+        l_bpr = bpr_loss(pos_scores, neg_scores, mask, count)
         l_sem = self.semantic_loss(users, pos, negs, pos_scores, neg_scores,
-                                   mask)
-        l_reg = reg_loss(self.user_emb, self.item_emb, users, pos, negs,
-                         self.reg_lambda, mask)
+                                   mask, item_emb, count)
+        l_reg = reg_loss(user_emb, item_emb, users, pos, negs,
+                         self.reg_lambda, mask, count)
         return l_bpr + l_sem + l_reg, {'bpr': l_bpr, 'sem': l_sem,
                                        'reg': l_reg}
 
@@ -221,13 +229,17 @@ TEXT_COMBOS = {
 def probe_text_representations(data, trainer) -> dict[str, dict]:
     """``{combo: metrics}`` of the four ``TEXT_COMBOS`` (user text, item
     text) of ``data`` as the scoring representation, evaluated without
-    training: no propagation, so no kernel runs."""
+    training: no propagation, so no kernel runs.  On a mesh the
+    representation is this rank's rows of the zero-padded text tables, as
+    a propagation's would be (``data``'s text holds the real rows)."""
     model = trainer.model
     results = {}
     try:
         for name, (u_attr, i_attr) in TEXT_COMBOS.items():
-            u, i = (torch.from_numpy(getattr(data, a)).to(model.device)
-                    for a in (u_attr, i_attr))
+            u, i = (model.local_rows(
+                torch.from_numpy(getattr(data, a)).to(model.device),
+                table.shape[0]) for a, table in ((u_attr, model.user_emb),
+                                                 (i_attr, model.item_emb)))
             model.representation = lambda u=u, i=i, **kw: (u, i)
             results[name] = trainer.evaluate()
     finally:

@@ -1,4 +1,4 @@
-"""The mesh path: ``lgcn``, the conv family and the LTR heads over
+"""The mesh path: every model but the boosted heads over
 ``torch.distributed`` ranks, one per GPU.
 
 Counterpart of ``textgcn_tpu/parallel/``:
@@ -9,7 +9,7 @@ Counterpart of ``textgcn_tpu/parallel/``:
   owns), ``collective_dtype`` and ``shard_model``;
 * ``sharded_spmm``: ``MeshGraphOp``, the source-row-sharded propagation on
   kernel K2 with a reduce-scatter (``pallas_sharded.MeshPallasGraphOp``),
-  for ``lgcn`` and the LTR heads;
+  for ``lgcn`` and the other ``LightGCN`` models;
 * ``sharded_conv``: ``MeshConvOp``, the destination-row shards of the
   conv family (K1, K3-K6 over the edges into a rank's rows);
 * ``sharded``: the catalogue-sharded exact top-k and the differentiable

@@ -7,12 +7,17 @@ table, ``R = n_padded / W``.  The JAX package orders its devices
 model-major for the same split (``mesh.py:196-200``); the flat rank order
 gives the same rows to the same shard index, and the same outputs.
 
-``shard_model`` takes ``lgcn``, the conv family (``gcn``, ``graphsage``,
-``gat``, ``gatv2``) and the LTR heads (``ltr_linear``, ``ltr_pop``):
+``shard_model`` takes every model but the boosted heads
+(``config.MESH_MODELS``):
 
-* ``lgcn`` and the LTR heads propagate over the edges whose SOURCE row
-  the rank owns, on K2 with a reduce-scatter (``sharded_spmm.py``); an
-  LTR head's tower and its text and popularity buffers stay whole;
+* ``lgcn`` and the other ``LightGCN`` subclasses (the LTR heads
+  ``ltr_linear``, ``ltr_pop``; ``adv_sampling``; the text-loss models
+  ``text``, ``kg``, ``reviews``; the concat scorers ``ltr_reviews``,
+  ``ltr_kg``, ``ltr_simple``; ``text_probe``) propagate over the edges
+  whose SOURCE row the rank owns, on K2 with a reduce-scatter
+  (``sharded_spmm.py``).  Only the two tables are sharded: an LTR head's
+  tower, the text and popularity buffers, ``text --pos user``'s (item,
+  user) review table and the train lists stay whole on every rank;
 * the conv family propagates over the edges whose DESTINATION row the
   rank owns (``sharded_conv.py``), with its conv layers whole.
 
@@ -117,8 +122,8 @@ def shard_model(mesh: Mesh, model, data):
     """Row-shard a model in place: its tables keep this rank's rows of the
     zero-padded tables (and their ``requires_grad``: a frozen head's stay
     frozen) and its graph op becomes ``MeshConvOp`` (the conv family) or
-    ``MeshGraphOp`` (``lgcn``, the LTR heads).  Everything else stays
-    whole.
+    ``MeshGraphOp`` (the other ``LightGCN`` models).  Everything else, the
+    buffers included, stays whole.
 
     ``data`` is ``padded_to(mesh.size)``: phantom rows have no edges, are
     never sampled and never scored.  ``lgcn``'s stay zero; a conv layer

@@ -10,9 +10,10 @@ Counterpart of ``textgcn_tpu/parallel/sharded.py``:
   it;
 * ``sharded_topk`` (``sharded.py:72-151``): each rank scores its item
   shard, takes a local top-k with global ids, and the candidates of all
-  ranks are gathered and merged exactly (an LTR head passes its fused
-  factors ``u_cat`` and its rows of ``i_cat``);
-* ``all_reduce_sum``: the loss sums of an epoch.
+  ranks are gathered and merged exactly (an LTR head or a concat scorer
+  passes its fused factors ``u_cat`` and its rows of ``i_cat``);
+* ``all_reduce_sum``: the loss sums of an epoch, ``adv_sampling``'s count
+  of valid pairs.
 """
 
 from __future__ import annotations

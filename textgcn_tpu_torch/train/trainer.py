@@ -57,8 +57,9 @@ computes the metrics; logs, ``predictions.tsv``, exports and checkpoints
 come from rank 0 only, after the collectives that gather the tables
 (``trainer.py:244, 407, 499, 527, 577`` in the JAX package); a resume
 restores every rank's own rows of the tables and of their Adam state, and
-the replicated parameters' Adam state as rank 0 held it (every rank's is
-the same).
+the replicated parameters' Adam state and the generators as rank 0 held
+them (every rank's are the same: ``adv_sampling``'s model generator draws
+the whole batch's candidates on every rank).
 
 ``--steps_per_call`` is accepted and ignored.
 """
