@@ -198,7 +198,22 @@ Phases, each of which passes or ends the run with a non-zero exit:
    thresholds, leaf values within 1e-9 relative, scores within 1e-5) on
    the batch's first 64 users' rows (1.6M), and the card's fit of the
    whole batch and ``forest_predict`` (10 and 160 trees) timed against
-   the scorer's bound;
+   the scorer's bound; then ``marcus`` (on S1) and ``gbdt_pop`` (on the
+   4,096-user cut) again with ``--mesh 1x1`` (a one-rank group: K2's
+   source shard, the fit replicated, the tie-exact sharded top-k): K2
+   launches exactly 6 for each of the same four passes and no other
+   kernel, ``forest.npz`` bit-equal to the single card's, the metrics
+   equal, ``predictions.tsv`` byte-equal, and the ``--load RUN
+   --no_train --mesh 1x1`` re-serve the same metrics (6 K2 launches);
+9j2. dcp: ``lgcn --mesh 1x1`` on the 4,096-user cut for 1 epoch, then
+   ``--resume``d for a second, with ``--ckpt_backend orbax``
+   (``torch.distributed.checkpoint``: ``latest_checkpoint.orbax/``,
+   ``best.orbax/``, ``resume_state.orbax/``) and with ``pickle``: K2
+   launches exactly ``steps x 12 + 6`` a run; the resumed orbax run
+   equals the pickle backend's bit for bit (loss sums, metrics, every
+   array of the checkpoint and the resume state); its
+   ``latest_checkpoint.orbax`` serves on one card without a mesh (6 K1
+   launches) the metrics it measured (1e-6);
 9k. trace: ``lgcn --epochs 1 --trace DIR`` through ``cli.main`` on the
    boosted phase's 4,096-user cut of S1 (S1's widths): K1 launches
    exactly ``steps x 12 + 6``, the ``torch.profiler`` trace parses and
@@ -1937,8 +1952,85 @@ def boosted_run(data_dir: str, base: str, model: str,
         f'from forest.npz; launches {serve_launches}')
     return {'trainer': trainer, 'launches': launches,
             'serve_launches': serve_launches, 'seconds': seconds,
-            'trees': len(state.trees),
+            'trees': len(state.trees), 'run_dir': run_dir,
+            'metrics': trainer.last_metrics,
             'importances': state.feature_importances().tolist()}
+
+
+def same_files(a: str, b: str) -> bool:
+    with open(a, 'rb') as f, open(b, 'rb') as g:
+        return f.read() == g.read()
+
+
+def same_forest(a: str, b: str) -> bool:
+    """Two ``forest.npz`` files hold the same arrays, bit for bit."""
+    with np.load(a) as x, np.load(b) as y:
+        return sorted(x.files) == sorted(y.files) and all(
+            x[k].dtype == y[k].dtype and x[k].shape == y[k].shape
+            and x[k].tobytes() == y[k].tobytes() for k in x.files)
+
+
+def boosted_mesh_run(data_dir: str, base: str, model: str, single: dict,
+                     extra: tuple[str, ...] = ()) -> dict:
+    """``model --load_base base --predict --mesh 1x1`` through the CLI (a
+    one-rank group: the tables on K2's source shard, the fit replicated,
+    the tie-exact sharded top-k) against ``single``, the single-card
+    ``boosted_run`` of the same flags: K2 launches exactly 6 for each of
+    the base's evaluation, the fit's propagation, the evaluation and the
+    prediction (forward only) and no other kernel launches; ``forest.npz``
+    bit-equal, the metrics equal, ``predictions.tsv`` byte-equal; then
+    ``--load RUN --no_train --mesh 1x1`` re-serves the metrics with 6 K2
+    launches."""
+    common = ['--emb_size', str(D), '--n_layers', str(LAYERS),
+              '--batch_size', str(BATCH), '-k', *map(str, KS), '--quiet',
+              '--mesh', '1x1']
+    flags = ('--model', model)
+    reset_counts()
+    t0 = time.perf_counter()
+    trainer, run_dir = cli_run(data_dir, [*flags, '--load_base', base,
+                                          '--predict', *extra, '--uid',
+                                          f'boost-{model}-mesh', *common],
+                               'cuda')
+    seconds = time.perf_counter() - t0
+    launches = counts()
+    per_pass = 2 * LAYERS
+    want = dict.fromkeys(_wrappers(), 0)
+    want['spmm_weighted'] = 4 * per_pass
+    log(f'boosted {model} --mesh 1x1: cli.main took {seconds:.3f} s; '
+        f'launches {launches}; metrics {json.dumps(trainer.last_metrics)}')
+    check(launches == want, f'boosted {model} --mesh 1x1: launches '
+          f'{launches}, expected {want} (base eval, fit, eval, predict: '
+          'forward only)')
+    one = single['run_dir']
+    check(same_forest(os.path.join(run_dir, 'forest.npz'),
+                      os.path.join(one, 'forest.npz')),
+          f'boosted {model} --mesh 1x1: forest.npz differs from the single '
+          'card\'s')
+    single_metrics = single['metrics']
+    for name, got in trainer.last_metrics.items():
+        check(np.array_equal(got, single_metrics[name]),
+              f'boosted {model} --mesh 1x1: {name} {got}, the single card '
+              f'{single_metrics[name]}')
+    check(same_files(os.path.join(run_dir, 'predictions.tsv'),
+                     os.path.join(one, 'predictions.tsv')),
+          f'boosted {model} --mesh 1x1: predictions.tsv differs from the '
+          'single card\'s')
+    reset_counts()
+    served, _ = serve(data_dir, f'boost-{model}-mesh-serve',
+                      ['--load', run_dir, *common], 'cuda', model=flags)
+    serve_launches = counts()
+    check(serve_launches == dict(want, spmm_weighted=per_pass),
+          f'boosted {model} --mesh 1x1: re-serving launched '
+          f'{serve_launches}')
+    for name, got in served.last_metrics.items():
+        check(np.array_equal(got, single_metrics[name]),
+              f'boosted {model} --mesh 1x1: forest.npz serves {name} {got}, '
+              f'the single card measured {single_metrics[name]}')
+    log(f'boosted {model} --mesh 1x1: forest.npz bit-equal, metrics equal, '
+        f'predictions.tsv byte-equal to the single card\'s; the --load '
+        f're-serve launched {serve_launches}')
+    return {'launches': launches, 'serve_launches': serve_launches,
+            'seconds': seconds}
 
 
 def first_difference(a, b) -> str | None:
@@ -2049,13 +2141,18 @@ def boosted_phase(root: str, s1_dir: str, lgcn_run: str, card: str,
     lgcn run> --neg_samples 1`` on S1, then ``gbdt`` and ``gbdt_pop`` on
     ``BOOST_USERS`` users of S1's generator with the full catalogue, S1's
     text widths and a random base (``boosted_run`` each), and the fit on
-    the card against the CPU's (``boosted_fit_phase``)."""
+    the card against the CPU's (``boosted_fit_phase``); ``marcus`` and
+    ``gbdt_pop`` again with ``--mesh 1x1`` against those single-card runs
+    (``boosted_mesh_run``)."""
     from textgcn_tpu_torch.config import Config
     from textgcn_tpu_torch.data.core import load_interactions
     from textgcn_tpu_torch.data.text import load_ltr_data
     out = {'marcus': boosted_run(s1_dir, lgcn_run, 'marcus',
                                  ('--neg_samples', '1'))}
     marcus = out['marcus'].pop('trainer')
+    out['marcus_mesh'] = boosted_mesh_run(s1_dir, lgcn_run, 'marcus',
+                                          out['marcus'],
+                                          ('--neg_samples', '1'))
     n_rows = int(marcus.data.pos_degree.sum()) * 2
     check(out['marcus']['trees'] == 10, 'marcus: one fit of 10 trees')
     log(f'boosted marcus: {n_rows} fit rows (positives and one negative '
@@ -2082,10 +2179,119 @@ def boosted_phase(root: str, s1_dir: str, lgcn_run: str, card: str,
     out['fit'] = boosted_fit_phase(out['gbdt'].pop('trainer'), card,
                                    lambda: run('gbdt_pop'))
     out['gbdt_pop'].pop('trainer')
+    out['gbdt_pop_mesh'] = boosted_mesh_run(data_dir, ck, 'gbdt_pop',
+                                            out['gbdt_pop'])
+    for r in out.values():
+        for key in ('run_dir', 'metrics'):
+            r.pop(key, None)
     log(f'boosted data: {data.n_users} users x {data.n_items} items, '
         f'{data.n_train} train / {data.n_test} test edges; load_ltr_data '
         f'{out["text"]["load_ltr_data_s"]:.3f} s')
     out['data_dir'] = data_dir
+    return out
+
+
+def dcp_phase(data_dir: str) -> dict:
+    """``lgcn --mesh 1x1`` on ``data_dir`` for 1 epoch, then ``--resume``d
+    for a second, once with ``--ckpt_backend orbax``
+    (``torch.distributed.checkpoint``) and once with ``pickle``: each run
+    launches K2 exactly ``expected_launches('lgcn_mesh', steps, 1)``
+    times; the orbax runs write ``latest_checkpoint.orbax/``,
+    ``best.orbax/`` and ``resume_state.orbax/`` (DCP directories), and the
+    resumed run repeats the pickle backend's bit for bit: its loss sums,
+    its metrics by eval, and every array of its checkpoint and resume
+    state (K2 adds in a fixed order).  Then the resumed run's
+    ``latest_checkpoint.orbax`` serves on one card without a mesh (6 K1
+    launches) the metrics it measured (1e-6)."""
+    from textgcn_tpu_torch.train.checkpoint import make_checkpointer
+    common = [*MODEL_FLAGS['lgcn'], '--evaluate_every', '1', '--emb_size',
+              str(D), '--n_layers', str(LAYERS), '--batch_size', str(BATCH),
+              '--dropout', '0.4', '-k', *map(str, KS), '--quiet', '--mesh',
+              '1x1']
+    out, runs = {'launches': {}}, {}
+    t0 = time.perf_counter()
+    for backend in ('orbax', 'pickle'):
+        argv = [*common, '--ckpt_backend', backend]
+        reset_counts()
+        first, first_dir = cli_run(data_dir, [*argv, '--epochs', '1',
+                                              '--uid', f'dcp-{backend}-1'],
+                                   'cuda')
+        c1 = counts()
+        second, second_dir = cli_run(data_dir, [
+            *argv, '--epochs', '2', '--uid', f'dcp-{backend}-2',
+            '--resume', first_dir], 'cuda')
+        launches = counts()
+        per_run = expected_launches('lgcn_mesh',
+                                    first.model.num_batches(BATCH), 1)
+        check(c1 == per_run and launches == {k: 2 * v for k, v in
+                                             per_run.items()},
+              f'dcp {backend}: launches {c1} then {launches}, expected '
+              f'{per_run} each')
+        ck = make_checkpointer(backend)
+        runs[backend] = {
+            'loss': [h['loss'] for h in first.loss_history
+                     + second.loss_history],
+            'metrics': second.metrics_logger,
+            'latest': ck.load(os.path.join(second_dir, ck.latest_name)),
+            'resume': ck.load_resume(second_dir), 'dir': second_dir,
+            'first_dir': first_dir}
+        out['launches'][backend] = launches
+    out['seconds'] = time.perf_counter() - t0
+    o, p = runs['orbax'], runs['pickle']
+    for d in (o['first_dir'], o['dir']):
+        for name in ('latest_checkpoint.orbax', 'resume_state.orbax'):
+            check(os.path.exists(os.path.join(d, name, '.metadata')),
+                  f'dcp: {d} has no DCP directory {name}')
+    check(os.path.exists(os.path.join(o['first_dir'], 'best.orbax',
+                                      '.metadata')),
+          'dcp: the first orbax run wrote no best.orbax')
+    check(o['loss'] == p['loss'], f'dcp: the orbax runs\' loss sums '
+          f'{o["loss"]}, the pickle runs\' {p["loss"]}')
+    for name, v in p['metrics'].items():
+        check(np.array_equal(o['metrics'][name], v),
+              f'dcp: {name} by eval {o["metrics"][name].tolist()} vs '
+              f'{v.tolist()}')
+
+    def leaves(tree, prefix=''):
+        if isinstance(tree, dict):
+            for k in sorted(tree):
+                yield from leaves(tree[k], f'{prefix}/{k}')
+        else:
+            yield prefix, tree
+
+    for part in ('latest', 'resume'):
+        got, want = dict(leaves(o[part])), dict(leaves(p[part]))
+        check(sorted(got) == sorted(want),
+              f'dcp: {part} keys {sorted(got)} vs {sorted(want)}')
+        for key, v in want.items():
+            g = got[key]
+            same = (np.asarray(g).dtype == np.asarray(v).dtype
+                    and np.asarray(g).tobytes() == np.asarray(v).tobytes()
+                    if isinstance(v, np.ndarray) else g == v)
+            check(same, f'dcp: {part}{key} differs between the backends')
+    reset_counts()
+    latest = os.path.join(o['dir'], 'latest_checkpoint.orbax')
+    served, _ = serve(data_dir, 'dcp-serve',
+                      ['--load', latest, '--ckpt_backend', 'orbax',
+                       '--emb_size', str(D), '--n_layers', str(LAYERS),
+                       '--batch_size', str(BATCH), '-k', *map(str, KS)],
+                      'cuda')
+    serve_launches = counts()
+    want = expected_launches('lgcn', 0, 1)
+    check(serve_launches == want, f'dcp: the single-card serve of '
+          f'{latest} launched {serve_launches}, expected {want}')
+    for name, v in served.last_metrics.items():
+        check(np.allclose(v, o['metrics'][name][-1], atol=1e-6, rtol=0),
+              f'dcp: {latest} serves {name} {v}, the run measured '
+              f'{o["metrics"][name][-1]}')
+    log(f'dcp lgcn --mesh 1x1: 1 epoch and a --resume for 1 more with '
+        f'--ckpt_backend orbax repeat the pickle backend bit for bit (loss '
+        f'sums {o["loss"]}, metrics, {sum(1 for _ in leaves(o["latest"]))}'
+        f' + {sum(1 for _ in leaves(o["resume"]))} checkpoint leaves); '
+        f'launches {out["launches"]}; latest_checkpoint.orbax serves its '
+        f'metrics on one card ({serve_launches["spmm_dropout"]} K1 '
+        f'launches); the four runs took {out["seconds"]:.3f} s')
+    out['serve_launches'] = serve_launches
     return out
 
 
@@ -3126,6 +3332,9 @@ def main():
                                 card, dev)
         log(f'phase boosted: {time.perf_counter() - t:.3f} s')
         t = time.perf_counter()
+        dcp = dcp_phase(boosted['data_dir'])
+        log(f'phase dcp: {time.perf_counter() - t:.3f} s')
+        t = time.perf_counter()
         traced = trace_phase(boosted.pop('data_dir'), root)
         log(f'phase trace: {time.perf_counter() - t:.3f} s')
         t = time.perf_counter()
@@ -3159,10 +3368,16 @@ def main():
                                     resumed['launches'].items() if n}
     by_path.update({f'probe_{m}': {k: n for k, n in r['launches'].items()
                                    if n} for m, r in probes.items()})
-    for m in ('marcus', 'gbdt', 'gbdt_pop'):
+    for m in ('marcus', 'gbdt', 'gbdt_pop', 'marcus_mesh', 'gbdt_pop_mesh'):
         for path, key in (('train', 'launches'), ('serve', 'serve_launches')):
             by_path[f'{path}_{m}'] = {k: n for k, n in
                                       boosted[m][key].items() if n}
+    # lgcn --mesh 1x1: 1 epoch and a --resume for 1 more, each backend
+    for backend, c in dcp['launches'].items():
+        by_path[f'train_lgcn_mesh_resume_{backend}'] = {
+            k: n for k, n in c.items() if n}
+    by_path['serve_lgcn_dcp'] = {k: n for k, n in
+                                 dcp['serve_launches'].items() if n}
 
     by_path['train_lgcn_trace'] = {k: n for k, n in
                                    traced['launches'].items() if n}
@@ -3203,7 +3418,8 @@ def main():
         # the fit's propagation, eval, predict) and their --load re-serve;
         # train lgcn --trace (1 epoch) and the quality run (60 epochs on
         # the 50k x 20k sharp set, or fewer if the early stop ends it);
-        # train gcn and graphsage --mesh 1x1 (1 epoch)
+        # train gcn and graphsage --mesh 1x1 (1 epoch); serve the
+        # resumed lgcn --mesh 1x1 run's latest_checkpoint.orbax on one card
         **launch_fields('spmm_dropout', 'lgcn'),
         'max_abs_err': k1['max_abs_err'],
         'max_abs_err_by_width': k1['max_abs_err_by_width'],
@@ -3226,7 +3442,11 @@ def main():
         # adv_sampling (the rank pass forward, the loss pass forward and
         # backward), text --pos user, kg, reviews, ltr_reviews and ltr_kg
         # --mesh 1x1 (1 epoch); ltr_simple --load_base --mesh 1x1 (the
-        # base's eval and two probes)
+        # base's eval and two probes); train marcus and gbdt_pop
+        # --load_base --mesh 1x1 (forward only: base eval, the fit's
+        # propagation, eval, predict) and their --load re-serve; lgcn
+        # --mesh 1x1 for 1 epoch and --resume'd for 1 more with
+        # --ckpt_backend orbax and with pickle
         **launch_fields('spmm_weighted', 'lgcn_mesh'),
         'max_abs_err': k2['max_abs_err'],
         'max_abs_err_4_shards_vs_k1': k2['max_abs_err_vs_k1'],
@@ -3322,7 +3542,7 @@ def main():
                     'mesh_conv': mesh_conv, 'mesh_ltr': mesh_ltr,
                     'mesh_slice': mesh_slice, 'ltr_loads': ltr_loads,
                     'mining_ms': mining,
-                    'boosted': boosted,
+                    'boosted': boosted, 'dcp': dcp,
                     'trace': traced, 'quality': quality,
                     'text_user_pair_table_bytes': pair_bytes}))
     print(json.dumps({'kernels': kernels}), flush=True)

@@ -1,18 +1,20 @@
 """One rank of the port's mesh checks of the conv family, the LTR heads,
-``adv_sampling`` and the text-loss, concat and probe models
-(``tests/test_torch_mesh_conv.py``, ``tests/test_torch_mesh_ltr.py``,
-``tests/test_torch_mesh_adv.py``, ``tests/test_torch_mesh_text.py``).
+``adv_sampling``, the text-loss, concat and probe models and the boosted
+heads (``tests/test_torch_mesh_conv.py``, ``tests/test_torch_mesh_ltr.py``,
+``tests/test_torch_mesh_adv.py``, ``tests/test_torch_mesh_text.py``,
+``tests/test_torch_mesh_boosted.py``).
 
 Started by ``torch.multiprocessing`` (spawn) with ``run(rank, world,
 work_dir)``: joins a gloo group over a ``file://`` store in ``work_dir``,
 reads ``work_dir/inputs.pkl`` (made by the test with numpy; ``kind`` is
-``'conv'``, ``'ltr'``, ``'adv'`` or ``'text'``), runs the port's mesh path
-on the CPU, on one torch thread, and writes what it found to
-``work_dir/rank<r>.pkl``.  Imports torch and the port only.
+``'conv'``, ``'ltr'``, ``'adv'``, ``'text'`` or ``'boosted'``), runs the
+port's mesh path on the CPU, on one torch thread, and writes what it
+found to ``work_dir/rank<r>.pkl``.  Imports torch and the port only.
 """
 
 import os
 import pickle
+import time
 import traceback
 
 import numpy as np
@@ -324,6 +326,102 @@ def resume_check(inp, world, work_dir):
     return out
 
 
+def _wait_for(path: str, timeout: float):
+    deadline = time.monotonic() + timeout
+    while not os.path.exists(path):
+        if time.monotonic() > deadline:
+            raise TimeoutError(f'{path} was not written in {timeout} s')
+        time.sleep(0.2)
+
+
+def _topk_high_index_first(x, k, dim=-1, largest=True, sorted=True):
+    """A ``torch.topk`` that keeps its contract (no order among equal
+    values is promised) and breaks ties to the higher index, as a CUDA
+    ``torch.topk`` may: the sharded merge must not lean on the CPU's
+    order."""
+    assert largest and dim in (-1, x.dim() - 1)
+    n = x.shape[-1]
+    order = torch.sort(x.flip(-1), dim=-1, descending=True,
+                       stable=True).indices[..., :k]
+    idx = n - 1 - order
+    return torch.return_types.topk((x.gather(-1, idx), idx))
+
+
+def boosted_checks(inp, world, work_dir):
+    """The boosted heads (``inp['heads']``) through the CLI with
+    ``inp['argv'] --load_base --predict --mesh 1xW`` from ``work_dir``
+    (rank 0 writes there): each forest, every user's served top-k and the
+    metrics; the run re-served with ``--load RUN --no_train``.  Then, with
+    the last head's model, the top ``inp['tie_k']`` of every user under
+    each forest of
+    ``inp['tie_forests']`` (scores with ties across the shards), also with
+    ``torch.topk`` breaking ties to the higher index, and
+    ``check_ranks_agree`` with a forest that differs on every rank.  Then,
+    once the parent has written ``jax.pkl`` (the forests of the JAX
+    package's mesh runs), each served from ``--load_base --no_train
+    --mesh 1xW`` (``predictions.tsv`` under ``carried-<model>``)."""
+    from textgcn_tpu_torch import cli
+    from textgcn_tpu_torch.ops.trees import GBRTState
+    from textgcn_tpu_torch.parallel.sharded import ranks_agree
+    os.chdir(work_dir)
+    mesh = ['--mesh', f'1x{world}']
+    users = np.arange(inp['n_users'])
+    out = {}
+    for model in inp['heads']:
+        trainer = cli.main(['--model', model, *inp['argv'], '--load_base',
+                            inp['base'], '--predict', *mesh, '--uid',
+                            f'mesh-{model}'])
+        idx, vals = trainer._predict_users(users)
+        dist.barrier()      # rank 0's files are written
+        served = cli.main(['--model', model, *inp['argv'], '--load',
+                           os.path.join('runs', 'dummy', f'mesh-{model}'),
+                           '--no_train', *mesh, '--uid',
+                           f'mesh-{model}-serve'])
+        out[model] = {'forest': trainer.model.forest_state,
+                      'metrics': trainer.last_metrics,
+                      'served_metrics': served.last_metrics,
+                      'topk': (vals, idx)}
+    model = trainer.model
+    plain_topk = torch.topk
+    for name, topk in (('ties', plain_topk),
+                       ('ties_high_first', _topk_high_index_first)):
+        out[name] = []
+        torch.topk = topk
+        try:
+            for state in inp['tie_forests']:
+                model.forest_state = state
+                with torch.no_grad():
+                    vals, idx = model.topk_for_users(
+                        model.scoring_reprs(), torch.from_numpy(users),
+                        inp['tie_k'])
+                out[name].append((vals.numpy(), idx.numpy()))
+        finally:
+            torch.topk = plain_topk
+    state = inp['tie_forests'][0]
+    model.forest_state = GBRTState(state.trees, state.init + dist.get_rank(),
+                                   state.learning_rate, state.n_features)
+    try:
+        model.check_ranks_agree()
+        out['diverged'] = None
+    except RuntimeError as e:
+        out['diverged'] = str(e)
+    out['agree'] = (ranks_agree(1.0, 'cpu'),
+                    ranks_agree(float(dist.get_rank()), 'cpu'))
+    _wait_for(os.path.join(work_dir, 'jax.pkl'), inp['jax_timeout'])
+    with open(os.path.join(work_dir, 'jax.pkl'), 'rb') as f:
+        carried = pickle.load(f)
+    out['carried'] = {}
+    for model, state in carried.items():
+        trainer = cli.main(['--model', model, *inp['argv'], '--load_base',
+                            inp['base'], '--no_train', *mesh, '--uid',
+                            f'carried-{model}'])
+        trainer.model.forest_state = state
+        out['carried'][model] = trainer.evaluate(1)
+        trainer.predict(users, with_scores=True, save=True)
+        dist.barrier()
+    return out
+
+
 def run(rank: int, world: int, work_dir: str):
     os.environ['TEXTGCN_TPU_PLATFORM'] = 'cpu'
     os.environ['TEXTGCN_TPU_TEXT_ENCODER'] = 'stub'
@@ -341,6 +439,8 @@ def run(rank: int, world: int, work_dir: str):
                 out['cli'] = cli_check(inp, rank, work_dir)
             else:
                 out['resume'] = resume_check(inp, world, work_dir)
+        elif inp['kind'] == 'boosted':
+            out = {'boosted': boosted_checks(inp, world, work_dir)}
         elif inp['kind'] == 'ltr':
             out = {'ltr': ltr_checks(inp, mesh)}
             if world == 4:

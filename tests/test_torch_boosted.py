@@ -17,8 +17,9 @@ trees; without xgboost every head takes that path).  Then:
   (the dummy data's 120 rows make tiny nodes, where two features often
   split alike; from there on the carried case above holds the scoring);
 * ``forest.npz`` round-trips through ``--load RUN --no_train``, a JAX
-  ``tree.pkl`` is refused, a tree head exports no LTR factors, and
-  ``--mesh`` is refused for the five heads.
+  ``tree.pkl`` is refused, and a tree head exports no LTR factors.
+
+The heads on ``--mesh`` are ``tests/test_torch_mesh_boosted.py``'s.
 """
 
 import contextlib
@@ -265,12 +266,6 @@ def test_serving_without_a_forest_raises(workdir):
     pt = _port_loaded(workdir, 'gbdt', 'no-forest')
     with pytest.raises(RuntimeError, match='no fitted forest'):
         pt.predict([0, 1])
-
-
-@pytest.mark.parametrize('model', BOOSTED)
-def test_mesh_is_refused(model):
-    with pytest.raises(NotImplementedError, match='--mesh'):
-        tconfig.parse_args(['--model', model, '--mesh', '2x4'])
 
 
 @pytest.mark.parametrize('model', BOOSTED)

@@ -116,17 +116,19 @@ def test_parse_args_matches_jax(argv):
 
 
 @pytest.mark.parametrize('argv, err', [
-    (['--model', 'xgboost', '--mesh', '2x4'], NotImplementedError),
+    (['--model', 'xgboost', '--mesh', '2by4'], ValueError),
     (['--model', 'marcus', '--approx_topk', '0.9'], NotImplementedError),
-    (['--model', 'gbdt_pop', '--mesh', '2x4'], NotImplementedError),
+    (['--model', 'gbdt_pop', '--mesh', '0x4'], ValueError),
     (['--model', 'ltr_simple'], ValueError),
     (['--model', 'adv_sampling', 'TEXTGCN_TPU_ADV_TOPK=0.9'],
      NotImplementedError),
-    (['--model', 'gbdt', '--mesh', '2x4'], NotImplementedError),
+    (['--model', 'gbdt', '--mesh', '2x4', '--approx_topk', '0.9'],
+     NotImplementedError),
     (['--model', 'lgcn', '--approx_topk', '0.95'], NotImplementedError),
     (['--model', 'lgcn', '--dropout', '1.5'], ValueError),
     (['--model', 'lgcn', '--load', 'a', '--load_base', 'b'], ValueError),
-    (['--model', 'xgboost_pop', '--mesh', '2x4'], NotImplementedError),
+    (['--model', 'xgboost_pop', '--ckpt_backend', 'orbax',
+      '--approx_topk', '0.95'], NotImplementedError),
     (['--model', 'gatv2', '--aggr', 'mean', '--approx_topk', '0.5'],
      NotImplementedError),
     (['--model', 'gat'], ValueError),

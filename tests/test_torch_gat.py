@@ -20,6 +20,8 @@ import optax
 import pytest
 import torch
 
+from helpers.torch_native import ensure_jax_native
+from textgcn_tpu import native
 from textgcn_tpu.config import Config as JaxConfig
 from textgcn_tpu.data.core import load_interactions as jax_load
 from textgcn_tpu.models.conv import ConvModel as JaxConvModel
@@ -37,6 +39,13 @@ from textgcn_tpu_torch.weights import params_from_jax
 SALT = 0x9E3779B9
 KEEP = float(np.float32(1.0 - 0.4))
 D = 16
+
+
+@pytest.fixture(scope='module', autouse=True)
+def _jax_native():
+    """The JAX oracle lays out its tiles through its native builder
+    (``tests/helpers/torch_native.py``), never the numpy fallback."""
+    ensure_jax_native(native)
 
 
 @pytest.fixture(autouse=True)
@@ -286,7 +295,7 @@ def test_conv_model_init_and_refusals(dummy_dir):
         with pytest.raises(ValueError, match='--aggr'):
             tconfig.parse_args(['--model', name])
     with pytest.raises(NotImplementedError, match='not ported'):
-        tconfig.parse_args(['--model', 'gbdt', '--mesh', '2x4'])
+        tconfig.parse_args(['--model', 'gbdt', '--approx_topk', '0.9'])
 
 
 def test_cli_trains_gat_and_jax_loads_it(tmp_path, monkeypatch, dummy_dir):

@@ -22,6 +22,8 @@ import optax
 import pytest
 import torch
 
+from helpers.torch_native import ensure_jax_native
+from textgcn_tpu import native
 from textgcn_tpu.config import Config as JaxConfig
 from textgcn_tpu.data.core import load_interactions as jax_load
 from textgcn_tpu.models.conv import ConvModel as JaxConvModel
@@ -43,6 +45,13 @@ BATCH = 16
 LR = 5e-3
 KEEP = float(np.float32(1.0 - 0.4))
 SALT = 0x9E3779B9
+
+
+@pytest.fixture(scope='module', autouse=True)
+def _jax_native():
+    """The JAX oracle lays out its tiles through its native builder
+    (``tests/helpers/torch_native.py``), never the numpy fallback."""
+    ensure_jax_native(native)
 
 
 def _mask01(eu, ei, salt):

@@ -18,6 +18,8 @@ import numpy as np
 import pytest
 import torch
 
+from helpers.torch_native import ensure_jax_native
+from textgcn_tpu import native
 from textgcn_tpu.models.conv import _attention_direction, _leaky
 from textgcn_tpu.ops.pallas_spmm import PallasGraphOp
 from textgcn_tpu.ops.pallas_spmm import edge_dropout_scale as jax_scale
@@ -28,6 +30,13 @@ SALT = 0x9E3779B9
 KEEP = float(np.float32(1.0 - 0.4))
 D = 16
 NU, NI = 60, 45
+
+
+@pytest.fixture(scope='module', autouse=True)
+def _jax_native():
+    """The JAX oracle lays out its tiles through its native builder
+    (``tests/helpers/torch_native.py``), never the numpy fallback."""
+    ensure_jax_native(native)
 
 
 def _graph(seed=0, nu=NU, ni=NI, e=260):

@@ -21,6 +21,7 @@ from jax.experimental.pallas import tpu as pltpu
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 
+from helpers.torch_native import ensure_jax_native  # noqa: E402
 from textgcn_tpu import native  # noqa: E402
 from textgcn_tpu.ops import pallas_spmm  # noqa: E402
 from textgcn_tpu_torch.tools import gather_lab as tgl  # noqa: E402
@@ -126,17 +127,11 @@ def test_tile_layout_equals_pallas_direction(monkeypatch, group, use_native):
     assert lay.packed.dtype == np.int32 and lay.w.dtype == np.float32
 
 
-def test_tile_layout_without_edges_equals_native_pallas_direction(
-        monkeypatch):
+def test_tile_layout_without_edges_equals_native_pallas_direction():
     """No edge at all: one group of zeros, every block empty, as the JAX
     package's native builder lays it out (its numpy path cannot: it
     concatenates no runs)."""
-    if not native.available():
-        # a first-use build raced another process: try once more
-        monkeypatch.setattr(native, '_TRIED', False)
-        native.ensure_built()
-        if not native.available():
-            pytest.skip('the native graph builder is not available')
+    ensure_jax_native(native)
     src = dst = np.zeros(0, np.int64)
     w = np.zeros(0, np.float32)
     op = pallas_spmm.PallasDirection(src, dst, w, 1_300, 2_100)

@@ -605,10 +605,12 @@ def test_warn_footguns_says_what_jax_says(argv, n_warnings):
 
 @pytest.mark.parametrize('model', ['ltr_linear', 'ltr_pop'])
 def test_ltr_on_a_mesh_is_refused(model):
-    """The two heads run on a mesh (``tests/test_torch_mesh_ltr.py``), and
-    so do the concat scorers (``tests/test_torch_mesh_text.py``); the
-    boosted heads beside them still refuse it."""
-    assert tconfig.parse_args(['--model', model, '--mesh', '1x1']).mesh
-    for other in ('gbdt', 'gbdt_pop', 'marcus'):
-        with pytest.raises(NotImplementedError, match='--mesh'):
-            tconfig.parse_args(['--model', other, '--mesh', '1x1'])
+    """No LTR head refuses a mesh any more: the two heads run on one
+    (``tests/test_torch_mesh_ltr.py``), and so do the concat scorers
+    (``tests/test_torch_mesh_text.py``) and the boosted heads beside them
+    (``tests/test_torch_mesh_boosted.py``); a malformed mesh is refused
+    for each."""
+    for name in (model, 'gbdt', 'gbdt_pop', 'marcus'):
+        assert tconfig.parse_args(['--model', name, '--mesh', '1x1']).mesh
+        with pytest.raises(ValueError, match='--mesh'):
+            tconfig.parse_args(['--model', name, '--mesh', '1by1'])

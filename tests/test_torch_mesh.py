@@ -29,6 +29,8 @@ import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
 
+from helpers.torch_native import ensure_jax_native
+from textgcn_tpu import native
 from textgcn_tpu.config import Config as JaxConfig
 from textgcn_tpu.data.core import load_interactions as jax_load
 from textgcn_tpu.models.lightgcn import LightGCN as JaxLightGCN
@@ -124,6 +126,7 @@ def ranks(tmp_path_factory, dummy_dir):
     inputs under ``'inputs'`` and the W = 4 directory under ``'dir4'``."""
     sys.path.insert(0, HELPERS)
     import torch_mesh_worker
+    ensure_jax_native(native)
     inp = _inputs(dummy_dir)
     dirs = {w: tmp_path_factory.mktemp(f'mesh{w}') for w in (2, 4)}
     for d in dirs.values():
@@ -148,6 +151,9 @@ def _jax_pairs():
 
 
 def _jax_mesh_op(graph, n_ranks, pad, d):
+    # at W = 4 a source split has no edges, which only the native layout
+    # builder lays out
+    ensure_jax_native(native)
     op = MeshPallasGraphOp(graph.edge_user, graph.edge_item,
                            graph.edge_weight, pad, pad, d,
                            jax_mesh((1, n_ranks)), interpret=True,
@@ -388,8 +394,9 @@ def test_a_mesh_of_another_size_than_the_group_is_refused(ranks):
 
 
 @pytest.mark.parametrize('argv, err', [
-    (['--model', 'gbdt', '--mesh', '2x2'], NotImplementedError),
-    (['--model', 'marcus', '--mesh', 'auto'], NotImplementedError),
+    (['--model', 'gbdt', '--mesh', '2x2', '--approx_topk', '0.9'],
+     NotImplementedError),
+    (['--model', 'marcus', '--mesh', 'autox'], ValueError),
     (['--model', 'lgcn', '--mesh', '2x2', '--approx_topk', '0.9'],
      NotImplementedError),
     (['--model', 'lgcn', '--mesh', '2by2'], ValueError),

@@ -22,7 +22,7 @@ dropout salts, made here with numpy, on ``data/dummy`` padded to 16 rows
   ``best.pkl`` serves through the non-mesh CLI and the JAX CLI; a
   ``--resume``d ``gcn --mesh 1x2`` run is bit-equal to the uninterrupted
   one; ``--mesh 1x1`` in-process repeats the single card; every model
-  outside ``MESH_MODELS`` refuses ``--mesh``.
+  takes ``--mesh``, and ``--help`` names no model beside it.
 """
 
 import logging
@@ -427,8 +427,20 @@ def test_mesh_1x1_in_process_equals_the_single_card_run(
                                    rtol=0)
 
 
-@pytest.mark.parametrize('model', sorted(set(tconfig.MODEL_CHOICES)
-                                         - set(tconfig.MESH_MODELS)))
-def test_mesh_refuses_every_other_model(model):
-    with pytest.raises(NotImplementedError, match='--mesh for'):
-        tconfig.parse_args(['--model', model, '--mesh', '2x2'])
+@pytest.mark.parametrize('model', tconfig.MODEL_CHOICES)
+def test_mesh_parses_for_every_model(model, capsys):
+    """Every registry model takes ``--mesh``, and ``--help`` names none of
+    them beside it (the JAX package's words)."""
+    extra = {'gcn': ['--aggr', 'mean'], 'graphsage': ['--aggr', 'max'],
+             'gat': ['--aggr', 'mean'], 'gatv2': ['--aggr', 'mean'],
+             'ltr_simple': ['--load_base', 'base']}.get(model, [])
+    cfg = tconfig.parse_args(['--model', model, '--mesh', '2x2', *extra])
+    assert cfg.mesh_shape == (2, 2)
+    with pytest.raises(SystemExit):
+        tconfig.parse_args(['--help'])
+    text = capsys.readouterr().out
+    start = text.index('\n  --mesh MESH')
+    mesh_help = text[start:text.index('\n  --no_pallas', start)]
+    assert 'DATAxMODEL' in ' '.join(mesh_help.split())
+    words = set(mesh_help.replace(',', ' ').split())
+    assert not words & set(tconfig.MODEL_CHOICES), mesh_help

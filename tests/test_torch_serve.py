@@ -253,8 +253,8 @@ def test_checkpoint_loader_reads_jax_files_and_refuses_code(tmp_path):
         pickle.dump({'params': os.getcwd}, f)
     with pytest.raises(pickle.UnpicklingError, match='only numpy arrays'):
         ck.load(str(tmp_path / 'evil.pkl'))
-    with pytest.raises(NotImplementedError, match='orbax'):
-        make_checkpointer('orbax')
+    with pytest.raises(ValueError, match='unknown checkpoint backend'):
+        make_checkpointer('tensorstore')
 
 
 def test_no_cuda_means_an_error_not_a_cpu_run(tmp_path, monkeypatch,

@@ -13,6 +13,8 @@ import numpy as np
 import pytest
 import torch
 
+from helpers.torch_native import ensure_jax_native
+from textgcn_tpu import native
 from textgcn_tpu.ops.pallas_spmm import SRC_BLOCK, PallasGraphOp
 from textgcn_tpu.ops.pallas_spmm import edge_dropout_scale as jax_scale
 from textgcn_tpu.ops.pallas_spmm import hash_dropout_salts as jax_salts
@@ -22,6 +24,13 @@ from textgcn_tpu_torch.ops import spmm as tspmm
 SALTS = [0, 1, 7, 2**31, 0x9E3779B9, 2**32 - 1]
 N_USERS, N_ITEMS, N_EDGES, D = 1300, 700, 3000, 16
 ATOL = 1e-5   # f32 sums of <= ~10 terms in another order
+
+
+@pytest.fixture(scope='module', autouse=True)
+def _jax_native():
+    """The JAX oracle lays out its tiles through its native builder
+    (``tests/helpers/torch_native.py``), never the numpy fallback."""
+    ensure_jax_native(native)
 
 
 @pytest.mark.parametrize('salt', SALTS)

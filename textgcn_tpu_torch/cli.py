@@ -29,11 +29,14 @@
     python -m textgcn_tpu_torch --model text_probe --mesh 1x1|auto ...
     python -m textgcn_tpu_torch --model ltr_simple --load_base RUN \
         --mesh 1x1|auto ...
+    python -m textgcn_tpu_torch --model gbdt|gbdt_pop|xgboost|xgboost_pop|\
+        marcus --load_base RUN --mesh 1x1|auto ...
+    python -m textgcn_tpu_torch ... --ckpt_backend orbax [--mesh ...]
     python -m textgcn_tpu_torch ... --reshuffle [--seed S]
     python -m textgcn_tpu_torch ... --trace DIR
     torchrun --nproc_per_node N -m textgcn_tpu_torch --model lgcn \
         --mesh AxB ...                                  # A * B == N
-    (every model but the boosted heads the same way under torchrun)
+    (every model the same way under torchrun)
 
 Drives: config parse -> (``--mesh``: the process group, one rank per
 GPU) -> dataset load -> (``--mesh``: tables padded to the number of ranks
@@ -45,7 +48,9 @@ evaluates an LTR head's base with plain scoring, then switches the head
 on) -> ``fit`` unless ``--no_train`` (under ``--trace DIR`` inside a
 ``torch.profiler`` trace, ``utils/profiling.trace``) -> ``--predict`` ->
 ``--export_reprs``; the boosted heads fit their trees in ``fit`` and
-load with their ``forest.npz`` (``BoostedTrainer``).  ``text_probe``
+load with their ``forest.npz`` (``BoostedTrainer``; on a mesh every rank
+fits the same forest from the gathered tables and scores its own
+catalogue rows).  ``text_probe``
 returns after its probe of the four
 text representations, before any load; ``ltr_simple`` after the load and
 its probe of the two item texts.  Runs on the GPU;

@@ -12,9 +12,8 @@ Knobs that exist for the TPU:
   port has one kernel per function and no device-call relay to bound.
   ``--slurm`` is accepted and ignored: it hides the JAX package's
   progress bars, and the port draws none.
-* ``--mesh DATAxMODEL|auto`` runs ``MESH_MODELS`` (every model but the
-  boosted heads) over ``torch.distributed`` ranks, one per GPU
-  (``parallel/``); the boosted heads refuse it.
+* ``--mesh DATAxMODEL|auto`` runs every model over ``torch.distributed``
+  ranks, one per GPU (``parallel/``).
   ``--approx_topk`` is refused when set: the port serves an exact top-k;
   so is a ``TEXTGCN_TPU_ADV_TOPK`` recall target for ``adv_sampling``: it
   mines exactly.
@@ -50,11 +49,6 @@ MODEL_CHOICES = (
 CONV_MODELS = ('gcn', 'graphsage', 'gat', 'gatv2')
 # the tree heads, which the CLI trains with models.ltr_boosted.BoostedTrainer
 BOOSTED_MODELS = ('xgboost', 'gbdt', 'xgboost_pop', 'gbdt_pop', 'marcus')
-# the models --mesh runs (parallel/mesh.shard_model): every one but the
-# boosted heads, which refuse it
-MESH_MODELS = ('lgcn', *CONV_MODELS, 'ltr_linear', 'ltr_pop',
-               'adv_sampling', 'text', 'kg', 'reviews', 'ltr_reviews',
-               'ltr_kg', 'text_probe', 'ltr_simple')
 # the models the JAX package warns about without a frozen, loaded base
 LTR_WARN_MODELS = ('ltr_linear', 'ltr_pop', 'ltr_simple', 'xgboost', 'gbdt',
                    'xgboost_pop', 'gbdt_pop', 'marcus')
@@ -188,10 +182,6 @@ class Config:
                              'the layer-mean combination; --single has no '
                              'ego term to keep fresh')
         if self.mesh:
-            if self.model not in MESH_MODELS:
-                raise NotImplementedError(
-                    f'--mesh for {self.model!r} is not ported yet (ported: '
-                    f'{", ".join(MESH_MODELS)})')
             self.mesh_shape  # raises on a malformed shape
         if self.model == 'ltr_simple' and not (self.load or self.load_base):
             raise ValueError('ltr_simple probes a pretrained base: pass '
@@ -260,10 +250,8 @@ def build_argparser() -> argparse.ArgumentParser:
                    help='accepted and ignored (the port draws no progress '
                         'bars)')
     p.add_argument('--mesh', type=str, default=d.mesh,
-                   help='DATAxMODEL or auto: lgcn, gcn, graphsage, gat, '
-                        'gatv2, ltr_linear or ltr_pop over '
-                        'torch.distributed ranks, one per GPU (torchrun for '
-                        'more than one)')
+                   help="device mesh as 'DATAxMODEL' (e.g. 2x4) or 'auto' "
+                        "for all visible devices with an auto-derived shape")
     p.add_argument('--no_pallas', action='store_true',
                    help='accepted and ignored (TPU kernel switch)')
     p.add_argument('--ckpt_backend', default=d.ckpt_backend,

@@ -198,8 +198,8 @@ class ConvModel(LightGCN):
         lgcn-normalised op is never built for a conv model."""
         return np.ones(graph.n_edges, np.float32)
 
-    def param_tree(self) -> dict:
-        tree = super().param_tree()
+    def param_tree(self, shards: bool = False) -> dict:
+        tree = super().param_tree(shards)
         tree['convs'] = [dict(lp.items()) for lp in self.convs]
         return tree
 

@@ -37,6 +37,7 @@ from ..ops.sampling import (batch_epoch, num_batches, positive_keys,
                             sample_epoch)
 from ..ops.spmm import GraphOp
 from ..parallel.sharded import all_gather_rows, sharded_topk
+from ..weights import RowShard
 from .losses import bpr_loss, reg_loss
 
 
@@ -139,9 +140,16 @@ class LightGCN(nn.Module):
 
     # --- parameters --------------------------------------------------------
 
-    def param_tree(self) -> dict:
+    def param_tree(self, shards: bool = False) -> dict:
         """The parameters in the JAX package's tree (on a mesh, the whole
-        real tables: every rank must call it)."""
+        real tables: every rank must call it; with ``shards``, this rank's
+        rows as ``weights.RowShard``s instead, which a cooperative
+        checkpoint writes)."""
+        if shards and self.mesh is not None:
+            return {'user_emb': RowShard(self.user_emb.detach(),
+                                         self.n_users),
+                    'item_emb': RowShard(self.item_emb.detach(),
+                                         self.n_items)}
         return {'user_emb': self.gathered(self.user_emb, self.n_users),
                 'item_emb': self.gathered(self.item_emb, self.n_items)}
 

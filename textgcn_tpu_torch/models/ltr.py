@@ -109,8 +109,8 @@ class LTRLinear(LightGCN):
 
     # --- parameters --------------------------------------------------------
 
-    def param_tree(self) -> dict:
-        tree = super().param_tree()
+    def param_tree(self, shards: bool = False) -> dict:
+        tree = super().param_tree(shards)
         tree['tower'] = [{'w': lin.weight.T, 'b': lin.bias}
                          for lin in self.tower]
         return tree

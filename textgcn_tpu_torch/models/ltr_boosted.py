@@ -25,6 +25,18 @@ Counterpart of ``textgcn_tpu/models/ltr_boosted.py``: ``gbdt`` and
   at the k-th place are the rule).  With no fitted forest it raises; there
   is no host ``predict``.  While ``score_with_head`` is off (the
   ``--load_base`` evaluation of the base) the model scores as ``lgcn``.
+
+On a mesh (``parallel.mesh.shard_model``: the tables on K2's source
+shards, the text and popularity buffers whole) the fit is replicated:
+``compute_reprs`` gathers the whole propagated tables, so every rank
+builds the same feature rows (and ``marcus`` the same ``RandomState``
+draws) and ``fit_gbrt``, which is deterministic, fits the same forest on
+each.  None is broadcast; one all-reduce of the forest's digest raises on
+a rank that diverged.  Rank 0 alone writes ``forest.npz``; every rank
+reads it.  Serving scores this rank's own catalogue rows through the
+forest and merges the ranks' candidates
+(``parallel.sharded.sharded_topk_of_scores``) with ties to the lower
+index: the single card's top-k, ties included.
 """
 
 from __future__ import annotations
@@ -38,7 +50,9 @@ import torch
 from ..ops.retrieval import (catalog_scores, mask_train_items,
                              top_k_lower_index)
 from ..ops.trees import GBRTState, compile_forest, fit_gbrt, forest_predict
-from ..train.checkpoint import FOREST_NAME, load_forest, save_forest
+from ..parallel.sharded import (ranks_agree, shard_columns,
+                                sharded_topk_of_scores)
+from ..train.checkpoint import FOREST_NAME, load_forest, run_dir, save_forest
 from ..train.trainer import Trainer
 from .ltr import LTRLinear
 
@@ -98,26 +112,33 @@ class LTRGradientBoosted(LTRLinear):
     # --- features ----------------------------------------------------------
 
     def compute_reprs(self):
-        """The propagated ``(users, items)`` tables, eval mode."""
+        """The whole propagated ``(users, items)`` tables, eval mode: on a
+        mesh gathered from every rank's rows, the phantom rows dropped."""
         with torch.no_grad():
-            return self.representation()
+            users_repr, items_repr = self.representation()
+            return (self.gathered(users_repr, self.n_users),
+                    self.gathered(items_repr, self.n_items))
 
-    def batch_features(self, reprs, batch_users) -> torch.Tensor:
-        """``(B, n_items, F)`` features of a user batch against the
-        catalogue: one ``(B, d) @ (d, n_items)`` product a cross."""
+    def batch_features(self, reprs, batch_users,
+                       cols: slice = slice(None)) -> torch.Tensor:
+        """``(B, C, F)`` features of a user batch against the catalogue
+        items ``cols`` (all of them by default; ``reprs``' item table holds
+        just those rows): one ``(B, d) @ (d, C)`` product a cross."""
         users_repr, items_repr = reprs
         u_rev = self.users_as_avg_reviews[batch_users]
         u_desc = self.users_as_avg_desc[batch_users]
+        i_rev = self.items_as_avg_reviews[cols]
+        i_desc = self.items_as_desc[cols]
         feats = torch.stack([
             catalog_scores(users_repr[batch_users], items_repr),
-            catalog_scores(u_rev, self.items_as_avg_reviews),
-            catalog_scores(u_desc, self.items_as_desc),
-            catalog_scores(u_rev, self.items_as_desc),
-            catalog_scores(u_desc, self.items_as_avg_reviews),
+            catalog_scores(u_rev, i_rev),
+            catalog_scores(u_desc, i_desc),
+            catalog_scores(u_rev, i_desc),
+            catalog_scores(u_desc, i_rev),
         ], dim=-1)
-        return self._append_popularity(feats, batch_users)
+        return self._append_popularity(feats, batch_users, cols)
 
-    def _append_popularity(self, feats, batch_users):
+    def _append_popularity(self, feats, batch_users, cols):
         return feats      # LTRGradientBoostedWPop appends two columns
 
     def labels(self, users: torch.Tensor, pos_padded: torch.Tensor,
@@ -152,14 +173,26 @@ class LTRGradientBoosted(LTRLinear):
                 state = fit_gbrt(x.reshape(-1, x.shape[-1]), y.reshape(-1),
                                  state, **self.tree_params)
         self.forest_state = state
+        self.check_ranks_agree()
         return list(zip(self.feature_names,
                         state.feature_importances().tolist()))
 
+    def check_ranks_agree(self):
+        """On a mesh, raise unless every rank fitted the same forest (one
+        all-reduce of its digest)."""
+        if self.mesh is not None and not ranks_agree(
+                float(self._state.digest()), self.device):
+            raise RuntimeError(
+                f'rank {self.mesh.rank} fitted another forest than a rank '
+                'beside it: the replicated fit diverged')
+
     # --- scoring -----------------------------------------------------------
 
-    def tree_scores(self, reprs, batch_users) -> torch.Tensor:
-        """``(B, n_items)`` float32 scores through the fitted forest."""
-        feats = self.batch_features(reprs, batch_users)
+    def tree_scores(self, reprs, batch_users,
+                    cols: slice = slice(None)) -> torch.Tensor:
+        """``(B, C)`` float32 scores of the items ``cols`` (see
+        ``batch_features``) through the fitted forest."""
+        feats = self.batch_features(reprs, batch_users, cols)
         scores = forest_predict(self.forest, feats.reshape(-1,
                                                            feats.shape[-1]))
         return scores.reshape(feats.shape[:2])
@@ -170,8 +203,21 @@ class LTRGradientBoosted(LTRLinear):
         return self.tree_scores(reprs, users)
 
     def topk_for_users(self, reprs, batch_users: torch.Tensor, k: int):
+        """The forest's top-k, ties to the lower index; on a mesh from
+        ``scoring_reprs``' item rows of this rank, merged over the
+        ranks."""
         if not self.score_with_head:
             return super().topk_for_users(reprs, batch_users, k)
+        if self.mesh is not None:
+            users_repr, items_repr = reprs
+            shard = items_repr.shape[0]
+            offset, n_real = shard_columns(self.mesh, shard, self.n_items)
+            scores = self.tree_scores((users_repr, items_repr[:n_real]),
+                                      batch_users,
+                                      slice(offset, offset + n_real))
+            return sharded_topk_of_scores(self.mesh, scores, shard,
+                                          self.pos_padded[batch_users], k,
+                                          lower_index=True)
         scores = mask_train_items(self.tree_scores(reprs, batch_users),
                                   self.pos_padded[batch_users], self.n_items)
         return top_k_lower_index(scores, k)
@@ -187,12 +233,11 @@ class LTRGradientBoostedWPop(LTRGradientBoosted):
         for name in ('popularity_users', 'popularity_items'):
             self.device_buffer(name, getattr(data, name))
 
-    def _append_popularity(self, feats, batch_users):
-        b = feats.shape[0]
+    def _append_popularity(self, feats, batch_users, cols):
+        b, c = feats.shape[:2]
         pop_u = self.popularity_users[batch_users][:, None, :].expand(
-            b, self.n_items, 1)
-        pop_i = self.popularity_items[None, :self.n_items, :].expand(
-            b, self.n_items, 1)
+            b, c, 1)
+        pop_i = self.popularity_items[cols][None].expand(b, c, 1)
         return torch.cat([feats, pop_u, pop_i], dim=-1)
 
 
@@ -257,6 +302,7 @@ class MarcusGradientBoosted(LTRGradientBoosted):
         x = self.pair_features(self.compute_reprs(), users_t, items_t)
         self.forest_state = fit_gbrt(x, torch.as_tensor(y, device=dev),
                                      **self.tree_params)
+        self.check_ranks_agree()
         return list(zip(self.feature_names,
                         self.forest_state.feature_importances().tolist()))
 
@@ -277,7 +323,8 @@ class BoostedTrainer(Trainer):
 
     def checkpoint(self, epoch: int = 1):
         """``Trainer.checkpoint`` and the fitted ensemble as
-        ``forest.npz``."""
+        ``forest.npz`` (rank 0 writes it), beside either backend's
+        files."""
         super().checkpoint(epoch)
         state = self.model.forest_state
         if self.cfg.save and self.primary and state is not None:
@@ -287,17 +334,17 @@ class BoostedTrainer(Trainer):
         """Restore a run's ``forest.npz``, then ``Trainer.load`` (its
         evaluation scores through the restored trees).  A run without one
         evaluates its tables with plain scoring.  The JAX package's
-        ``tree.pkl`` (a pickled scikit-learn estimator) is refused."""
-        run_dir = load_path if os.path.isdir(load_path) \
-            else os.path.dirname(load_path)
-        forest = os.path.join(run_dir, FOREST_NAME)
+        ``tree.pkl`` (a pickled scikit-learn estimator) is refused.  Every
+        rank of a mesh reads the file."""
+        folder = run_dir(load_path)
+        forest = os.path.join(folder, FOREST_NAME)
         if os.path.exists(forest):
             self.model.forest_state = load_forest(forest)
             log.info('Restored the fitted tree ensemble from %s', forest)
             return super().load(load_path)
-        if os.path.exists(os.path.join(run_dir, 'tree.pkl')):
+        if os.path.exists(os.path.join(folder, 'tree.pkl')):
             raise ValueError(
-                f'{run_dir} holds the JAX package\'s tree.pkl (a pickled '
+                f'{folder} holds the JAX package\'s tree.pkl (a pickled '
                 f'scikit-learn estimator) and no {FOREST_NAME}: the port '
                 'does not unpickle it. Load the estimator where '
                 'scikit-learn is installed and convert it with '

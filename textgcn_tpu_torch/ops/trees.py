@@ -51,7 +51,8 @@ branch.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+import hashlib
+from dataclasses import dataclass, fields
 
 import numpy as np
 import torch
@@ -116,6 +117,20 @@ class GBRTState:
             return np.zeros(self.n_features)
         avg = np.mean(rows, axis=0, dtype=np.float64)
         return avg / np.sum(avg)
+
+    def digest(self) -> int:
+        """48 bits of a SHA-256 of every tree's node arrays, the initial
+        prediction, the learning rate and the feature count: an integer
+        a float64 holds exactly (the mesh compares the ranks' forests by
+        it)."""
+        h = hashlib.sha256()
+        for tree in self.trees:
+            for f in fields(Tree):
+                h.update(np.ascontiguousarray(getattr(tree, f.name))
+                         .tobytes())
+        h.update(np.array([self.init, self.learning_rate, self.n_features],
+                          np.float64).tobytes())
+        return int.from_bytes(h.digest()[:6], 'little')
 
 
 # --- the fit -----------------------------------------------------------------

@@ -7,22 +7,25 @@ table, ``R = n_padded / W``.  The JAX package orders its devices
 model-major for the same split (``mesh.py:196-200``); the flat rank order
 gives the same rows to the same shard index, and the same outputs.
 
-``shard_model`` takes every model but the boosted heads
-(``config.MESH_MODELS``):
+``shard_model`` takes every model:
 
 * ``lgcn`` and the other ``LightGCN`` subclasses (the LTR heads
-  ``ltr_linear``, ``ltr_pop``; ``adv_sampling``; the text-loss models
-  ``text``, ``kg``, ``reviews``; the concat scorers ``ltr_reviews``,
-  ``ltr_kg``, ``ltr_simple``; ``text_probe``) propagate over the edges
-  whose SOURCE row the rank owns, on K2 with a reduce-scatter
-  (``sharded_spmm.py``).  Only the two tables are sharded: an LTR head's
-  tower, the text and popularity buffers, ``text --pos user``'s (item,
-  user) review table and the train lists stay whole on every rank;
+  ``ltr_linear``, ``ltr_pop``; the boosted heads ``gbdt``, ``gbdt_pop``,
+  ``xgboost``, ``xgboost_pop``, ``marcus``; ``adv_sampling``; the
+  text-loss models ``text``, ``kg``, ``reviews``; the concat scorers
+  ``ltr_reviews``, ``ltr_kg``, ``ltr_simple``; ``text_probe``) propagate
+  over the edges whose SOURCE row the rank owns, on K2 with a
+  reduce-scatter (``sharded_spmm.py``).  Only the two tables are sharded:
+  an LTR head's tower, the text and popularity buffers, ``text --pos
+  user``'s (item, user) review table and the train lists stay whole on
+  every rank;
 * the conv family propagates over the edges whose DESTINATION row the
   rank owns (``sharded_conv.py``), with its conv layers whole.
 
 The parameters held whole (conv layers, tower) are replicated: the
-trainer sums their gradients over the ranks before each Adam step.
+trainer sums their gradients over the ranks before each Adam step.  A
+boosted head's forest is fitted on every rank from the gathered tables
+(``models/ltr_boosted.py``).
 """
 
 from __future__ import annotations
@@ -34,7 +37,6 @@ import torch
 import torch.distributed as dist
 from torch import nn
 
-from ..config import MESH_MODELS
 from . import multihost
 
 RS_DTYPE_ENV = 'TEXTGCN_TPU_RS_DTYPE'
@@ -132,10 +134,6 @@ def shard_model(mesh: Mesh, model, data):
     from ..models.conv import ConvModel
     from .sharded_conv import MeshConvOp
     from .sharded_spmm import MeshGraphOp
-    if model.cfg.model not in MESH_MODELS:
-        raise NotImplementedError(
-            f'{type(model).__name__} on a mesh is not ported yet (ported: '
-            f'{", ".join(MESH_MODELS)})')
     nu, ni = data.n_users_padded, data.n_items_padded
     with torch.no_grad():
         for name, n in (('user_emb', nu), ('item_emb', ni)):

@@ -11,6 +11,8 @@ process per GPU under ``torch.distributed``:
   in-memory store: the counterpart of a single-host mesh;
 * a group the caller started already is joined as it is.
 
+``barrier`` waits for every rank (the cooperative checkpoint's saves).
+
 NCCL runs the collectives on the card, gloo on the CPU, which is used only
 when the caller asks for it.  Nothing falls back: where the JAX package
 logs a failed initialisation and carries on in one process
@@ -72,3 +74,13 @@ def maybe_initialize(device: torch.device) -> bool:
 def is_primary() -> bool:
     """Rank 0, or the only process: the one that logs and writes files."""
     return not dist.is_initialized() or dist.get_rank() == 0
+
+
+def barrier():
+    """Wait for every rank of the process group; a no-op without one."""
+    if not dist.is_initialized():
+        return
+    if dist.get_backend() == 'nccl':
+        dist.barrier(device_ids=[torch.cuda.current_device()])
+    else:
+        dist.barrier()

@@ -12,8 +12,13 @@ Counterpart of ``textgcn_tpu/parallel/sharded.py``:
   shard, takes a local top-k with global ids, and the candidates of all
   ranks are gathered and merged exactly (an LTR head or a concat scorer
   passes its fused factors ``u_cat`` and its rows of ``i_cat``);
+  ``sharded_topk_of_scores`` merges scores a caller computed for its own
+  columns (a boosted head's forest scores), with ties to the lower index
+  on request;
 * ``all_reduce_sum``: the loss sums of an epoch, ``adv_sampling``'s count
-  of valid pairs.
+  of valid pairs;
+* ``ranks_agree``: one all-reduce that tells whether every rank holds the
+  same value (a boosted head's forest digest).
 """
 
 from __future__ import annotations
@@ -21,7 +26,8 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
-from ..ops.retrieval import catalog_scores, mask_train_items
+from ..ops.retrieval import (_ordered_bits, catalog_scores,
+                             mask_train_items, top_k_lower_index)
 from .mesh import Mesh
 
 
@@ -56,6 +62,22 @@ def all_reduce_sum(x: torch.Tensor) -> torch.Tensor:
     return x
 
 
+def ranks_agree(value: float, device) -> bool:
+    """Whether every rank passed the same ``value`` (a float64): one
+    all-reduce of ``(value, -value)`` by maximum."""
+    both = torch.tensor([value, -value], dtype=torch.float64, device=device)
+    dist.all_reduce(both, op=dist.ReduceOp.MAX)
+    return bool(both[0] == -both[1])
+
+
+def shard_columns(mesh: Mesh, shard: int, n_valid: int) -> tuple[int, int]:
+    """``(offset, n_real)``: the global id of this rank's first row of a
+    table sharded ``shard`` rows a rank, and how many of its rows are real
+    (``n_valid`` real rows in all; the last ranks may hold none)."""
+    offset = mesh.rank * shard
+    return offset, max(0, min(shard, n_valid - offset))
+
+
 def sharded_topk(mesh: Mesh, users_emb: torch.Tensor,
                  items_shard: torch.Tensor, batch_pos_padded: torch.Tensor,
                  k: int, n_valid: int):
@@ -66,27 +88,46 @@ def sharded_topk(mesh: Mesh, users_emb: torch.Tensor,
     rank's ``R`` rows of the padded item table, global ids ``[rank*R,
     (rank+1)*R)``; ``n_valid``: the number of real items.  Each rank
     scores its real columns only (phantom columns are left out, as the JAX
-    package masks them), masks the batch's train items that fall in its
-    shard, and keeps ``min(k, R)`` candidates with global ids; a shard
-    with fewer real columns pads with ``-inf`` at an id past every real
-    one.  The merge sorts all candidates by value with ties going to the
-    lower id, so padding never displaces a real item.
+    package masks them); ``sharded_topk_of_scores`` merges.
     """
     shard = items_shard.shape[0]
+    _, n_real = shard_columns(mesh, shard, n_valid)
+    scores = catalog_scores(users_emb, items_shard[:n_real])
+    return sharded_topk_of_scores(mesh, scores, shard, batch_pos_padded, k)
+
+
+def sharded_topk_of_scores(mesh: Mesh, scores: torch.Tensor, shard: int,
+                           batch_pos_padded: torch.Tensor, k: int, *,
+                           lower_index: bool = False):
+    """The exact top-k ``(values, indices)``, ``(B, k)``, of scores whose
+    columns are sharded ``shard`` a rank: ``scores`` is ``(B, n_real)``,
+    this rank's real columns (``shard_columns``).
+
+    Each rank masks the batch's train items that fall in its shard and
+    keeps ``min(k, shard)`` candidates with global ids; a shard with fewer
+    real columns pads with ``-inf`` at an id past every real one.  The
+    candidates of all ranks are gathered and sorted by value with ties
+    going to the lower id, so padding never displaces a real item.  With
+    ``lower_index`` a rank's own candidates are its top-k with ties to the
+    lower index too (``top_k_lower_index``), so the result is exactly
+    ``top_k_lower_index`` over the whole catalogue (+0 above -0 too): the
+    boosted heads' order, whose forest gives many equal scores; else
+    ``torch.topk`` picks among ties at a shard's k-th place.
+    """
     offset = mesh.rank * shard
-    n_real = max(0, min(shard, n_valid - offset))
+    b, n_real = scores.shape
     kk = min(k, shard)
-    b = users_emb.shape[0]
     vals = torch.full((b, kk), -torch.inf, dtype=torch.float32,
-                      device=users_emb.device)
+                      device=scores.device)
     idx = torch.full((b, kk), mesh.size * shard, dtype=torch.int64,
-                     device=users_emb.device)
+                     device=scores.device)
     if n_real:
-        scores = catalog_scores(users_emb, items_shard[:n_real])
         local = batch_pos_padded.to(torch.int64) - offset
         local = torch.where((local >= 0) & (local < n_real), local, n_real)
         scores = mask_train_items(scores, local, n_real)
-        v, i = torch.topk(scores, min(kk, n_real), dim=1)
+        take = min(kk, n_real)
+        v, i = (top_k_lower_index(scores, take) if lower_index
+                else torch.topk(scores, take, dim=1))
         vals[:, :v.shape[1]] = v
         idx[:, :i.shape[1]] = i + offset
     all_v = torch.empty((mesh.size * b, kk), dtype=vals.dtype,
@@ -98,6 +139,9 @@ def sharded_topk(mesh: Mesh, users_emb: torch.Tensor,
     flat_v = all_v.view(mesh.size, b, kk).transpose(0, 1).reshape(b, -1)
     flat_i = all_i.view(mesh.size, b, kk).transpose(0, 1).reshape(b, -1)
     by_id, order = torch.sort(flat_i, dim=1, stable=True)
-    top_v, pos = torch.sort(flat_v.gather(1, order), dim=1, descending=True,
-                            stable=True)
-    return top_v[:, :k], by_id.gather(1, pos[:, :k])
+    by_id_v = flat_v.gather(1, order)
+    # lower_index: +0 above -0, as top_k_lower_index orders them
+    keys = _ordered_bits(by_id_v)[0] if lower_index else by_id_v
+    _, pos = torch.sort(keys, dim=1, descending=True, stable=True)
+    pos = pos[:, :k]
+    return by_id_v.gather(1, pos), by_id.gather(1, pos)

@@ -16,6 +16,8 @@ Counterpart of ``textgcn_tpu/train/trainer.py`` on one device:
   ``--no_resume_state``): the epoch, the metrics history, the
   ``RESUME_CONFIG_FIELDS``, the Adam state and the states of the two
   generators (and of the model's own, ``adv_sampling``'s candidates);
+  with ``--ckpt_backend orbax`` the same trees as ``.orbax`` directories
+  of ``torch.distributed.checkpoint`` (``train/checkpoint.py``);
 * ``resume``: restores all of that; ``fit`` then goes on at the next
   epoch, bit for bit the run that was not stopped;
 * a SIGTERM during ``fit`` lets the epoch finish, checkpoints it and
@@ -53,9 +55,11 @@ every one but the row-sharded tables) summed over the ranks in one
 flattened all-reduce, Adam on its rows and on the whole replicated
 parameters (elementwise, so it is the global Adam), the loss sums
 all-reduced once an epoch, the catalogue-sharded top-k.  Every rank
-computes the metrics; logs, ``predictions.tsv``, exports and checkpoints
-come from rank 0 only, after the collectives that gather the tables
-(``trainer.py:244, 407, 499, 527, 577`` in the JAX package); a resume
+computes the metrics; logs, ``predictions.tsv``, exports and pickle
+checkpoints come from rank 0 only, after the collectives that gather the
+tables (``trainer.py:244, 407, 499, 527, 577`` in the JAX package), while
+the cooperative ``--ckpt_backend orbax`` has every rank write its own
+rows; a resume
 restores every rank's own rows of the tables and of their Adam state, and
 the replicated parameters' Adam state and the generators as rank 0 held
 them (every rank's are the same: ``adv_sampling``'s model generator draws
@@ -81,7 +85,7 @@ from ..ops import metrics as metrics_mod
 from ..parallel.multihost import is_primary
 from ..parallel.sharded import all_reduce_sum
 from ..utils.profiling import StepTimer
-from ..weights import params_from_jax, params_to_jax
+from ..weights import RowShard, params_from_jax, params_to_jax
 from .checkpoint import make_checkpointer
 
 log = logging.getLogger('textgcn_tpu_torch')
@@ -310,25 +314,29 @@ class Trainer:
     # checkpoints and resume
 
     def checkpoint(self, epoch: int):
-        """``latest_checkpoint.pkl``, ``resume_state.pkl`` and, when this
-        epoch's eval reached a new best, ``best.pkl``.  On a mesh every
-        rank gathers, rank 0 writes."""
+        """``latest_checkpoint``, ``resume_state`` and, when this epoch's
+        eval reached a new best, ``best`` (``.pkl``, or ``.orbax`` with
+        ``--ckpt_backend orbax``).  On a mesh the pickle backend has every
+        rank gather and rank 0 write; the cooperative backend has every
+        rank write its own rows of the tables (no gather)."""
         if not self.cfg.save:
             return
-        state = {'params': params_to_jax(self.model.param_tree()),
+        ck = self._checkpointer
+        shards = ck.cooperative
+        state = {'params': params_to_jax(self.model.param_tree(shards)),
                  'epoch': epoch, 'model': self.cfg.model}
-        payload = (self.resume_payload(epoch) if self.cfg.resume_state
-                   else None)
-        if not self.primary:
+        payload = (self.resume_payload(epoch, shards)
+                   if self.cfg.resume_state else None)
+        if not (shards or self.primary):
             return
-        self._checkpointer.save_latest(self.cfg.save_path, state)
+        ck.save_latest(self.cfg.save_path, state)
         if payload is not None:
-            self._checkpointer.save_resume(self.cfg.save_path, payload)
+            ck.save_resume(self.cfg.save_path, payload)
         first = self.metrics_logger[self.metrics_names[0]]
         if len(first) and first[:, 0].max() == first[-1][0] \
                 and epoch == self._last_eval_epoch:
             log.info('Updating best model at epoch %d', epoch)
-            self._checkpointer.promote_best(self.cfg.save_path)
+            ck.promote_best(self.cfg.save_path)
 
     def _generators(self) -> dict[str, torch.Generator]:
         """The generators a resume restores: the sampler's, the salts'
@@ -354,12 +362,13 @@ class Trainer:
         return [(n, p) for n, p in self.model.named_parameters()
                 if id(p) in stepped]
 
-    def resume_payload(self, epoch: int) -> dict:
-        """What ``resume`` needs beside ``latest_checkpoint.pkl``: the
-        JAX package's ``epoch``, ``metrics`` and ``config``; where it keeps
+    def resume_payload(self, epoch: int, shards: bool = False) -> dict:
+        """What ``resume`` needs beside ``latest_checkpoint``: the JAX
+        package's ``epoch``, ``metrics`` and ``config``; where it keeps
         ``key_data`` and ``opt_leaves``, the two generators' states and the
         Adam state, one entry per stepped parameter (whole tables on a
-        mesh: every rank must call it)."""
+        mesh: every rank must call it; with ``shards`` the tables' moments
+        are this rank's rows, ``weights.RowShard``s)."""
         def arr(t):
             return t.detach().to('cpu').numpy().copy()
 
@@ -370,8 +379,12 @@ class Trainer:
             for key in ('exp_avg', 'exp_avg_sq'):
                 if key in st:
                     n = self._whole_rows(name)
-                    entry[key] = arr(st[key] if n is None
-                                     else self.model.gathered(st[key], n))
+                    if n is None:
+                        entry[key] = arr(st[key])
+                    elif shards:
+                        entry[key] = RowShard(st[key].detach(), n)
+                    else:
+                        entry[key] = arr(self.model.gathered(st[key], n))
             if 'step' in st:
                 entry['step'] = float(st['step'])
             adam[str(i)] = entry

@@ -13,6 +13,9 @@ LTR heads add ``tower``, a list of ``{'w': (fan_in, fan_out), 'b':
 (fan_out,)}`` per layer: the JAX layout, which ``models/ltr.py``
 transposes into and out of ``nn.Linear.weight`` (``(fan_out, fan_in)``).
 
+``RowShard`` marks a rank's rows of a table in a tree that a
+cooperative checkpoint writes.
+
 The boosted heads' fitted ensemble is carried across by
 ``forest_from_estimator``: the JAX package pickles a scikit-learn
 estimator (``tree.pkl``), which the port reads duck-typed, never
@@ -21,8 +24,20 @@ importing scikit-learn.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import numpy as np
 import torch
+
+
+class RowShard(NamedTuple):
+    """This rank's rows of a row-sharded table (the zero-padded table's
+    rows ``parallel.mesh.Mesh.rows`` gives it) and the table's real row
+    count: what a cooperative checkpoint writes for a table on a mesh
+    (``train.checkpoint.DistCheckpointer``), where the pickle backend
+    writes the gathered real rows."""
+    local: torch.Tensor
+    n_rows: int
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -54,8 +69,11 @@ def params_from_jax(np_params: dict, n_users: int, n_items: int,
 
 def params_to_jax(params: dict) -> dict:
     """The inverse: numpy float32 arrays in the JAX package's tree, for a
-    checkpoint the JAX package's ``Trainer.load`` reads."""
+    checkpoint the JAX package's ``Trainer.load`` reads (a ``RowShard``
+    table is passed on as it is)."""
     def arr(t):
+        if isinstance(t, RowShard):
+            return t
         return t.detach().to('cpu', torch.float32).numpy().copy()
 
     out = {name: arr(params[name]) for name in ('user_emb', 'item_emb')}
