@@ -79,6 +79,15 @@ Phases, each of which passes or ends the run with a non-zero exit:
    predict, 3 layers x 2 directions each), ``predictions.tsv`` has one row
    per user, the metrics are finite, and the served top-40 of 256 users
    equals the top-40 of a plain-SpMM propagation on the card up to ties;
+7b. approx serve: S1 served again with ``--approx_topk 0.95`` (serving
+   mode), on one card (12 K1 launches) and with ``--mesh 1x1`` (12 K2
+   launches; the single card's ``predictions.tsv`` byte for byte and its
+   metrics): the first batch's served top-40 is the float32 scores
+   rounded to bfloat16, masked, top-k with ties to the lower index,
+   computed on the card; every exact top-40 item is served or tied in
+   bfloat16 with the 40th served value, the mean top-40 recall against
+   phase 7 is at least 0.95 (the per-user minimum logged), and a batch's
+   retrieval is timed in both modes (``approx_phase``);
 8. train lgcn: S1 trained through ``cli.main`` for 2 epochs (batch 2048,
    dropout 0.4, eval every epoch): K1 launches exactly ``steps x 12 + 2
    evals x 6`` (6 forward and 6 backward a step), the loss sums are
@@ -163,9 +172,11 @@ Phases, each of which passes or ends the run with a non-zero exit:
 9h. probes: ``text_probe`` (four metric sets, no launch) and
    ``ltr_simple --load_base <phase 8's lgcn run>`` (the base's evaluation
    and two metric sets: 18 K1 launches);
-9i. mining: an ``adv_sampling`` step's (2048, 25,000) score, bf16 round
-   and masks, ``mining_top_k`` and the whole selection, timed, beside
-   ``torch.topk`` on the same scores;
+9i. mining: one draw's hard negatives mined unset and under
+   ``TEXTGCN_TPU_ADV_TOPK=0.95``, bit-equal; then, under the target, an
+   ``adv_sampling`` step's (2048, 25,000) score, bf16 round and masks,
+   ``mining_top_k`` and the whole selection, timed, beside ``torch.topk``
+   on the same scores;
 9i'. mesh slice: phase 9g's six models with ``--mesh 1x1`` through
    ``cli.main`` in one one-rank group this script starts, for 1 epoch and
    1 evaluation: K2 launches exactly as K1 does on the single card
@@ -214,6 +225,20 @@ Phases, each of which passes or ends the run with a non-zero exit:
    array of the checkpoint and the resume state); its
    ``latest_checkpoint.orbax`` serves on one card without a mesh (6 K1
    launches) the metrics it measured (1e-6);
+9j3. encoder: a BERT directory of all-MiniLM-L6-v2's published shape
+   (vocab 30,522, hidden 384, 6 layers, 12 heads, 512 positions, ``gelu``)
+   with seeded random weights in ``model.safetensors``: 512 sentences
+   encoded on the card against the CPU (1e-4); then ``ltr_linear
+   --load_base --freeze`` for 1 epoch on a copy of phase 9j's 4,096-user
+   cut without caches under ``TEXTGCN_TPU_TEXT_ENCODER=flax`` encodes the
+   descriptions and reviews on the card and writes both caches (K1
+   exactly ``6 + steps x 6 + 6``; sentences/s logged), and a second run
+   reads them and encodes nothing;
+9j4. health check: a probe of the card, and the ``Device backend ready``
+   line of phase 9j3's first CLI run;
+9j5. cold_report: a 5,000 x 2,000 ``--sharp --cold 0.2`` set, ``lgcn``
+   trained 2 epochs, ``tools/cold_report.main --load`` (12 K1 launches):
+   the ``all``, ``warm`` and ``cold`` metrics finite and in [0, 1];
 9k. trace: ``lgcn --epochs 1 --trace DIR`` through ``cli.main`` on the
    boosted phase's 4,096-user cut of S1 (S1's widths): K1 launches
    exactly ``steps x 12 + 6``, the ``torch.profiler`` trace parses and
@@ -812,14 +837,17 @@ def lab_small_layouts(dev) -> dict:
     return out
 
 
-def cli_run(data_dir: str, argv: list[str], platform: str):
+def cli_run(data_dir: str, argv: list[str], platform: str, entry=None):
     """``cli.main(argv)`` from inside ``data_dir``'s parent, as a user runs
-    it; returns the trainer and the run directory."""
+    it; returns the trainer and the run directory.  With ``entry``,
+    another entry point that takes the CLI's flags (its result alone)."""
     from textgcn_tpu_torch import cli
     old_cwd, old_env = os.getcwd(), os.environ.get('TEXTGCN_TPU_PLATFORM')
     os.chdir(os.path.dirname(data_dir))
     os.environ['TEXTGCN_TPU_PLATFORM'] = platform
     try:
+        if entry is not None:
+            return entry(['--data', data_dir, *argv])
         trainer = cli.main(['--data', data_dir, *argv])
         if platform == 'cuda':
             torch.cuda.synchronize()
@@ -936,8 +964,9 @@ class PlainGraphOp:
         return spmm_plain(self.op.l_u2i, user_emb, *w_pair)
 
 
-def serve_phase(data_dir: str, ck: str) -> int:
-    """S1 through the CLI; returns K1's launches in that run."""
+def serve_phase(data_dir: str, ck: str) -> tuple[int, float]:
+    """S1 through the CLI; returns K1's launches in that run and its
+    seconds."""
     from textgcn_tpu_torch.ops.propagate import representation
     from textgcn_tpu_torch.ops.retrieval import mask_train_items
     from textgcn_tpu_torch.ops.spmm import spmm_dropout_cuda
@@ -991,7 +1020,7 @@ def serve_phase(data_dir: str, ck: str) -> int:
         f'{exact:.4f}')
     check(same, 'served top-k differs from the plain propagation')
     serve_breakdown(trainer)
-    return launches
+    return launches, seconds
 
 
 def serve_breakdown(trainer):
@@ -1698,6 +1727,7 @@ def memoize_ltr_loader() -> dict[str, int]:
             cache[key] = real(cfg, popularity_mode)
         return cache[key]
 
+    load.real = real
     text.load_ltr_data = load
     return stats
 
@@ -3033,6 +3063,402 @@ def mesh_slice_phase(data_dir: str, trained: dict, probes: dict, dev,
     return out
 
 
+# ---------------------------------------------------------------------------
+# slice 14: serving mode, the mining target, the encoder, the health check
+# and cold_report
+
+APPROX = 0.95
+
+
+def approx_phase(data_dir: str, ck: str, exact_seconds: float) -> dict:
+    """S1 served with ``--approx_topk 0.95`` through ``cli.main``, on one
+    card (12 K1 launches) and with ``--mesh 1x1`` (12 K2 launches, the
+    single card's ``predictions.tsv`` byte for byte and its metrics).
+    Every user's served top-40 (items and 4-decimal values) equals the
+    float32 scores rounded to bfloat16, masked, top-k with ties to the
+    lower index, computed here on the card a batch at a time; against
+    phase 7's exact serve, every user's exact top-40 item is served or
+    tied in bfloat16 with the 40th served value, and the mean top-40 recall is at least
+    0.95 (the per-user minimum is logged: bfloat16 ties at the 40th place
+    swap items).  One batch's retrieval is timed in both modes."""
+    from textgcn_tpu_torch.ops.retrieval import (APPROX_TOPK_ENV,
+                                                 catalog_scores,
+                                                 mask_train_items,
+                                                 score_and_topk,
+                                                 top_k_lower_index)
+    argv = ['--load', ck, '--predict', '--emb_size', str(D), '--n_layers',
+            str(LAYERS), '--batch_size', str(BATCH), '-k', *map(str, KS),
+            '--approx_topk', str(APPROX)]
+    out, runs = {}, {}
+    for name, extra, kernel in (('single', [], 'spmm_dropout'),
+                                ('mesh', ['--mesh', '1x1'],
+                                 'spmm_weighted')):
+        reset_counts()
+        t0 = time.perf_counter()
+        trainer, run_dir = serve(data_dir, f'approx-{name}', argv + extra,
+                                 'cuda')
+        seconds = time.perf_counter() - t0
+        launches = counts()
+        want = dict.fromkeys(_wrappers(), 0)
+        want[kernel] = 2 * LAYERS * 2
+        check(launches == want, f'approx serve {name}: launches {launches}, '
+              f'expected {want} (eval + predict, 3 layers x 2 directions)')
+        check(APPROX_TOPK_ENV not in os.environ,
+              f'cli.main left {APPROX_TOPK_ENV} set')
+        runs[name] = (trainer, run_dir)
+        out[f'{name}_launches'] = launches[kernel]
+        out[f'{name}_cli_s'] = seconds
+        log(f'approx serve {name}: cli.main took {seconds:.3f} s (exact '
+            f'serve {exact_seconds:.3f} s); launches {launches}')
+    files = {}
+    for name, (_, run_dir) in runs.items():
+        with open(os.path.join(run_dir, 'predictions.tsv'), 'rb') as f:
+            files[name] = f.read()
+    check(files['mesh'] == files['single'],
+          'approx serve --mesh 1x1: predictions.tsv differs from the '
+          'single card\'s')
+    single, mesh = runs['single'][0], runs['mesh'][0]
+    for name, v in single.last_metrics.items():
+        check(np.array_equal(v, mesh.last_metrics[name]),
+              f'approx serve --mesh 1x1 {name} {mesh.last_metrics[name]} vs '
+              f'{v}')
+
+    model, data = single.model, single.data
+    preds = read_predictions(os.path.join(runs['single'][1],
+                                          'predictions.tsv'))
+    exact = read_predictions(os.path.join(
+        os.path.dirname(data_dir), 'runs', os.path.basename(data_dir),
+        'smoke', 'predictions.tsv'))
+    k, n = max(KS), data.n_items
+    index = {ext: i for i, ext in data.item_id_map.items()}
+    served_i = np.array([[index[e] for e in p[1]] for p in preds])
+    served_v = np.array([p[2] for p in preds])
+    exact_i = np.array([[index[e] for e in p[1]] for p in exact])
+    same = tied = True
+    with torch.no_grad():
+        ur, ir = model.scoring_reprs()
+        for start in range(0, data.n_users, BATCH):
+            stop = min(start + BATCH, data.n_users)
+            users = torch.arange(start, stop, device=model.device)
+            scores = mask_train_items(
+                catalog_scores(ur[users], ir[:n]).to(torch.bfloat16),
+                model.pos_padded[users], n)
+            ref_v, ref_i = top_k_lower_index(scores, k)
+            ref_v = ref_v.float()
+            same &= (np.array_equal(ref_i.cpu().numpy(),
+                                    served_i[start:stop])
+                     and np.array_equal(np.round(ref_v.cpu().numpy(), 4),
+                                        served_v[start:stop]))
+            # every exact item is served, or its bfloat16 score ties with
+            # the last served value
+            e = torch.as_tensor(exact_i[start:stop], device=model.device)
+            held = (e[:, :, None] == ref_i[:, None, :]).any(-1) | (
+                scores.gather(1, e).float() >= ref_v[:, k - 1:])
+            tied &= bool(held.all())
+    check(same, f'approx serve: a user\'s served top-{k} is not the '
+          'bfloat16-rounded float32 scores\' top-k')
+    recall = np.array([len(set(a[1]) & set(e[1])) / k
+                       for a, e in zip(preds, exact)])
+    out.update(recall_mean=float(recall.mean()),
+               recall_min=float(recall.min()),
+               share_below_target=float((recall < APPROX).mean()),
+               share_exact=float((recall == 1).mean()))
+    log(f'approx serve: top-{k} recall against the exact serve over '
+        f'{len(recall)} users: mean {out["recall_mean"]:.6f}, min '
+        f'{out["recall_min"]:.4f}, {out["share_below_target"]:.6f} of the '
+        f'users below {APPROX}, {out["share_exact"]:.4f} identical sets; '
+        f'every user\'s exact items served or tied in bfloat16 at the '
+        f'{k}th place: {tied}')
+    check(tied, 'approx serve: an exact top-k item is neither served nor '
+          'tied with the last served value')
+    check(out['recall_mean'] >= APPROX,
+          f'approx serve: mean top-{k} recall {out["recall_mean"]}')
+
+    with torch.no_grad():
+        users = torch.arange(BATCH, device=model.device)
+        u, pos = ur[users], model.pos_padded[users]
+        fns = {'exact': lambda: score_and_topk(u, ir, pos, k=k, n_items=n,
+                                               approx=0.0),
+               'approx': lambda: score_and_topk(u, ir, pos, k=k, n_items=n,
+                                                approx=APPROX)}
+        ms = time_ms(fns, ['exact', 'approx', 'approx', 'exact'], strict=())
+    out['batch_ms'] = ms
+    log(f'approx serve: one {BATCH}-user batch\'s scoring, mask and top-{k} '
+        f'{ms["approx"]:.4f} ms in serving mode, {ms["exact"]:.4f} ms '
+        'exact')
+    return out
+
+
+def adv_target_phase(trainer, card: str) -> dict:
+    """Phase 9i (``mining_phase``) under ``TEXTGCN_TPU_ADV_TOPK=0.95``,
+    after the hard negatives of one draw are mined unset and under the
+    target: bit-equal."""
+    from textgcn_tpu_torch.ops.retrieval import ADV_TOPK_ENV
+    model = trainer.model
+    users, keep, _ = adv_draws(model, 9)
+    old = os.environ.pop(ADV_TOPK_ENV, None)
+    try:
+        with torch.no_grad():
+            ur, ir = model.representation()
+            unset = model.hard_negatives(ur, ir, users, keep)
+            os.environ[ADV_TOPK_ENV] = str(APPROX)
+            target = model.hard_negatives(ur, ir, users, keep)
+        same = all(torch.equal(a, b) for a, b in zip(unset, target))
+        log(f'adv recall target: {ADV_TOPK_ENV}={APPROX} mines the unset '
+            f'run\'s hard negatives bit for bit: {same} '
+            f'({int(unset[1].sum())} valid of {unset[1].numel()})')
+        check(same, f'{ADV_TOPK_ENV}={APPROX} changed the hard negatives')
+        return mining_phase(trainer, card)
+    finally:
+        if old is None:
+            os.environ.pop(ADV_TOPK_ENV, None)
+        else:
+            os.environ[ADV_TOPK_ENV] = old
+
+
+# all-MiniLM-L6-v2's published shape (its config.json)
+MINILM = {'model_type': 'bert', 'vocab_size': 30522, 'hidden_size': 384,
+          'num_hidden_layers': 6, 'num_attention_heads': 12,
+          'intermediate_size': 1536, 'max_position_embeddings': 512,
+          'hidden_act': 'gelu', 'layer_norm_eps': 1e-12,
+          'type_vocab_size': 2}
+ENCODE_SENTENCES = 512
+ENCODE_TOL = 1e-4
+
+
+def write_safetensors(path: str, tensors: dict[str, np.ndarray]):
+    """float32 ``tensors`` in the ``.safetensors`` layout: the header's
+    length (8 bytes, little-endian), the JSON header, the data."""
+    header, offset = {}, 0
+    for name, a in tensors.items():
+        header[name] = {'dtype': 'F32', 'shape': list(a.shape),
+                        'data_offsets': [offset, offset + a.nbytes]}
+        offset += a.nbytes
+    raw = json.dumps(header).encode()
+    raw += b' ' * (-len(raw) % 8)
+    with open(path, 'wb') as f:
+        f.write(len(raw).to_bytes(8, 'little'))
+        f.write(raw)
+        for a in tensors.values():
+            f.write(np.ascontiguousarray(a, np.float32).tobytes())
+
+
+def write_minilm(root: str, seed: int = 0) -> str:
+    """A BERT directory of ``MINILM``'s shape with N(0, 0.02) weights from
+    ``seed`` (LayerNorms 1 and 0) in ``model.safetensors``, and a
+    lower-casing ``vocab.txt`` that holds the synthetic text's words,
+    digits and letters (and their ``##`` pieces), filled with unused
+    entries to the vocabulary's size."""
+    from textgcn_tpu_torch.data.encoder import BertEncoder
+    out = os.path.join(root, 'minilm-shaped')
+    os.makedirs(out, exist_ok=True)
+    with open(os.path.join(out, 'config.json'), 'w') as f:
+        json.dump(MINILM, f)
+    with open(os.path.join(out, 'tokenizer_config.json'), 'w') as f:
+        json.dump({'do_lower_case': True, 'model_max_length': 512}, f)
+    chars = list('abcdefghijklmnopqrstuvwxyz0123456789,:.')
+    vocab = ['[PAD]', '[UNK]', '[CLS]', '[SEP]', '[MASK]']
+    vocab += ('title of a longer description its detail review by opinion '
+              'category style item for enthusiasts product series').split()
+    vocab += [str(i) for i in range(100)] + chars + ['##' + c for c in chars]
+    vocab += [f'[unused{i}]' for i in range(MINILM['vocab_size']
+                                            - len(vocab))]
+    with open(os.path.join(out, 'vocab.txt'), 'w') as f:
+        f.write('\n'.join(vocab) + '\n')
+    gen = torch.Generator().manual_seed(seed)
+    state = {}
+    for name, t in BertEncoder(MINILM).state_dict().items():
+        if 'LayerNorm' in name:
+            t = torch.ones_like(t) if name.endswith('weight') \
+                else torch.zeros_like(t)
+        elif name.endswith('bias'):
+            t = torch.zeros_like(t)
+        else:
+            t = 0.02 * torch.randn(t.shape, generator=gen)
+        state[name] = t.numpy()
+    write_safetensors(os.path.join(out, 'model.safetensors'), state)
+    return out
+
+
+def health_phase(log_path: str, dev) -> dict:
+    """The health check: a probe of the card, and the probe line of a CLI
+    run's ``log.log``."""
+    from textgcn_tpu_torch.cli import device_healthcheck
+    rtt = device_healthcheck(device=dev)
+    with open(log_path) as f:
+        lines = [s for s in f.read().splitlines()
+                 if 'Device backend ready (' in s]
+    log(f'health check: a probe of the card took {rtt:.4f} s; the CLI '
+        f'run logged {lines}')
+    check(rtt < 60 and len(lines) == 1, f'health check: {rtt} s, {lines}')
+    return {'probe_s': rtt, 'line': lines[0]}
+
+
+def encoder_phase(root: str, cut_dir: str, base_ck: str, card: str,
+                  dev) -> dict:
+    """The port's BERT at all-MiniLM-L6-v2's shape (``write_minilm``):
+    ``ENCODE_SENTENCES`` of the cut's texts encoded on the card against
+    the CPU (``ENCODE_TOL``); then ``ltr_linear --load_base <the boosted
+    phase's base> --freeze`` for 1 epoch on a copy of the boosted phase's
+    4,096-user cut without its embedding caches, under
+    ``TEXTGCN_TPU_TEXT_ENCODER=flax``: it encodes the item descriptions
+    and the reviews on the card and writes both caches (K1 launches
+    exactly ``6 + steps x 6 + 6``, forward only); a second run reads the
+    caches and encodes nothing (the same launches).  The loader's memo is
+    bypassed for both runs.  The first run's sentences go through a fresh
+    tokenizer once more, alone, for the host's share of the rate."""
+    import shutil
+
+    from textgcn_tpu_torch.data import encoder, text
+    model_dir = write_minilm(root)
+    enc_dir = os.path.join(root, 's1_enc')
+    os.makedirs(enc_dir, exist_ok=True)
+    for name in ('train.tsv', 'test.tsv', 'meta_synced.tsv',
+                 'reviews_text.tsv'):
+        shutil.copy(os.path.join(cut_dir, name), enc_dir)
+    with open(os.path.join(enc_dir, 'reviews_text.tsv')) as f:
+        next(f)
+        sample = [line.split('\t')[2]
+                  for line, _ in zip(f, range(ENCODE_SENTENCES))]
+    t0 = time.perf_counter()
+    on_card = encoder.encode(sample, model_dir, 64, dev)
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    on_cpu = encoder.encode(sample, model_dir, 64, 'cpu')
+    cpu_s = time.perf_counter() - t0
+    err = float(np.abs(on_card - on_cpu).max())
+    out = {'card_vs_cpu_max_abs_err': err, 'sentences': len(sample),
+           'card_s': card_s, 'cpu_s': cpu_s}
+    log(f'encoder: {len(sample)} sentences at all-MiniLM-L6-v2\'s shape on '
+        f'the card ({card_s:.3f} s) vs the CPU ({cpu_s:.3f} s): max abs '
+        f'err {err:.3e}')
+    check(on_card.shape == (len(sample), MINILM['hidden_size'])
+          and err <= ENCODE_TOL, f'encoder: card vs CPU {err}')
+
+    calls = []
+    real_encode, loader = encoder.encode, text.load_ltr_data
+    old_env = os.environ.get(text.ENCODER_ENV)
+
+    def counted(sentences, model_dir, batch_size, *args, **kwargs):
+        t = time.perf_counter()
+        vectors = real_encode(sentences, model_dir, batch_size, *args,
+                              **kwargs)
+        calls.append((len(sentences), time.perf_counter() - t, sentences,
+                      batch_size))
+        return vectors
+
+    encoder.encode = counted
+    text.load_ltr_data = getattr(loader, 'real', loader)
+    os.environ[text.ENCODER_ENV] = 'flax'
+    argv = ['--model', 'ltr_linear', '--load_base', base_ck, '--freeze',
+            '--epochs', '1', '--evaluate_every', '1', '--bert_model',
+            model_dir, '--emb_size', str(D), '--n_layers', str(LAYERS),
+            '--batch_size', str(BATCH), '-k', *map(str, KS)]
+    try:
+        for run in ('encode', 'cached'):
+            n_calls = len(calls)
+            reset_counts()
+            t0 = time.perf_counter()
+            trainer, run_dir = cli_run(
+                enc_dir, argv + ['--uid', f'enc-{run}']
+                + (['--quiet'] if run == 'cached' else []), 'cuda')
+            seconds = time.perf_counter() - t0
+            launches = counts()
+            steps = trainer.model.num_batches(BATCH)
+            want = dict.fromkeys(_wrappers(), 0)
+            want['spmm_dropout'] = 2 * LAYERS * (steps + 2)
+            check(launches == want, f'encoder {run}: launches {launches}, '
+                  f'expected {want} (base eval + steps + eval, forward only)')
+            out[f'{run}_launches'] = launches['spmm_dropout']
+            out[f'{run}_cli_s'] = seconds
+            new = calls[n_calls:]
+            if run == 'encode':
+                n = sum(c[0] for c in new)
+                s = sum(c[1] for c in new)
+                out.update(encoded=n, encode_s=s, sentences_per_s=n / s,
+                           log=os.path.join(run_dir, 'log.log'))
+                log(f'encoder: ltr_linear on the {trainer.data.n_users}-user '
+                    f'cut with no caches encoded {n} sentences in '
+                    f'{len(new)} calls, {s:.3f} s ({n / s:.1f} sentences/s '
+                    f'on {card}); cli.main took {seconds:.3f} s')
+                check(len(new) == 2, f'encoder: {len(new)} encode calls')
+                # the host's share: the same sentences through a fresh
+                # tokenizer (empty word cache) in the same batches
+                tok = encoder.BertTokenizer.from_dir(model_dir)
+                length = min(tok.max_length(),
+                             MINILM['max_position_embeddings'])
+                t0 = time.perf_counter()
+                for _, _, sentences, batch in new:
+                    for start in range(0, len(sentences), batch):
+                        tok(sentences[start:start + batch], length)
+                tok_s = time.perf_counter() - t0
+                out.update(tokenizer_s=tok_s, tokenizer_share=tok_s / s)
+                log(f'encoder: the tokenizer alone took {tok_s:.3f} s of '
+                    f'the {s:.3f} s ({tok_s / s:.3f}; '
+                    f'{n / tok_s:.1f} sentences/s on the host)')
+            else:
+                log(f'encoder: the second run read the caches ({len(new)} '
+                    f'encode calls); cli.main took {seconds:.3f} s')
+                check(not new, 'encoder: the second run encoded again')
+    finally:
+        encoder.encode, text.load_ltr_data = real_encode, loader
+        if old_env is None:
+            os.environ.pop(text.ENCODER_ENV, None)
+        else:
+            os.environ[text.ENCODER_ENV] = old_env
+    caches = sorted(os.listdir(os.path.join(enc_dir, 'embeddings')))
+    for name in caches:
+        if name.endswith('.npy'):
+            v = np.load(os.path.join(enc_dir, 'embeddings', name))
+            check(v.shape[1] == MINILM['hidden_size']
+                  and np.allclose(np.linalg.norm(v, axis=1), 1, atol=1e-4),
+                  f'encoder cache {name}: {v.shape}')
+    check(len(caches) == 4, f'encoder: caches {caches}')
+    log(f'encoder: caches {caches}')
+    return out
+
+
+def cold_phase(root: str) -> dict:
+    """``cold_report``: a 5,000 x 2,000 ``--sharp --cold 0.2`` set from the
+    port's generator, ``lgcn`` trained 2 epochs on it through ``cli.main``,
+    then ``tools/cold_report.main --load`` on the card (12 K1 launches:
+    the load's evaluation and the one ranking pass); the three splits'
+    metrics finite and in [0, 1]."""
+    from textgcn_tpu_torch.tools import cold_report
+    from textgcn_tpu_torch.tools.make_synthetic import generate
+    data_dir = os.path.join(root, 'cold')
+    generate(data_dir, n_users=5000, n_items=2000, seed=0, sharp=True,
+             cold=0.2)
+    common = ['--model', 'lgcn', '--emb_size', str(D), '--n_layers',
+              str(LAYERS), '--batch_size', str(BATCH), '-k', *map(str, KS),
+              '--quiet']
+    t0 = time.perf_counter()
+    _, run_dir = cli_run(data_dir, common + ['--epochs', '2',
+                                             '--evaluate_every', '1',
+                                             '--uid', 'cold-base'], 'cuda')
+    train_s = time.perf_counter() - t0
+    reset_counts()
+    t0 = time.perf_counter()
+    results = cli_run(data_dir, common + ['--load', run_dir, '--uid', 'cold'],
+                      'cuda', entry=cold_report.main)
+    report_s = time.perf_counter() - t0
+    launches = counts()
+    want = dict.fromkeys(_wrappers(), 0)
+    want['spmm_dropout'] = 2 * 2 * LAYERS
+    check(launches == want, f'cold_report: launches {launches}, expected '
+          f'{want}')
+    check(list(results) == ['all', 'warm', 'cold']
+          and all(np.isfinite(v).all() and (np.asarray(v) >= 0).all()
+                  and (np.asarray(v) <= 1).all()
+                  for r in results.values() for v in r.values()),
+          f'cold_report: {results}')
+    recall = {s: [float(x) for x in r['recall']] for s, r in results.items()}
+    log(f'cold_report: trained in {train_s:.3f} s, reported in '
+        f'{report_s:.3f} s; recall@{KS} {recall}')
+    return {'launches': launches['spmm_dropout'], 'recall': recall,
+            'train_s': train_s, 'report_s': report_s}
+
+
 def device_ms_per_step(trainer, batches, trace_dir: str,
                        name: str) -> tuple:
     """Device time of ``len(batches)`` training steps from a
@@ -3250,8 +3676,11 @@ def main():
         log(f'phase small: {time.perf_counter() - t:.3f} s')
 
         t = time.perf_counter()
-        launches = serve_phase(data_dir, ck)
+        launches, serve_s = serve_phase(data_dir, ck)
         log(f'phase serve: {time.perf_counter() - t:.3f} s')
+        t = time.perf_counter()
+        approx = approx_phase(data_dir, ck, serve_s)
+        log(f'phase approx serve: {time.perf_counter() - t:.3f} s')
 
         trained, timing = {}, {}
         for model in MODEL_FLAGS:
@@ -3316,8 +3745,9 @@ def main():
         probes = probe_phase(data_dir, trained['lgcn']['run_dir'])
         log(f'phase probes: {time.perf_counter() - t:.3f} s')
         t = time.perf_counter()
-        mining = mining_phase(trained['adv_sampling']['trainer'], card)
-        log(f'phase mining: {time.perf_counter() - t:.3f} s')
+        mining = adv_target_phase(trained['adv_sampling']['trainer'], card)
+        log(f'phase mining (adv recall target): '
+            f'{time.perf_counter() - t:.3f} s')
         t = time.perf_counter()
         mesh_slice = mesh_slice_phase(data_dir, trained, probes, dev, card,
                                       root)
@@ -3335,6 +3765,17 @@ def main():
         dcp = dcp_phase(boosted['data_dir'])
         log(f'phase dcp: {time.perf_counter() - t:.3f} s')
         t = time.perf_counter()
+        encoded = encoder_phase(root, boosted['data_dir'],
+                                os.path.join(root, 'boost_base.pkl'), card,
+                                dev)
+        log(f'phase encoder: {time.perf_counter() - t:.3f} s')
+        t = time.perf_counter()
+        health = health_phase(encoded.pop('log'), dev)
+        log(f'phase health check: {time.perf_counter() - t:.3f} s')
+        t = time.perf_counter()
+        cold = cold_phase(root)
+        log(f'phase cold_report: {time.perf_counter() - t:.3f} s')
+        t = time.perf_counter()
         traced = trace_phase(boosted.pop('data_dir'), root)
         log(f'phase trace: {time.perf_counter() - t:.3f} s')
         t = time.perf_counter()
@@ -3351,7 +3792,16 @@ def main():
         trained['ltr_pop'].pop('trainer')
 
     # each path's launches, counted from 0 just before its run
-    by_path = {'serve_lgcn': {'spmm_dropout': launches}}
+    by_path = {'serve_lgcn': {'spmm_dropout': launches},
+               'serve_lgcn_approx': {
+                   'spmm_dropout': approx['single_launches']},
+               'serve_lgcn_approx_mesh': {
+                   'spmm_weighted': approx['mesh_launches']},
+               'train_ltr_linear_encoder': {
+                   'spmm_dropout': encoded['encode_launches']},
+               'train_ltr_linear_encoder_cached': {
+                   'spmm_dropout': encoded['cached_launches']},
+               'cold_report': {'spmm_dropout': cold['launches']}}
     by_path.update({f'train_{m}': {k: n for k, n in r['launches'].items()
                                    if n}
                     for m, r in trained.items()})
@@ -3419,7 +3869,11 @@ def main():
         # train lgcn --trace (1 epoch) and the quality run (60 epochs on
         # the 50k x 20k sharp set, or fewer if the early stop ends it);
         # train gcn and graphsage --mesh 1x1 (1 epoch); serve the
-        # resumed lgcn --mesh 1x1 run's latest_checkpoint.orbax on one card
+        # resumed lgcn --mesh 1x1 run's latest_checkpoint.orbax on one card;
+        # serve lgcn --approx_topk 0.95; train ltr_linear --freeze on the
+        # 4,096-user cut as the encoder writes its caches, then from them
+        # (forward only); cold_report (the load's evaluation and one
+        # ranking pass)
         **launch_fields('spmm_dropout', 'lgcn'),
         'max_abs_err': k1['max_abs_err'],
         'max_abs_err_by_width': k1['max_abs_err_by_width'],
@@ -3446,7 +3900,8 @@ def main():
         # --load_base --mesh 1x1 (forward only: base eval, the fit's
         # propagation, eval, predict) and their --load re-serve; lgcn
         # --mesh 1x1 for 1 epoch and --resume'd for 1 more with
-        # --ckpt_backend orbax and with pickle
+        # --ckpt_backend orbax and with pickle; serve lgcn --approx_topk
+        # 0.95 --mesh 1x1
         **launch_fields('spmm_weighted', 'lgcn_mesh'),
         'max_abs_err': k2['max_abs_err'],
         'max_abs_err_4_shards_vs_k1': k2['max_abs_err_vs_k1'],
@@ -3544,6 +3999,8 @@ def main():
                     'mining_ms': mining,
                     'boosted': boosted, 'dcp': dcp,
                     'trace': traced, 'quality': quality,
+                    'approx_serve': approx, 'encoder': encoded,
+                    'health_check': health, 'cold_report': cold,
                     'text_user_pair_table_bytes': pair_bytes}))
     print(json.dumps({'kernels': kernels}), flush=True)
     print(json.dumps({'ok': True, 'device': {

@@ -2,12 +2,14 @@
 ``adv_sampling``, the text-loss, concat and probe models and the boosted
 heads (``tests/test_torch_mesh_conv.py``, ``tests/test_torch_mesh_ltr.py``,
 ``tests/test_torch_mesh_adv.py``, ``tests/test_torch_mesh_text.py``,
-``tests/test_torch_mesh_boosted.py``).
+``tests/test_torch_mesh_boosted.py``), and of serving mode on a mesh
+(``tests/test_torch_approx.py``).
 
 Started by ``torch.multiprocessing`` (spawn) with ``run(rank, world,
 work_dir)``: joins a gloo group over a ``file://`` store in ``work_dir``,
 reads ``work_dir/inputs.pkl`` (made by the test with numpy; ``kind`` is
-``'conv'``, ``'ltr'``, ``'adv'``, ``'text'`` or ``'boosted'``), runs the
+``'conv'``, ``'ltr'``, ``'adv'``, ``'text'``, ``'boosted'`` or
+``'approx'``), runs the
 port's mesh path on the CPU, on one torch thread, and writes what it
 found to ``work_dir/rank<r>.pkl``.  Imports torch and the port only.
 """
@@ -422,6 +424,24 @@ def boosted_checks(inp, world, work_dir):
     return out
 
 
+def approx_checks(inp, mesh):
+    """``sharded_topk`` in serving mode (``approx=0.95``) over this rank's
+    rows of ``inp['tables']``'s padded item table: ``{k: (values,
+    indices)}``."""
+    from textgcn_tpu_torch.parallel.sharded import sharded_topk
+    t = inp['tables']
+    items = torch.from_numpy(t['items'])
+    rows = items.shape[0] // mesh.size
+    shard = items[mesh.rank * rows:(mesh.rank + 1) * rows]
+    out = {}
+    for k in inp['ks']:
+        v, i = sharded_topk(mesh, torch.from_numpy(t['users']), shard,
+                            torch.from_numpy(t['pos']), k, t['n_valid'],
+                            approx=0.95)
+        out[k] = (v.numpy(), i.numpy())
+    return out
+
+
 def run(rank: int, world: int, work_dir: str):
     os.environ['TEXTGCN_TPU_PLATFORM'] = 'cpu'
     os.environ['TEXTGCN_TPU_TEXT_ENCODER'] = 'stub'
@@ -441,6 +461,9 @@ def run(rank: int, world: int, work_dir: str):
                 out['resume'] = resume_check(inp, world, work_dir)
         elif inp['kind'] == 'boosted':
             out = {'boosted': boosted_checks(inp, world, work_dir)}
+        elif inp['kind'] == 'approx':
+            out = {'approx': approx_checks(inp, mesh),
+                   'cli': cli_runs(inp, world, rank, work_dir)}
         elif inp['kind'] == 'ltr':
             out = {'ltr': ltr_checks(inp, mesh)}
             if world == 4:

@@ -155,13 +155,29 @@ def test_mining_top_k_equals_lax_top_k_on_ties(dtype, k, n):
                                   np.asarray(want_v).astype(np.float32))
 
 
-def test_approximate_mining_is_refused(monkeypatch):
-    for env in ('', 'exact'):
+def test_approximate_mining_is_refused(monkeypatch, caplog):
+    """No longer refused: a ``TEXTGCN_TPU_ADV_TOPK`` recall target (or a
+    value the JAX package reads as 0.95) mines exactly, as an empty or
+    ``exact`` value does, and says so once a value."""
+    import logging
+    # a CLI run earlier in the process stops the port's logger propagating
+    monkeypatch.setattr(logging.getLogger(tconfig.LOGGER_NAME), 'propagate',
+                        True)
+    caplog.set_level(logging.INFO, logger=tconfig.LOGGER_NAME)
+    monkeypatch.setattr(retrieval, '_logged_adv_targets', set())
+    rng = np.random.RandomState(3)
+    scores = torch.from_numpy(rng.randint(-3, 4, (6, 50)).astype(np.float32))
+    want_v, want_i = retrieval.top_k_lower_index(scores, 7)
+    for env, target in (('', None), ('exact', None), ('0.95', 0.95),
+                        ('0.5', 0.5), ('1.5', 0.95), ('0', 0.95),
+                        ('nope', 0.95), ('0.95', 0.95)):
         monkeypatch.setenv(retrieval.ADV_TOPK_ENV, env)
-        retrieval.mining_top_k(torch.zeros(2, 5), 2)
-    monkeypatch.setenv(retrieval.ADV_TOPK_ENV, '0.95')
-    with pytest.raises(NotImplementedError, match='not ported yet'):
-        retrieval.mining_top_k(torch.zeros(2, 5), 2)
+        assert retrieval.adv_recall_target() == target
+        got_v, got_i = retrieval.mining_top_k(scores, 7)
+        assert torch.equal(got_i, want_i) and torch.equal(got_v, want_v)
+    said = [r.getMessage() for r in caplog.records
+            if 'mined exactly' in r.getMessage()]
+    assert len(said) == 5 and 'TEXTGCN_TPU_ADV_TOPK=0.95' in said[0]
 
 
 # --- the loss ----------------------------------------------------------------

@@ -107,39 +107,43 @@ def test_config_fields_and_defaults_match_jax():
      '--no_train', '--predict', '--uid', 'u', '--emb_size', '16'],
     ['--model', 'lgcn', '--no_pallas', '--steps_per_call', '8',
      '--weight', 'max(p-n)_|b-g|', '--no_save'],
+    # serving mode and the mining target, refused before the port had them
+    ['--model', 'marcus', '--approx_topk', '0.9'],
+    ['--model', 'adv_sampling', 'TEXTGCN_TPU_ADV_TOPK=0.9'],
+    ['--model', 'gbdt', '--mesh', '2x4', '--approx_topk', '0.9'],
+    ['--model', 'lgcn', '--approx_topk', '0.95'],
+    ['--model', 'xgboost_pop', '--ckpt_backend', 'orbax',
+     '--approx_topk', '0.95'],
+    ['--model', 'gatv2', '--aggr', 'mean', '--approx_topk', '0.5'],
+    ['--model', 'lgcn', '--approx_topk', '0'],
 ])
-def test_parse_args_matches_jax(argv):
+def test_parse_args_matches_jax(argv, monkeypatch):
+    """An ``ENV=value`` item is set in the environment, not passed."""
     from textgcn_tpu.config import parse_args as jax_parse
-    argv = argv + ['--uid', 'same']
+    for item in argv:
+        if '=' in item:
+            monkeypatch.setenv(*item.split('=', 1))
+    argv = [a for a in argv if '=' not in a] + ['--uid', 'same']
     a, b = jax_parse(argv), tconfig.parse_args(argv)
     assert dataclasses.asdict(a) == dataclasses.asdict(b)
 
 
 @pytest.mark.parametrize('argv, err', [
     (['--model', 'xgboost', '--mesh', '2by4'], ValueError),
-    (['--model', 'marcus', '--approx_topk', '0.9'], NotImplementedError),
     (['--model', 'gbdt_pop', '--mesh', '0x4'], ValueError),
     (['--model', 'ltr_simple'], ValueError),
-    (['--model', 'adv_sampling', 'TEXTGCN_TPU_ADV_TOPK=0.9'],
-     NotImplementedError),
-    (['--model', 'gbdt', '--mesh', '2x4', '--approx_topk', '0.9'],
-     NotImplementedError),
-    (['--model', 'lgcn', '--approx_topk', '0.95'], NotImplementedError),
     (['--model', 'lgcn', '--dropout', '1.5'], ValueError),
     (['--model', 'lgcn', '--load', 'a', '--load_base', 'b'], ValueError),
-    (['--model', 'xgboost_pop', '--ckpt_backend', 'orbax',
-      '--approx_topk', '0.95'], NotImplementedError),
-    (['--model', 'gatv2', '--aggr', 'mean', '--approx_topk', '0.5'],
-     NotImplementedError),
     (['--model', 'gat'], ValueError),
+    # a recall target outside [0, 1), as the JAX package refuses it
+    (['--model', 'lgcn', '--approx_topk', '1.0'], ValueError),
+    (['--model', 'lgcn', '--approx_topk', '-0.1'], ValueError),
+    (['--model', 'marcus', '--mesh', '2x4', '--approx_topk', '1.5'],
+     ValueError),
 ])
-def test_parse_args_refuses_what_is_not_ported(argv, err, monkeypatch):
-    """An ``ENV=value`` item is set in the environment, not passed."""
-    for item in argv:
-        if '=' in item:
-            monkeypatch.setenv(*item.split('=', 1))
+def test_parse_args_refuses_what_is_not_ported(argv, err):
     with pytest.raises(err):
-        tconfig.parse_args([a for a in argv if '=' not in a])
+        tconfig.parse_args(argv)
 
 
 @pytest.mark.parametrize('model', ['adv_sampling', 'text', 'kg', 'reviews',

@@ -294,8 +294,9 @@ def test_conv_model_init_and_refusals(dummy_dir):
     for name in ('gcn', 'graphsage', 'gat', 'gatv2'):
         with pytest.raises(ValueError, match='--aggr'):
             tconfig.parse_args(['--model', name])
-    with pytest.raises(NotImplementedError, match='not ported'):
-        tconfig.parse_args(['--model', 'gbdt', '--approx_topk', '0.9'])
+    # serving mode, refused until the port had it, parses
+    assert tconfig.parse_args(['--model', 'gbdt', '--approx_topk',
+                               '0.9']).approx_topk == 0.9
 
 
 def test_cli_trains_gat_and_jax_loads_it(tmp_path, monkeypatch, dummy_dir):

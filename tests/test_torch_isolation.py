@@ -1,10 +1,13 @@
 """The port stands alone: no JAX, no JAX-package module, no host library
-that the GPU machine lacks (pandas, scikit-learn, tqdm, optax).
+that the GPU machine lacks (pandas, scikit-learn, tqdm, optax, flax,
+orbax, and the Hugging Face packages ``transformers``,
+``sentence_transformers``, ``safetensors`` and ``tokenizers``: the text
+encoder is the port's own).
 
 Checked twice: statically (an AST scan of every import in
-``textgcn_tpu_torch/**/*.py`` and ``chip_smoke.py``) and at run time (a
-fresh interpreter in which those modules cannot be imported imports every
-module of the port).
+``textgcn_tpu_torch/**/*.py``, ``chip_smoke.py`` and the port's examples
+``examples/torch_*.py``) and at run time (a fresh interpreter in which
+those modules cannot be imported imports every module of the port).
 """
 
 import ast
@@ -18,19 +21,28 @@ import pytest
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, 'textgcn_tpu_torch')
 FORBIDDEN = ('jax', 'jaxlib', 'textgcn_tpu', 'pandas', 'sklearn', 'tqdm',
-             'optax', 'flax', 'orbax')
+             'optax', 'flax', 'orbax', 'transformers',
+             'sentence_transformers', 'safetensors', 'tokenizers')
+EXAMPLES = os.path.join(REPO, 'examples')
 
 
-def _port_files():
-    out = [os.path.join(REPO, 'chip_smoke.py')]
+def _package_files():
+    out = []
     for root, _, files in os.walk(PORT):
         out += [os.path.join(root, f) for f in files if f.endswith('.py')]
     return sorted(out)
 
 
+def _port_files():
+    examples = sorted(os.path.join(EXAMPLES, f) for f in os.listdir(EXAMPLES)
+                      if f.startswith('torch_') and f.endswith('.py'))
+    return [os.path.join(REPO, 'chip_smoke.py'), *examples,
+            *_package_files()]
+
+
 def _port_modules():
     mods = []
-    for path in _port_files()[1:]:
+    for path in _package_files():
         rel = os.path.relpath(path, REPO)[:-3].replace(os.sep, '.')
         mods.append(rel[:-len('.__init__')] if rel.endswith('__init__')
                     else rel)
@@ -60,6 +72,8 @@ def test_forbidden_matches_roots_not_the_port():
     assert not forbidden('textgcn_tpu_torch')
     assert not forbidden('textgcn_tpu_torch.ops.spmm')
     assert not forbidden('torch') and not forbidden('jaxtyping_like')
+    assert forbidden('transformers.models.bert') and forbidden('safetensors')
+    assert not forbidden('tokenizers_like')
 
 
 @pytest.mark.parametrize('path', _port_files(),

@@ -145,12 +145,19 @@ def test_reference_torch_cache_and_missing_encoder(tmp_path, monkeypatch):
     torch.save(vecs, cache + '.torch')
     np.testing.assert_array_equal(text.embed_text(['a', 'b', 'c'], cache,
                                                   'm', 4), vecs.numpy())
+    # without a cache the encoder runs: it refuses a model that is absent
+    # (nothing is downloaded) or not a BERT, and never falls back
+    monkeypatch.setenv('TEXTGCN_TPU_PLATFORM', 'cpu')
+    monkeypatch.setenv('HF_HUB_CACHE', str(tmp_path / 'hub'))
     monkeypatch.setenv(text.ENCODER_ENV, 'st')
-    with pytest.raises(NotImplementedError, match='not ported yet'):
+    with pytest.raises(FileNotFoundError, match="'m' not found"):
         text.embed_text(['a', 'b'], cache, 'm', 4)
     monkeypatch.delenv(text.ENCODER_ENV)
-    with pytest.raises(NotImplementedError, match="'auto'"):
-        text.encode_sentences(['a'], 'm', 4)
+    other = tmp_path / 'roberta'
+    other.mkdir()
+    (other / 'config.json').write_text('{"model_type": "roberta"}')
+    with pytest.raises(NotImplementedError, match="'roberta' is not ported"):
+        text.encode_sentences(['a'], str(other), 4)
 
 
 # --- the loader --------------------------------------------------------------

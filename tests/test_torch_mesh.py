@@ -16,6 +16,7 @@ the CLI run's loss sums 1e-5 relative and its metrics 1e-6 against the
 single-process port.
 """
 
+import dataclasses
 import os
 import pickle
 import sys
@@ -394,17 +395,32 @@ def test_a_mesh_of_another_size_than_the_group_is_refused(ranks):
 
 
 @pytest.mark.parametrize('argv, err', [
-    (['--model', 'gbdt', '--mesh', '2x2', '--approx_topk', '0.9'],
-     NotImplementedError),
     (['--model', 'marcus', '--mesh', 'autox'], ValueError),
-    (['--model', 'lgcn', '--mesh', '2x2', '--approx_topk', '0.9'],
-     NotImplementedError),
     (['--model', 'lgcn', '--mesh', '2by2'], ValueError),
     (['--model', 'lgcn', '--mesh', '0x4'], ValueError),
+    # a recall target outside [0, 1), with or without a mesh
+    (['--model', 'gbdt', '--mesh', '2x2', '--approx_topk', '1.0'],
+     ValueError),
+    (['--model', 'lgcn', '--mesh', '2x2', '--approx_topk', '-0.5'],
+     ValueError),
 ])
 def test_mesh_flags_that_are_refused(argv, err):
     with pytest.raises(err):
         tconfig.parse_args(argv)
+
+
+@pytest.mark.parametrize('argv', [
+    ['--model', 'gbdt', '--mesh', '2x2', '--approx_topk', '0.9'],
+    ['--model', 'lgcn', '--mesh', '2x2', '--approx_topk', '0.9'],
+])
+def test_mesh_takes_serving_mode(argv):
+    """Refused until the port served in bfloat16; now as the JAX package
+    parses it."""
+    from textgcn_tpu.config import parse_args as jax_parse
+    argv = argv + ['--uid', 'same']
+    cfg = tconfig.parse_args(argv)
+    assert cfg.approx_topk == 0.9 and cfg.mesh_shape == (2, 2)
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(jax_parse(argv))
 
 
 def test_a_mesh_is_refused_without_its_ranks(tmp_path, monkeypatch,

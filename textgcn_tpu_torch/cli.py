@@ -34,12 +34,16 @@
     python -m textgcn_tpu_torch ... --ckpt_backend orbax [--mesh ...]
     python -m textgcn_tpu_torch ... --reshuffle [--seed S]
     python -m textgcn_tpu_torch ... --trace DIR
+    python -m textgcn_tpu_torch --model lgcn ... --no_train --load RUN \
+        --approx_topk 0.95 [--mesh ...]          # serving mode
     torchrun --nproc_per_node N -m textgcn_tpu_torch --model lgcn \
         --mesh AxB ...                                  # A * B == N
     (every model the same way under torchrun)
 
-Drives: config parse -> (``--mesh``: the process group, one rank per
-GPU) -> dataset load -> (``--mesh``: tables padded to the number of ranks
+Drives: config parse -> (``--approx_topk``: ``TEXTGCN_TPU_APPROX_TOPK``
+exported while ``main`` runs) -> (``--mesh``: the process group, one rank
+per GPU) -> the device health check (``device_healthcheck``) -> dataset
+load -> (``--mesh``: tables padded to the number of ranks
 and row-sharded; conv layers, LTR towers and text buffers whole) -> model
 build ->
 ``--resume`` (the whole trainer state of a stopped run), else ``--load`` or ``--load_base`` (with its
@@ -55,32 +59,110 @@ returns after its probe of the four
 text representations, before any load; ``ltr_simple`` after the load and
 its probe of the two item texts.  Runs on the GPU;
 ``TEXTGCN_TPU_PLATFORM=cpu`` asks for the CPU (gloo for ``--mesh``).  A
-process group this call started is destroyed before it returns, so
-``main`` can run again in the same process.
+process group this call started is destroyed before it returns, and the
+environment is restored, so ``main`` can run again in the same process.
 """
 
 from __future__ import annotations
 
-from .config import (BOOSTED_MODELS, get_logger, parse_args,
+import logging
+import os
+import threading
+import time
+
+import torch
+
+from .config import (BOOSTED_MODELS, LOGGER_NAME, get_logger, parse_args,
                      platform_device, warn_footguns)
+from .ops.retrieval import APPROX_TOPK_ENV
 from .registry import get_class
 from .train.trainer import Trainer
+
+WARN_ENV = 'TEXTGCN_TPU_DEVICE_WARN_S'
+TIMEOUT_ENV = 'TEXTGCN_TPU_DEVICE_TIMEOUT_S'
+
+
+def device_healthcheck(warn_after_s: float | None = None,
+                       fail_after_s: float | None = None,
+                       _probe=None, device=None) -> float:
+    """Round-trip a scalar through ``device`` before any data is loaded, so
+    a wedged card fails loudly instead of hanging the first real op.
+
+    The probe (``torch.ones((), device=device).add_(1).item()``, then a
+    ``torch.cuda.synchronize`` on a card; ``_probe`` replaces it in tests)
+    runs in a thread.  After ``warn_after_s`` (``TEXTGCN_TPU_DEVICE_WARN_S``,
+    default 60) one ERROR is logged; after ``fail_after_s``
+    (``TEXTGCN_TPU_DEVICE_TIMEOUT_S``, default 0: wait for ever) a
+    ``TimeoutError`` is raised.  An exception of the probe is raised here.
+    Returns the round trip in seconds.
+    """
+    log = logging.getLogger(LOGGER_NAME)
+    if warn_after_s is None:
+        warn_after_s = float(os.environ.get(WARN_ENV, '60'))
+    if fail_after_s is None:
+        fail_after_s = float(os.environ.get(TIMEOUT_ENV, '0'))
+    dev = torch.device('cpu' if device is None else device)
+
+    def default_probe():
+        torch.ones((), device=dev).add_(1).item()
+        if dev.type == 'cuda':
+            torch.cuda.synchronize(dev)
+
+    t0 = time.perf_counter()
+    done = threading.Event()
+    err: list[BaseException] = []
+
+    def probe():
+        try:
+            (_probe or default_probe)()
+        except BaseException as e:  # raised on the calling thread
+            err.append(e)
+        finally:
+            done.set()
+
+    threading.Thread(target=probe, daemon=True).start()
+    warned = False
+    # wake often enough to warn and to give up on time
+    tick = min([5.0] + [max(s / 4.0, 0.02)
+                        for s in (warn_after_s, fail_after_s) if s])
+    while not done.wait(timeout=tick):
+        waited = time.perf_counter() - t0
+        if not warned and waited >= warn_after_s:
+            log.error('device unresponsive after %.0f s; still waiting (set '
+                      '%s to abort instead)', waited, TIMEOUT_ENV)
+            warned = True
+        if fail_after_s and waited >= fail_after_s and not done.is_set():
+            raise TimeoutError(f'device unresponsive after {waited:.0f} s '
+                               f'({TIMEOUT_ENV}={fail_after_s:g})')
+    if err:
+        raise err[0]
+    return time.perf_counter() - t0
 
 
 def main(argv: list[str] | None = None):
     cfg = parse_args(argv)
     device = platform_device()
-    if not cfg.mesh:
-        return _run(cfg, device)
-    import torch.distributed as dist
-
-    from .parallel.mesh import make_mesh
-    mesh, created = make_mesh(cfg.mesh_shape, device.type)
+    saved = os.environ.get(APPROX_TOPK_ENV)
+    if cfg.approx_topk:
+        # serving mode: every retrieval sink reads it (ops/retrieval)
+        os.environ[APPROX_TOPK_ENV] = str(cfg.approx_topk)
     try:
-        return _run(cfg, mesh.device, mesh)
+        if not cfg.mesh:
+            return _run(cfg, device)
+        import torch.distributed as dist
+
+        from .parallel.mesh import make_mesh
+        mesh, created = make_mesh(cfg.mesh_shape, device.type)
+        try:
+            return _run(cfg, mesh.device, mesh)
+        finally:
+            if created:
+                dist.destroy_process_group()
     finally:
-        if created:
-            dist.destroy_process_group()
+        if saved is None:
+            os.environ.pop(APPROX_TOPK_ENV, None)
+        else:
+            os.environ[APPROX_TOPK_ENV] = saved
 
 
 def _run(cfg, device, mesh=None):
@@ -94,6 +176,12 @@ def _run(cfg, device, mesh=None):
     if mesh is not None:
         logger.info('Mesh: data=%d, model=%d (%d ranks)', *mesh.shape,
                     mesh.size)
+    if cfg.approx_topk:
+        logger.info('Serving mode: %s=%g (bfloat16 scores, exact top-k)',
+                    APPROX_TOPK_ENV, cfg.approx_topk)
+    # fail loudly, not hang, on a wedged card: before the data load
+    rtt = device_healthcheck(device=device)
+    logger.info('Device backend ready (%.2f s probe)', rtt)
 
     data = loader(cfg)
     if mesh is not None:

@@ -3,8 +3,8 @@
 Counterpart of ``textgcn_tpu/config.py``: the same ``Config`` fields, the
 same flag names and defaults, the same ``finalize`` (``save_path =
 runs/<data-basename>/<uid>``, sorted k) and the same log format.  All 20
-models run; what the port does not run yet (a flag or a combination) is
-refused in ``validate`` with "not ported yet".
+models run with every flag; ``validate`` refuses what the JAX package's
+``validate`` refuses (a ``ValueError`` where it asserts).
 
 Knobs that exist for the TPU:
 
@@ -14,9 +14,12 @@ Knobs that exist for the TPU:
   progress bars, and the port draws none.
 * ``--mesh DATAxMODEL|auto`` runs every model over ``torch.distributed``
   ranks, one per GPU (``parallel/``).
-  ``--approx_topk`` is refused when set: the port serves an exact top-k;
-  so is a ``TEXTGCN_TPU_ADV_TOPK`` recall target for ``adv_sampling``: it
-  mines exactly.
+* ``--approx_topk R`` (a recall target in [0, 1), 0 off, as the JAX
+  package validates it) is serving mode: the catalogue scores are rounded
+  to bfloat16 and their top-k is selected exactly (``ops/retrieval.py``);
+  the CLI exports it as ``TEXTGCN_TPU_APPROX_TOPK`` while it runs.
+* ``--gpu`` is accepted and ignored, as the JAX package ignores it: the
+  card is chosen with ``CUDA_VISIBLE_DEVICES``.
 
 ``ltr_simple`` needs ``--load`` or ``--load_base`` (a ``ValueError``).
 
@@ -37,8 +40,6 @@ import time
 from dataclasses import dataclass, field
 
 import torch
-
-from .ops.retrieval import check_adv_topk_env
 
 MODEL_CHOICES = (
     'lgcn', 'adv_sampling', 'ltr_linear', 'ltr_pop', 'text', 'kg',
@@ -186,12 +187,9 @@ class Config:
         if self.model == 'ltr_simple' and not (self.load or self.load_base):
             raise ValueError('ltr_simple probes a pretrained base: pass '
                              '--load or --load_base')
-        if self.model == 'adv_sampling':
-            check_adv_topk_env()
-        if self.approx_topk:
-            raise NotImplementedError(
-                '--approx_topk is not ported yet: the port serves exact '
-                'top-k')
+        if not 0.0 <= self.approx_topk < 1.0:
+            raise ValueError(f'approx_topk is a recall target in [0, 1); 0 '
+                             f'disables; got {self.approx_topk}')
 
 
 def build_argparser() -> argparse.ArgumentParser:
@@ -240,7 +238,8 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument('--popularity_mode', default=d.popularity_mode,
                    choices=['fixed', 'compat'])
     p.add_argument('--gpu', type=str, default='',
-                   help='accepted for reference CLI compatibility (no-op)')
+                   help='accepted and ignored, as in the JAX package (pick '
+                        'the card with CUDA_VISIBLE_DEVICES)')
     p.add_argument('--seed', type=int, default=d.seed)
     p.add_argument('--reshuffle', action='store_true')
     p.add_argument('--quiet', '-q', action='store_true')
@@ -257,7 +256,9 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument('--ckpt_backend', default=d.ckpt_backend,
                    choices=['pickle', 'orbax'])
     p.add_argument('--approx_topk', type=float, default=d.approx_topk,
-                   help='not ported yet: refused when non-zero')
+                   help='serving mode: catalogue scores rounded to '
+                        'bfloat16 and their exact top-k, meeting any recall '
+                        'target in (0, 1) (e.g. 0.95); 0 = off (default)')
     p.add_argument('--steps_per_call', type=int, default=d.steps_per_call,
                    help='accepted and ignored (TPU relay knob)')
     p.add_argument('--export_reprs', action='store_true',

@@ -22,10 +22,16 @@ numpy (no pandas), with the JAX package's semantics field by field:
 * every train review's vector by (item, user), sorted by item then user,
   for the text models' ``--pos user``.
 
-Encoders: ``TEXTGCN_TPU_TEXT_ENCODER=stub`` (the JAX package's
-deterministic hash-seeded unit vectors, bit for bit) or the caches.  Any
-other encoder raises "not ported yet" when a cache is missing; nothing
-falls back.
+Encoders (``TEXTGCN_TPU_TEXT_ENCODER``), used when no cache fits:
+
+* ``stub``: the JAX package's deterministic hash-seeded unit vectors, bit
+  for bit;
+* ``flax``, ``st`` and ``auto`` (the default): the port's BERT
+  (``encoder.py``) over ``--bert_model`` (a local directory, or a name in
+  the Hugging Face cache), on the entry point's device.  It is the
+  pipeline of both JAX backends (transformer, token mean, L2 norm).
+  ``auto`` does not fall back to the stub when the model is missing, as
+  the JAX package's cascade does: it raises.
 """
 
 from __future__ import annotations
@@ -47,6 +53,7 @@ log = logging.getLogger('textgcn_tpu_torch')
 
 STUB_DIM = 384  # the width of all-MiniLM-L6-v2
 ENCODER_ENV = 'TEXTGCN_TPU_TEXT_ENCODER'
+ENCODERS = ('auto', 'flax', 'st', 'stub')
 
 # the fields pandas.read_table reads as missing (its default na_values)
 NA_VALUES = frozenset((
@@ -78,14 +85,18 @@ def _stub_encode(sentences: list[str]) -> np.ndarray:
 def encode_sentences(sentences: list[str], bert_model: str,
                      batch_size: int) -> np.ndarray:
     """``(len(sentences), D)`` vectors from the encoder that
-    ``TEXTGCN_TPU_TEXT_ENCODER`` names: only ``stub`` is ported."""
-    del batch_size
+    ``TEXTGCN_TPU_TEXT_ENCODER`` names: ``stub``, or ``flax``, ``st`` and
+    ``auto``, which all run the port's BERT on the entry point's device
+    (``config.platform_device``)."""
     backend = os.environ.get(ENCODER_ENV, 'auto')
     if backend == 'stub':
         return _stub_encode(sentences)
-    raise NotImplementedError(
-        f'the text encoder {backend!r} ({bert_model}) is not ported yet: '
-        f'set {ENCODER_ENV}=stub or provide the embedding cache')
+    if backend not in ENCODERS:
+        raise ValueError(f'{ENCODER_ENV}={backend!r}: use one of '
+                         f'{", ".join(ENCODERS)}')
+    from ..config import platform_device
+    from .encoder import encode
+    return encode(sentences, bert_model, batch_size, platform_device())
 
 
 # ---------------------------------------------------------------------------

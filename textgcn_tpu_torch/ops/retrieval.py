@@ -1,23 +1,39 @@
-"""Full-catalogue scoring, train-item mask, exact top-k and negative mining.
+"""Full-catalogue scoring, train-item mask, top-k and negative mining.
 
-Counterpart of ``textgcn_tpu/ops/retrieval.py`` (``mask_train_items``,
-``score_and_topk``, ``mining_top_k``, and ``lax.top_k``'s tie order as
-``top_k_lower_index``), exact only: the JAX package's
-approximate serving mode and its approximate mining (``lax.approx_max_k``)
-are not ported.
+Counterpart of ``textgcn_tpu/ops/retrieval.py``: ``mask_train_items``,
+``score_and_topk`` (with its serving mode), ``env_recall``,
+``mining_top_k``, and ``lax.top_k``'s tie order as ``top_k_lower_index``.
 
 Every catalogue product of the port (serving, the LTR heads' fused
 scores, the concat scorers, hard-negative mining, the sharded top-k) goes
 through ``catalog_scores``, which runs it in full float32.
+
+**Serving mode** (``--approx_topk R``, exported as
+``TEXTGCN_TPU_APPROX_TOPK``, or ``approx=R``; a recall target in (0, 1)):
+the JAX package emits bfloat16 scores there and selects with
+``lax.approx_max_k``.  The port rounds its float32 product to bfloat16 the
+same way and selects the **exact** top-k of the rounded scores, ties to the
+lower index: an exact selection meets any recall target.  The same holds
+for ``TEXTGCN_TPU_ADV_TOPK``'s mining target, which the port reads as the
+JAX package does and then mines exactly (logged once).
+``TEXTGCN_TPU_BLOCKED_TOPK`` (a TPU workaround, exact in the JAX package
+too) is accepted and ignored.
 """
 
 from __future__ import annotations
 
+import logging
 import os
 
 import torch
 
 ADV_TOPK_ENV = 'TEXTGCN_TPU_ADV_TOPK'
+APPROX_TOPK_ENV = 'TEXTGCN_TPU_APPROX_TOPK'
+# the JAX package's mining target when the variable names none it can use
+DEFAULT_ADV_RECALL = 0.95
+
+log = logging.getLogger('textgcn_tpu_torch')
+_logged_adv_targets: set[str] = set()
 
 
 def catalog_scores(users_emb: torch.Tensor,
@@ -45,25 +61,53 @@ def mask_train_items(scores: torch.Tensor, batch_pos_padded: torch.Tensor,
     return scores.scatter_reduce(1, cols.to(torch.int64), fill, 'amin')
 
 
+def env_recall() -> float:
+    """The ``TEXTGCN_TPU_APPROX_TOPK`` serving opt-in as a recall target
+    (0: exact scoring), parsed as the JAX package parses it."""
+    try:
+        return float(os.environ.get(APPROX_TOPK_ENV, ''))
+    except ValueError:
+        return 0.0
+
+
+def serving_mode(approx: float | None) -> bool:
+    """Whether ``approx`` (``None``: the environment's) asks for serving
+    mode: a recall target in (0, 1)."""
+    approx = env_recall() if approx is None else approx
+    return 0.0 < approx < 1.0
+
+
 def score_and_topk(users_emb: torch.Tensor, items_emb: torch.Tensor,
-                   batch_pos_padded: torch.Tensor, *, k: int, n_items: int):
+                   batch_pos_padded: torch.Tensor, *, k: int, n_items: int,
+                   approx: float | None = None):
     """Dot-product scores of a user batch against the whole catalogue,
-    train-masked, and the top-k ``(values, indices)``."""
+    train-masked, and the top-k ``(values, indices)``, values float32.
+
+    In serving mode (``approx``, or the environment's target) the scores
+    are rounded to bfloat16 and the exact top-k of them is taken with ties
+    to the lower index."""
     scores = catalog_scores(users_emb, items_emb[:n_items])
+    if serving_mode(approx):
+        scores = mask_train_items(scores.to(torch.bfloat16),
+                                  batch_pos_padded, n_items)
+        vals, idx = top_k_lower_index(scores, k)
+        return vals.float(), idx
     scores = mask_train_items(scores, batch_pos_padded, n_items)
     return torch.topk(scores, k, dim=1)
 
 
-def check_adv_topk_env():
-    """``TEXTGCN_TPU_ADV_TOPK``: empty or ``exact`` (the port mines
-    exactly); a recall target, the JAX package's approximate mining, is
-    refused."""
+def adv_recall_target() -> float | None:
+    """``TEXTGCN_TPU_ADV_TOPK`` as the JAX package reads it: ``None`` for
+    empty or ``exact``, else the recall target, an unparsable or
+    out-of-range value read as 0.95."""
     env = os.environ.get(ADV_TOPK_ENV, '')
-    if env not in ('', 'exact'):
-        raise NotImplementedError(
-            f'{ADV_TOPK_ENV}={env!r}: approximate negative mining is not '
-            'ported yet (the port mines exactly: leave it empty or set '
-            'exact)')
+    if env in ('', 'exact'):
+        return None
+    try:
+        recall = float(env)
+    except ValueError:
+        return DEFAULT_ADV_RECALL
+    return recall if 0.0 < recall < 1.0 else DEFAULT_ADV_RECALL
 
 
 def _ordered_bits(scores: torch.Tensor) -> tuple[torch.Tensor, int]:
@@ -82,9 +126,16 @@ def _ordered_bits(scores: torch.Tensor) -> tuple[torch.Tensor, int]:
 
 def mining_top_k(scores: torch.Tensor, k: int):
     """``top_k_lower_index`` for hard-negative mining: at the k-th place a
-    tie decides which item is a negative at all.  Refuses an approximate
-    ``TEXTGCN_TPU_ADV_TOPK``."""
-    check_adv_topk_env()
+    tie decides which item is a negative at all.  A
+    ``TEXTGCN_TPU_ADV_TOPK`` recall target is met by the exact selection;
+    the first call under each value logs so."""
+    env = os.environ.get(ADV_TOPK_ENV, '')
+    target = adv_recall_target()
+    if target is not None and env not in _logged_adv_targets:
+        _logged_adv_targets.add(env)
+        log.info('%s=%s: recall target %g; hard negatives are mined '
+                 'exactly (an exact top-k meets any recall target)',
+                 ADV_TOPK_ENV, env, target)
     return top_k_lower_index(scores, k)
 
 

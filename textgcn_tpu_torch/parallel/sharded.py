@@ -9,9 +9,10 @@ Counterpart of ``textgcn_tpu/parallel/sharded.py``:
   layer its input tables; checkpoints and exports gather the tables with
   it;
 * ``sharded_topk`` (``sharded.py:72-151``): each rank scores its item
-  shard, takes a local top-k with global ids, and the candidates of all
-  ranks are gathered and merged exactly (an LTR head or a concat scorer
-  passes its fused factors ``u_cat`` and its rows of ``i_cat``);
+  shard (in bfloat16 in serving mode), takes a local top-k with global
+  ids, and the candidates of all ranks are gathered and merged exactly
+  (an LTR head or a concat scorer passes its fused factors ``u_cat`` and
+  its rows of ``i_cat``);
   ``sharded_topk_of_scores`` merges scores a caller computed for its own
   columns (a boosted head's forest scores), with ties to the lower index
   on request;
@@ -27,7 +28,8 @@ import torch
 import torch.distributed as dist
 
 from ..ops.retrieval import (_ordered_bits, catalog_scores,
-                             mask_train_items, top_k_lower_index)
+                             mask_train_items, serving_mode,
+                             top_k_lower_index)
 from .mesh import Mesh
 
 
@@ -80,7 +82,7 @@ def shard_columns(mesh: Mesh, shard: int, n_valid: int) -> tuple[int, int]:
 
 def sharded_topk(mesh: Mesh, users_emb: torch.Tensor,
                  items_shard: torch.Tensor, batch_pos_padded: torch.Tensor,
-                 k: int, n_valid: int):
+                 k: int, n_valid: int, approx: float | None = None):
     """Catalogue-sharded scoring and exact top-k: ``(values, indices)``,
     ``(B, k)``, the same on every rank.
 
@@ -88,12 +90,19 @@ def sharded_topk(mesh: Mesh, users_emb: torch.Tensor,
     rank's ``R`` rows of the padded item table, global ids ``[rank*R,
     (rank+1)*R)``; ``n_valid``: the number of real items.  Each rank
     scores its real columns only (phantom columns are left out, as the JAX
-    package masks them); ``sharded_topk_of_scores`` merges.
+    package masks them); ``sharded_topk_of_scores`` merges.  In serving
+    mode (``approx``, or ``TEXTGCN_TPU_APPROX_TOPK``) the local scores are
+    rounded to bfloat16, as the JAX package's are, and merged with ties to
+    the lower index: the one-card ``score_and_topk``'s result bit for bit.
     """
     shard = items_shard.shape[0]
     _, n_real = shard_columns(mesh, shard, n_valid)
     scores = catalog_scores(users_emb, items_shard[:n_real])
-    return sharded_topk_of_scores(mesh, scores, shard, batch_pos_padded, k)
+    serving = serving_mode(approx)
+    if serving:
+        scores = scores.to(torch.bfloat16)
+    return sharded_topk_of_scores(mesh, scores, shard, batch_pos_padded, k,
+                                  lower_index=serving)
 
 
 def sharded_topk_of_scores(mesh: Mesh, scores: torch.Tensor, shard: int,

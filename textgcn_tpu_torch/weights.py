@@ -20,6 +20,9 @@ The boosted heads' fitted ensemble is carried across by
 ``forest_from_estimator``: the JAX package pickles a scikit-learn
 estimator (``tree.pkl``), which the port reads duck-typed, never
 importing scikit-learn.
+
+``bert_state_from_flax`` turns a Flax BERT's parameter tree into the
+``state_dict`` of the port's text encoder (``data/encoder.BertEncoder``).
 """
 
 from __future__ import annotations
@@ -122,3 +125,28 @@ def forest_from_estimator(est):
                 np.asarray(t.n_node_samples, np.int64).copy())
            for t in trees]
     return GBRTState(out, base, scale, int(est.n_features_in_))
+
+
+def bert_state_from_flax(params: dict) -> dict[str, torch.Tensor]:
+    """The ``data.encoder.BertEncoder`` ``state_dict`` of a Flax BERT's
+    parameter tree of numpy arrays (``FlaxBertModel.params``): Dense
+    kernels ``(in, out)`` transposed into ``nn.Linear.weight``, LayerNorm
+    ``scale`` as ``weight``, Embed ``embedding`` as ``weight``; the pooler
+    left out."""
+    names = {'kernel': 'weight', 'scale': 'weight', 'embedding': 'weight',
+             'bias': 'bias'}
+    out = {}
+
+    def walk(tree, path):
+        for key, value in tree.items():
+            if isinstance(value, dict):
+                walk(value, (*path, str(key)))
+                continue
+            t = torch.from_numpy(np.array(value, np.float32))
+            if key == 'kernel':
+                t = t.T.contiguous()
+            out['.'.join((*path, names[key]))] = t
+
+    for top in ('embeddings', 'encoder'):
+        walk(params[top], (top,))
+    return out
