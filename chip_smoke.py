@@ -10,6 +10,11 @@ Phases, each of which passes or ends the run with a non-zero exit:
    ``spmm_dropout.cu`` (K1), ``spmm_weighted.cu`` (K2), ``gat_fwd.cu``
    (K3), ``gat_bwd.cu`` (K4), ``gatv2_fwd.cu`` (K5), ``gatv2_bwd.cu`` (K6),
    ``spmm_lab.cu`` (L1), ``gather_lab.cu`` (L2, L3);
+2b. data: the native interaction reader (``native.py``,
+   ``csrc/graphbuild.cpp``, built with the host C++ compiler) loads S1,
+   and the plain Python reader (``TEXTGCN_TPU_NATIVE=0``) loads it again:
+   the same edges, weights, id maps and test lists; both timed.  Every
+   later phase loads through the native reader;
 3. kernel: holds K1 (``spmm_dropout``) against its plain torch version on
    the S1 graph, both directions, keep 1.0 and 0.6 with a salt whose high
    bit is set, within atol = rtol = 1e-5 (the summation order is the only
@@ -234,11 +239,30 @@ Phases, each of which passes or ends the run with a non-zero exit:
    descriptions and reviews on the card and writes both caches (K1
    exactly ``6 + steps x 6 + 6``; sentences/s logged), and a second run
    reads them and encodes nothing;
+9j3'. encoder families: Sentence Transformers directories of three
+   published shapes with seeded random weights: all-mpnet-base-v2
+   (``mpnet``, hidden 768, 12 layers, 12 heads, FFN 3,072, vocabulary
+   30,527, 514 positions, 32 relative buckets; mean pooling,
+   ``Normalize``, ``max_seq_length`` 384), all-distilroberta-v1
+   (``roberta``, 768, 6 layers, vocabulary 50,265 over a byte-level BPE
+   learnt from the cut's text; mean, ``Normalize``, 512) and
+   msmarco-distilbert-base-v4 (``distilbert``, 768, 6 layers; mean, 512):
+   for each, 256 of the cut's texts encoded on the card against the CPU
+   (1e-4), and 4,096 timed on the card and through the tokenizer alone;
+   then ``ltr_linear --load_base --freeze`` for 1 epoch on a copy of the
+   cut without caches under ``TEXTGCN_TPU_TEXT_ENCODER=st`` over the MPNet
+   directory: every text encoded 768 wide on the card, both caches
+   written with unit rows, K1 exactly ``6 + steps x 6 + 6``;
 9j4. health check: a probe of the card, and the ``Device backend ready``
    line of phase 9j3's first CLI run;
 9j5. cold_report: a 5,000 x 2,000 ``--sharp --cold 0.2`` set, ``lgcn``
    trained 2 epochs, ``tools/cold_report.main --load`` (12 K1 launches):
    the ``all``, ``warm`` and ``cold`` metrics finite and in [0, 1];
+9j6. tools: ``tools/sem_cold_sweep --quick --rows 2`` on the card (the
+   ``lgcn`` base and the grid's first two ``kg`` rows, trained through
+   ``cli.main`` and scored by ``cold_report``; every metric in [0, 1]; K1
+   only), and ``tools/make_dummy`` into a temporary directory, byte for
+   byte ``data/dummy``;
 9k. trace: ``lgcn --epochs 1 --trace DIR`` through ``cli.main`` on the
    boosted phase's 4,096-user cut of S1 (S1's widths): K1 launches
    exactly ``steps x 12 + 6``, the ``torch.profiler`` trace parses and
@@ -434,6 +458,38 @@ def bound_ms(csr, d: int, n_kept: int | None = None) -> tuple[float, str]:
     from textgcn_tpu_torch.tools import timing
     n_kept = csr.n_edges if n_kept is None else n_kept
     return timing.bound_ms(nbytes, 2 * n_kept * d)
+
+
+def loader_phase(data_dir: str, data) -> dict:
+    """The native interaction reader against the plain Python one on S1:
+    ``load_interactions`` with ``TEXTGCN_TPU_NATIVE=0`` gives the same
+    edges, weights, id maps and test lists as the native load (``data``);
+    both are timed (the native one by the caller)."""
+    from textgcn_tpu_torch import native
+    from textgcn_tpu_torch.data.core import load_interactions
+    old = os.environ.get(native.ENV)
+    os.environ[native.ENV] = '0'
+    try:
+        t0 = time.perf_counter()
+        plain = load_interactions(data_dir)
+        plain_s = time.perf_counter() - t0
+    finally:
+        if old is None:
+            os.environ.pop(native.ENV, None)
+        else:
+            os.environ[native.ENV] = old
+    g, h = data.graph, plain.graph
+    same = all(np.array_equal(getattr(g, k), getattr(h, k))
+               for k in ('edge_user', 'edge_item', 'edge_weight',
+                         'user_degree', 'item_degree')) and all(
+        np.array_equal(getattr(data, k), getattr(plain, k))
+        for k in ('pos_padded', 'test_users')) and (
+        data.user_id_map == plain.user_id_map
+        and data.item_id_map == plain.item_id_map
+        and data.true_test == plain.true_test
+        and (data.n_train, data.n_test) == (plain.n_train, plain.n_test))
+    check(same, 'the native reader and the Python reader disagree on S1')
+    return {'python_reader_s': plain_s}
 
 
 def kernel_phase(data, dev) -> dict:
@@ -2527,12 +2583,12 @@ def mesh_phase(data_dir: str, single, card: str, trace_dir: str,
 # and gatv2 mesh_conv_phase first runs SPREAD_EPOCHS more single-card
 # epochs and holds the mesh epoch, one more draw of that noise, to
 # MESH_SPREAD_FACTOR times the largest difference between any two of them
-# (six pairs), or to the floor below if that is larger.  A step from the
+# (three pairs), or to the floor below if that is larger.  A step from the
 # same params, batch and salts is held to STEP_TOL besides: that check is
 # deterministic, and it is the one that would see a drifting mesh path.
 MESH_CONV_TOL = {'gcn': (TOL, 1e-6), 'graphsage': (TOL, 1e-6),
                  'gat': (1e-3, 1e-3), 'gatv2': (1e-3, 1e-3)}
-SPREAD_EPOCHS = 3
+SPREAD_EPOCHS = 2
 MESH_SPREAD_FACTOR = 4.0
 SHARDS = 4
 
@@ -3243,6 +3299,23 @@ def write_safetensors(path: str, tensors: dict[str, np.ndarray]):
             f.write(np.ascontiguousarray(a, np.float32).tobytes())
 
 
+def random_weights(model, seed: int) -> dict[str, np.ndarray]:
+    """``model``'s ``state_dict`` as N(0, 0.02) numpy arrays from
+    ``seed``, LayerNorms 1 and 0, biases 0."""
+    gen = torch.Generator().manual_seed(seed)
+    state = {}
+    for name, t in model.state_dict().items():
+        if 'LayerNorm' in name:
+            t = torch.ones_like(t) if name.endswith('weight') \
+                else torch.zeros_like(t)
+        elif name.endswith('bias'):
+            t = torch.zeros_like(t)
+        else:
+            t = 0.02 * torch.randn(t.shape, generator=gen)
+        state[name] = t.numpy()
+    return state
+
+
 def write_minilm(root: str, seed: int = 0) -> str:
     """A BERT directory of ``MINILM``'s shape with N(0, 0.02) weights from
     ``seed`` (LayerNorms 1 and 0) in ``model.safetensors``, and a
@@ -3265,18 +3338,8 @@ def write_minilm(root: str, seed: int = 0) -> str:
                                             - len(vocab))]
     with open(os.path.join(out, 'vocab.txt'), 'w') as f:
         f.write('\n'.join(vocab) + '\n')
-    gen = torch.Generator().manual_seed(seed)
-    state = {}
-    for name, t in BertEncoder(MINILM).state_dict().items():
-        if 'LayerNorm' in name:
-            t = torch.ones_like(t) if name.endswith('weight') \
-                else torch.zeros_like(t)
-        elif name.endswith('bias'):
-            t = torch.zeros_like(t)
-        else:
-            t = 0.02 * torch.randn(t.shape, generator=gen)
-        state[name] = t.numpy()
-    write_safetensors(os.path.join(out, 'model.safetensors'), state)
+    write_safetensors(os.path.join(out, 'model.safetensors'),
+                      random_weights(BertEncoder(MINILM), seed))
     return out
 
 
@@ -3416,6 +3479,295 @@ def encoder_phase(root: str, cut_dir: str, base_ck: str, card: str,
     check(len(caches) == 4, f'encoder: caches {caches}')
     log(f'encoder: caches {caches}')
     return out
+
+
+# the published shapes of three sentence encoders (their config.json,
+# modules.json, 1_Pooling/config.json and sentence_bert_config.json)
+ST_MODELS = {
+    'all-mpnet-base-v2': {
+        'config': {'model_type': 'mpnet', 'vocab_size': 30527,
+                   'hidden_size': 768, 'num_hidden_layers': 12,
+                   'num_attention_heads': 12, 'intermediate_size': 3072,
+                   'max_position_embeddings': 514,
+                   'relative_attention_num_buckets': 32,
+                   'hidden_act': 'gelu', 'layer_norm_eps': 1e-5,
+                   'pad_token_id': 1, 'bos_token_id': 0, 'eos_token_id': 2},
+        'normalize': True, 'max_seq_length': 384},
+    'all-distilroberta-v1': {
+        'config': {'model_type': 'roberta', 'vocab_size': 50265,
+                   'hidden_size': 768, 'num_hidden_layers': 6,
+                   'num_attention_heads': 12, 'intermediate_size': 3072,
+                   'max_position_embeddings': 514, 'type_vocab_size': 1,
+                   'hidden_act': 'gelu', 'layer_norm_eps': 1e-5,
+                   'pad_token_id': 1, 'bos_token_id': 0, 'eos_token_id': 2},
+        'normalize': True, 'max_seq_length': 512},
+    'msmarco-distilbert-base-v4': {
+        'config': {'model_type': 'distilbert', 'vocab_size': 30522,
+                   'dim': 768, 'n_layers': 6, 'n_heads': 12,
+                   'hidden_dim': 3072, 'max_position_embeddings': 512,
+                   'activation': 'gelu', 'sinusoidal_pos_embds': False,
+                   'pad_token_id': 0},
+        'normalize': False, 'max_seq_length': 512},
+}
+FAMILY_SENTENCES = 256      # card against CPU
+RATE_SENTENCES = 4096       # sentences/s on the card
+CUT_WORDS = ('title of a longer description its detail review by opinion '
+             'sep').split()
+
+
+def _wordpiece_vocab(specials: list[str], size: int) -> list[str]:
+    chars = list('abcdefghijklmnopqrstuvwxyz0123456789,:.[]_')
+    vocab = specials + CUT_WORDS + [str(i) for i in range(100)] + chars \
+        + ['##' + c for c in chars]
+    return vocab + [f'[unused{i}]' for i in range(size - len(vocab))]
+
+
+def write_st_model(root: str, name: str, corpus: list[str],
+                   seed: int = 0) -> str:
+    """A Sentence Transformers directory of ``ST_MODELS[name]``'s published
+    shape: ``config.json``, the tokenizer files (a WordPiece ``vocab.txt``
+    or a BPE ``vocab.json``/``merges.txt`` that cover the cut's text),
+    N(0, 0.02) weights from ``seed`` (LayerNorms 1 and 0, biases 0) in
+    ``model.safetensors``, ``modules.json`` (Transformer, mean Pooling and,
+    where the model has one, Normalize) and ``sentence_bert_config.json``."""
+    from textgcn_tpu_torch.data.encoder_models import BertEncoder
+    spec = ST_MODELS[name]
+    config = spec['config']
+    out = os.path.join(root, name)
+    os.makedirs(os.path.join(out, '1_Pooling'), exist_ok=True)
+    with open(os.path.join(out, 'config.json'), 'w') as f:
+        json.dump(config, f)
+    kind = config['model_type']
+    if kind == 'roberta':
+        from textgcn_tpu_torch.data import bpe
+        vocab, merges = bpe.learn(
+            [w for text in corpus for w in bpe.pretokenize(text)], 400,
+            config['vocab_size'])
+        with open(os.path.join(out, 'vocab.json'), 'w') as f:
+            json.dump(vocab, f)
+        with open(os.path.join(out, 'merges.txt'), 'w') as f:
+            f.write('#version: 0.2\n'
+                    + ''.join(f'{a} {b}\n' for a, b in merges))
+        tok_conf = {'add_prefix_space': False, 'model_max_length': 512}
+    else:
+        specials = (['<s>', '<pad>', '</s>', '<unk>', '[UNK]', '<mask>']
+                    if kind == 'mpnet'
+                    else ['[PAD]', '[UNK]', '[CLS]', '[SEP]', '[MASK]'])
+        with open(os.path.join(out, 'vocab.txt'), 'w') as f:
+            f.write('\n'.join(_wordpiece_vocab(specials,
+                                               config['vocab_size'])) + '\n')
+        tok_conf = {'do_lower_case': True, 'model_max_length': 512}
+    with open(os.path.join(out, 'tokenizer_config.json'), 'w') as f:
+        json.dump(tok_conf, f)
+    modules = [('Transformer', ''), ('Pooling', '1_Pooling')]
+    if spec['normalize']:
+        modules.append(('Normalize', '2_Normalize'))
+        os.makedirs(os.path.join(out, '2_Normalize'), exist_ok=True)
+    with open(os.path.join(out, 'modules.json'), 'w') as f:
+        json.dump([{'idx': k, 'name': str(k), 'path': path,
+                    'type': f'sentence_transformers.models.{m}'}
+                   for k, (m, path) in enumerate(modules)], f)
+    width = config.get('hidden_size', config.get('dim'))
+    with open(os.path.join(out, '1_Pooling', 'config.json'), 'w') as f:
+        json.dump({'word_embedding_dimension': width,
+                   'pooling_mode_cls_token': False,
+                   'pooling_mode_mean_tokens': True,
+                   'pooling_mode_max_tokens': False,
+                   'pooling_mode_mean_sqrt_len_tokens': False}, f)
+    with open(os.path.join(out, 'sentence_bert_config.json'), 'w') as f:
+        json.dump({'max_seq_length': spec['max_seq_length'],
+                   'do_lower_case': False}, f)
+    write_safetensors(os.path.join(out, 'model.safetensors'),
+                      random_weights(BertEncoder(config), seed))
+    return out
+
+
+def _cut_texts(cut_dir: str) -> list[str]:
+    """The cut's review texts, then its item descriptions as the loader
+    joins them."""
+    with open(os.path.join(cut_dir, 'reviews_text.tsv')) as f:
+        next(f)
+        reviews = [line.split('\t')[2] for line in f]
+    with open(os.path.join(cut_dir, 'meta_synced.tsv')) as f:
+        next(f)
+        items = [' [SEP] '.join(line.rstrip('\n').split('\t')[1:])
+                 for line in f]
+    return reviews + items
+
+
+def encoder_families_phase(root: str, cut_dir: str, base_ck: str, card: str,
+                           dev) -> dict:
+    """The sentence encoders at their published shapes
+    (``write_st_model``: all-mpnet-base-v2, all-distilroberta-v1 and
+    msmarco-distilbert-base-v4) by Sentence Transformers' recipe: for each,
+    ``FAMILY_SENTENCES`` of the 4,096-user cut's texts encoded on the card
+    against the CPU (``ENCODE_TOL``), then ``RATE_SENTENCES`` timed on the
+    card (sentences/s) and through the tokenizer alone (its share); then
+    ``ltr_linear --load_base <the boosted phase's base> --freeze`` for 1
+    epoch on a copy of the cut without caches under
+    ``TEXTGCN_TPU_TEXT_ENCODER=st --bert_model <the MPNet directory>``: it
+    encodes every text of the cut 768 wide on the card and writes both
+    caches (unit rows: the directory lists ``Normalize``); K1 launches
+    exactly ``6 + steps x 6 + 6``."""
+    import shutil
+
+    from textgcn_tpu_torch.data import encoder, text
+    texts = _cut_texts(cut_dir)
+    step = max(1, len(texts) // RATE_SENTENCES)
+    sample = texts[::step][:RATE_SENTENCES]
+    out = {}
+    dirs = {}
+    for name, spec in ST_MODELS.items():
+        t0 = time.perf_counter()
+        dirs[name] = path = write_st_model(root, name, texts[:2000])
+        write_s = time.perf_counter() - t0
+        tok, model, length, pipe = encoder.load_sentence_encoder(path, dev)
+        recipe = {'pooling': pipe.pooling,
+                  'norm_floor': 1e-12 if pipe.normalize else None}
+        few = sample[:FAMILY_SENTENCES]
+        on_card = encoder.encode(few, path, 64, dev, 'st')
+        on_cpu = encoder.encode(few, path, 64, 'cpu', 'st')
+        err = float(np.abs(on_card - on_cpu).max())
+        width = spec['config'].get('hidden_size', spec['config'].get('dim'))
+        check(on_card.shape == (len(few), width) and err <= ENCODE_TOL
+              and np.isfinite(on_card).all(),
+              f'{name}: card vs CPU {err}, shape {on_card.shape}')
+        encoder.encode_with(tok, model, length, sample[:64], 64, **recipe)
+        t0 = time.perf_counter()
+        encoder.encode_with(tok, model, length, sample, 64, **recipe)
+        card_s = time.perf_counter() - t0
+        fresh = encoder.load_tokenizer(pipe.transformer_dir,
+                                       model.model_type)
+        t0 = time.perf_counter()
+        for start in range(0, len(sample), 64):
+            fresh(sample[start:start + 64], length)
+        tok_s = time.perf_counter() - t0
+        out[name] = {'model_type': model.model_type,
+                     'card_vs_cpu_max_abs_err': err,
+                     'sentences_per_s': len(sample) / card_s,
+                     'tokenizer_share': tok_s / card_s,
+                     'tokenizer_sentences_per_s': len(sample) / tok_s,
+                     'max_length': length, 'write_s': write_s}
+        log(f'encoder {name} ({model.model_type}, {width} wide): '
+            f'{len(few)} sentences on the card vs the CPU max abs err '
+            f'{err:.3e}; {len(sample)} sentences in {card_s:.3f} s on the '
+            f'card ({len(sample) / card_s:.1f} sentences/s), the tokenizer '
+            f'alone {tok_s:.3f} s ({tok_s / card_s:.3f} of it); written in '
+            f'{write_s:.3f} s')
+        del model
+        torch.cuda.empty_cache()
+
+    mpnet = dirs['all-mpnet-base-v2']
+    width = ST_MODELS['all-mpnet-base-v2']['config']['hidden_size']
+    enc_dir = os.path.join(root, 's1_mpnet')
+    os.makedirs(enc_dir, exist_ok=True)
+    for name in ('train.tsv', 'test.tsv', 'meta_synced.tsv',
+                 'reviews_text.tsv'):
+        shutil.copy(os.path.join(cut_dir, name), enc_dir)
+    calls = []
+    real_encode, loader = encoder.encode, text.load_ltr_data
+    old_env = os.environ.get(text.ENCODER_ENV)
+
+    def counted(sentences, *args, **kwargs):
+        t = time.perf_counter()
+        vectors = real_encode(sentences, *args, **kwargs)
+        calls.append((len(sentences), time.perf_counter() - t))
+        return vectors
+
+    encoder.encode = counted
+    text.load_ltr_data = getattr(loader, 'real', loader)
+    os.environ[text.ENCODER_ENV] = 'st'
+    argv = ['--model', 'ltr_linear', '--load_base', base_ck, '--freeze',
+            '--epochs', '1', '--evaluate_every', '1', '--bert_model', mpnet,
+            '--emb_size', str(D), '--n_layers', str(LAYERS),
+            '--batch_size', str(BATCH), '-k', *map(str, KS), '--uid',
+            'mpnet-st']
+    try:
+        reset_counts()
+        t0 = time.perf_counter()
+        trainer, _ = cli_run(enc_dir, argv, 'cuda')
+        seconds = time.perf_counter() - t0
+        launches = counts()
+    finally:
+        encoder.encode, text.load_ltr_data = real_encode, loader
+        if old_env is None:
+            os.environ.pop(text.ENCODER_ENV, None)
+        else:
+            os.environ[text.ENCODER_ENV] = old_env
+    steps = trainer.model.num_batches(BATCH)
+    want = dict.fromkeys(_wrappers(), 0)
+    want['spmm_dropout'] = 2 * LAYERS * (steps + 2)
+    check(launches == want, f'mpnet ltr_linear: launches {launches}, '
+          f'expected {want} (base eval + steps + eval, forward only)')
+    n, s = sum(c[0] for c in calls), sum(c[1] for c in calls)
+    check(len(calls) == 2, f'mpnet ltr_linear: {len(calls)} encode calls')
+    caches = sorted(os.listdir(os.path.join(enc_dir, 'embeddings')))
+    for name in caches:
+        if name.endswith('.npy'):
+            v = np.load(os.path.join(enc_dir, 'embeddings', name))
+            check(v.shape[1] == width and np.isfinite(v).all()
+                  and np.allclose(np.linalg.norm(v, axis=1), 1, atol=1e-4),
+                  f'mpnet cache {name}: {v.shape}')
+    check(len(caches) == 4, f'mpnet caches {caches}')
+    out['ltr_linear_st_mpnet'] = {
+        'launches': launches['spmm_dropout'], 'encoded': n, 'encode_s': s,
+        'sentences_per_s': n / s, 'cli_s': seconds, 'caches': caches}
+    log(f'encoder: ltr_linear --freeze under TEXTGCN_TPU_TEXT_ENCODER=st '
+        f'with the all-mpnet-base-v2-shaped model encoded {n} sentences '
+        f'in {s:.3f} s ({n / s:.1f} sentences/s on {card}); cli.main took '
+        f'{seconds:.3f} s; K1 {launches["spmm_dropout"]} launches; caches '
+        f'{caches}')
+    return out
+
+
+def tool_phase(root: str) -> dict:
+    """The last three tools: ``sem_cold_sweep --quick --rows 2`` on the card
+    (the ``lgcn`` base and the grid's first two ``kg`` rows through
+    ``cli.main`` and ``cold_report``: every metric in [0, 1], K1 launched),
+    and ``make_dummy`` into a temporary directory, byte for byte
+    ``data/dummy``."""
+    from textgcn_tpu_torch.tools import make_dummy, sem_cold_sweep
+    # the sweep defaults the encoder to the stub for the rest of the process
+    old = os.environ.get('TEXTGCN_TPU_TEXT_ENCODER')
+    reset_counts()
+    t0 = time.perf_counter()
+    try:
+        rows = sem_cold_sweep.main([
+            '--quick', '--rows', '2', '--data',
+            os.path.join(root, 'coldsweep_data'), '--runs',
+            os.path.join(root, 'coldsweep_runs')])
+    finally:
+        if old is None:
+            os.environ.pop('TEXTGCN_TPU_TEXT_ENCODER', None)
+        else:
+            os.environ['TEXTGCN_TPU_TEXT_ENCODER'] = old
+    torch.cuda.synchronize()
+    sweep_s = time.perf_counter() - t0
+    launches = counts()
+    names = sorted(r['name'] for r in rows)
+    want = sorted(['base_lgcn'] + [sem_cold_sweep.run_name('kg', *g)
+                                   for g in sem_cold_sweep.GRID[:2]])
+    check(names == want and all(
+        0 <= r[k] <= 1 for r in rows
+        for k in ('warm_r20', 'warm_r40', 'cold_r40', 'cold_ndcg40')),
+        f'sem_cold_sweep: {rows}')
+    check(launches['spmm_dropout'] > 0
+          and sum(launches.values()) == launches['spmm_dropout'],
+          f'sem_cold_sweep: launches {launches}')
+    out_dir = os.path.join(root, 'dummy')
+    t0 = time.perf_counter()
+    make_dummy.main([out_dir])
+    dummy_s = time.perf_counter() - t0
+    names = ('train.tsv', 'test.tsv', 'meta_synced.tsv', 'reviews_text.tsv')
+    same = all(same_files(os.path.join(out_dir, n),
+                          os.path.join(REPO, 'data', 'dummy', n))
+               for n in names)
+    check(same, 'make_dummy: the bytes differ from data/dummy')
+    log(f'tools: sem_cold_sweep --quick --rows 2 in {sweep_s:.3f} s (K1 '
+        f'{launches["spmm_dropout"]} launches; {rows}); make_dummy wrote '
+        f"data/dummy's bytes in {dummy_s:.3f} s")
+    return {'sweep_s': sweep_s, 'launches': launches['spmm_dropout'],
+            'rows': rows, 'make_dummy_s': dummy_s}
 
 
 def cold_phase(root: str) -> dict:
@@ -3616,7 +3968,7 @@ def main():
     if not torch.cuda.is_available():
         raise SystemExit('chip_smoke: CUDA is not available')
     sys.path.insert(0, REPO)
-    from textgcn_tpu_torch import cuda_build
+    from textgcn_tpu_torch import cuda_build, native
     from textgcn_tpu_torch.data.core import load_interactions
     dev = torch.device('cuda')
     log(f'torch {torch.__version__} cuda {torch.version.cuda} '
@@ -3639,8 +3991,19 @@ def main():
         t = time.perf_counter()
         data_dir = write_dataset(root, S1_USERS, S1_ITEMS, S1_DEG)
         t_load = time.perf_counter()
+        native_lib = native.build()
+        build_s = time.perf_counter() - t_load
+        os.environ.pop(native.ENV, None)
+        t_load = time.perf_counter()
         data = load_interactions(data_dir)
-        log(f'load_interactions: {time.perf_counter() - t_load:.3f} s')
+        loader = {'native_reader_s': time.perf_counter() - t_load,
+                  'native_build_s': build_s}
+        loader.update(loader_phase(data_dir, data))
+        log(f'load_interactions at S1: the native reader '
+            f'{loader["native_reader_s"]:.3f} s (its library '
+            f'{os.path.basename(native_lib)} built in {build_s:.3f} s), the '
+            f'Python reader {loader["python_reader_s"]:.3f} s; the same '
+            'edges, id maps and test lists')
         check((data.n_users, data.n_items) == (S1_USERS, S1_ITEMS),
               f'S1 loaded as {data.n_users} x {data.n_items}')
         ck = os.path.join(root, 's1_ck.pkl')
@@ -3770,11 +4133,19 @@ def main():
                                 dev)
         log(f'phase encoder: {time.perf_counter() - t:.3f} s')
         t = time.perf_counter()
+        families = encoder_families_phase(
+            root, boosted['data_dir'], os.path.join(root, 'boost_base.pkl'),
+            card, dev)
+        log(f'phase encoder families: {time.perf_counter() - t:.3f} s')
+        t = time.perf_counter()
         health = health_phase(encoded.pop('log'), dev)
         log(f'phase health check: {time.perf_counter() - t:.3f} s')
         t = time.perf_counter()
         cold = cold_phase(root)
         log(f'phase cold_report: {time.perf_counter() - t:.3f} s')
+        t = time.perf_counter()
+        tools = tool_phase(root)
+        log(f'phase tools: {time.perf_counter() - t:.3f} s')
         t = time.perf_counter()
         traced = trace_phase(boosted.pop('data_dir'), root)
         log(f'phase trace: {time.perf_counter() - t:.3f} s')
@@ -3801,7 +4172,11 @@ def main():
                    'spmm_dropout': encoded['encode_launches']},
                'train_ltr_linear_encoder_cached': {
                    'spmm_dropout': encoded['cached_launches']},
-               'cold_report': {'spmm_dropout': cold['launches']}}
+               'train_ltr_linear_st_mpnet': {
+                   'spmm_dropout':
+                   families['ltr_linear_st_mpnet']['launches']},
+               'cold_report': {'spmm_dropout': cold['launches']},
+               'sem_cold_sweep_quick': {'spmm_dropout': tools['launches']}}
     by_path.update({f'train_{m}': {k: n for k, n in r['launches'].items()
                                    if n}
                     for m, r in trained.items()})
@@ -3872,8 +4247,10 @@ def main():
         # resumed lgcn --mesh 1x1 run's latest_checkpoint.orbax on one card;
         # serve lgcn --approx_topk 0.95; train ltr_linear --freeze on the
         # 4,096-user cut as the encoder writes its caches, then from them
-        # (forward only); cold_report (the load's evaluation and one
-        # ranking pass)
+        # (forward only), and again with the all-mpnet-base-v2-shaped
+        # encoder under TEXTGCN_TPU_TEXT_ENCODER=st; cold_report (the
+        # load's evaluation and one ranking pass); sem_cold_sweep --quick
+        # --rows 2 (lgcn and two kg runs, each trained and reported)
         **launch_fields('spmm_dropout', 'lgcn'),
         'max_abs_err': k1['max_abs_err'],
         'max_abs_err_by_width': k1['max_abs_err_by_width'],
@@ -4000,6 +4377,8 @@ def main():
                     'boosted': boosted, 'dcp': dcp,
                     'trace': traced, 'quality': quality,
                     'approx_serve': approx, 'encoder': encoded,
+                    'encoder_families': families, 'tools': tools,
+                    'loader': loader,
                     'health_check': health, 'cold_report': cold,
                     'text_user_pair_table_bytes': pair_bytes}))
     print(json.dumps({'kernels': kernels}), flush=True)

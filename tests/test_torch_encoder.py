@@ -194,7 +194,10 @@ def test_a_word_over_100_characters_is_unk(tokenizer_dirs):
     {'do_basic_tokenize': False}, {'tokenize_chinese_chars': False},
     {'never_split': ['cats']},
     {'added_tokens_decoder': {'5': {'content': 'the', 'special': False}}},
-    {'added_tokens_decoder': {'4': {'content': '[MASK]', 'lstrip': True}}},
+    # lstrip and rstrip are ported (MPNet's <mask> is lstrip:
+    # tests/test_torch_encoder_families.py); single_word is not
+    {'added_tokens_decoder': {'4': {'content': '[MASK]',
+                                    'single_word': True}}},
 ])
 def test_a_tokenizer_setting_not_ported_is_refused(tmp_path, setting):
     (tmp_path / 'vocab.txt').write_text('\n'.join(_vocab()) + '\n')
@@ -288,7 +291,9 @@ def test_safetensors_half_types_read_as_float32(tmp_path):
 
 
 @pytest.mark.parametrize('change, match', [
-    ({'model_type': 'roberta'}, "'roberta' is not ported yet"),
+    # roberta, distilbert and mpnet run since the encoder families came
+    # (tests/test_torch_encoder_families.py); xlm-roberta is queued
+    ({'model_type': 'xlm-roberta'}, "'xlm-roberta' is not ported yet"),
     ({'hidden_act': 'silu'}, "'silu' is not ported yet"),
     ({'position_embedding_type': 'relative_key'}, 'not ported yet'),
 ])
@@ -384,9 +389,16 @@ def test_load_ltr_data_writes_the_jax_caches(tmp_path, monkeypatch,
 
 
 def test_encode_sentences_routes_every_backend(monkeypatch, tiny_berts):
+    """``flax`` runs the Flax recipe; ``st`` and ``auto`` Sentence
+    Transformers' (this directory has no ``modules.json``: mean pooling,
+    no normalisation)."""
     monkeypatch.setenv('TEXTGCN_TPU_PLATFORM', 'cpu')
-    want = encoder.encode(SENTENCES, tiny_berts['bin'], 4, 'cpu')
-    for backend in ('flax', 'st', 'auto'):
+    flax = encoder.encode(SENTENCES, tiny_berts['bin'], 4, 'cpu')
+    st = encoder.encode(SENTENCES, tiny_berts['bin'], 4, 'cpu', 'st')
+    np.testing.assert_allclose(np.linalg.norm(flax, axis=-1), 1, atol=1e-6)
+    np.testing.assert_allclose(
+        flax, st / np.linalg.norm(st, axis=-1, keepdims=True), atol=1e-6)
+    for backend, want in (('flax', flax), ('st', st), ('auto', st)):
         monkeypatch.setenv(port_text.ENCODER_ENV, backend)
         got = port_text.encode_sentences(SENTENCES, tiny_berts['bin'], 4)
         np.testing.assert_array_equal(got, want)

@@ -1,8 +1,8 @@
 """The port stands alone: no JAX, no JAX-package module, no host library
 that the GPU machine lacks (pandas, scikit-learn, tqdm, optax, flax,
-orbax, and the Hugging Face packages ``transformers``,
-``sentence_transformers``, ``safetensors`` and ``tokenizers``: the text
-encoder is the port's own).
+orbax, the Hugging Face packages ``transformers``,
+``sentence_transformers``, ``safetensors`` and ``tokenizers``, and
+``regex``: the text encoder and its tokenizers are the port's own).
 
 Checked twice: statically (an AST scan of every import in
 ``textgcn_tpu_torch/**/*.py``, ``chip_smoke.py`` and the port's examples
@@ -22,7 +22,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, 'textgcn_tpu_torch')
 FORBIDDEN = ('jax', 'jaxlib', 'textgcn_tpu', 'pandas', 'sklearn', 'tqdm',
              'optax', 'flax', 'orbax', 'transformers',
-             'sentence_transformers', 'safetensors', 'tokenizers')
+             'sentence_transformers', 'safetensors', 'tokenizers', 'regex')
 EXAMPLES = os.path.join(REPO, 'examples')
 
 

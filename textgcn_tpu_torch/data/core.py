@@ -3,6 +3,10 @@
 Counterpart of ``textgcn_tpu/data/core.py`` on the ``csv`` module and
 numpy (no pandas).  The semantics are the JAX package's, field by field:
 
+* ``train.tsv`` and ``test.tsv`` are read by the native reader
+  (``native.py``, C++ built at first use) or, under
+  ``TEXTGCN_TPU_NATIVE=0``, by the plain Python reader
+  (``_read_interactions``), with the same results and refusals;
 * rows are sorted by (user_id, asin) as strings;
 * internal ids follow the first appearance in the sorted train table
   (users therefore in string order, items in order of first use);
@@ -21,12 +25,14 @@ from __future__ import annotations
 
 import csv
 import dataclasses
+import io
 import logging
 import os
 from dataclasses import dataclass
 
 import numpy as np
 
+from .. import native
 from .split import keep_frequent, stratified_split
 from .tsv import read_table, write_rows
 
@@ -82,25 +88,71 @@ class InteractionData:
 
 
 def _read_interactions(path: str) -> list[tuple[str, str]]:
-    """(user_id, asin) string pairs of a TSV with a header, sorted."""
-    with open(path, newline='', encoding='utf-8') as f:
-        reader = csv.reader(f, delimiter='\t')
-        header = next(reader)
-        try:
-            ui, ai = header.index('user_id'), header.index('asin')
-        except ValueError:
-            raise ValueError(f'{path}: the header needs user_id and asin '
-                             f'columns, got {header}') from None
+    """(user_id, asin) string pairs of a TSV with a header, sorted: the
+    plain reader, which ``native.read_pairs`` matches.  Refuses, with a
+    ``ValueError`` naming the path and the line: bytes that are not UTF-8
+    (the line counted by ``\\n``), a header without ``user_id`` or
+    ``asin``, a record (blank lines skipped, numbered by ``csv.reader``'s
+    records from the header's 1) whose field count is not the header's,
+    and a field over ``csv.field_size_limit()``."""
+    with open(path, 'rb') as f:
+        raw = f.read()
+    try:
+        text = raw.decode('utf-8')
+    except UnicodeDecodeError as e:
+        raise ValueError(native.error_message(
+            path, native.NOT_UTF8, raw.count(b'\n', 0, e.start) + 1, 0, 0,
+            [])) from None
+    reader = csv.reader(io.StringIO(text, newline=''), delimiter='\t')
+    line_no = 0     # the last record read whole
+    try:
+        header = next(reader, None)
+        line_no = 1
+        if header is None:
+            raise ValueError(native.error_message(path, native.EMPTY, 1, 0,
+                                                  0, []))
+        if 'user_id' not in header or 'asin' not in header:
+            raise ValueError(native.error_message(
+                path, native.MISSING_COLUMN, 1, 0, 0, header))
+        ui, ai = header.index('user_id'), header.index('asin')
         rows = []
         for line_no, r in enumerate(reader, start=2):
             if not r:
                 continue
             if len(r) != len(header):
-                raise ValueError(f'{path}:{line_no}: expected '
-                                 f'{len(header)} fields, got {len(r)}')
+                raise ValueError(native.error_message(
+                    path, native.FIELD_COUNT, line_no, len(header), len(r),
+                    header))
             rows.append((r[ui], r[ai]))
+    except csv.Error:
+        # the record after the last one read whole went over the limit
+        raise ValueError(native.error_message(
+            path, native.FIELD_LIMIT, line_no + 1, 0, 0, [])) from None
     rows.sort()
     return rows
+
+
+def _python_pairs(path: str):
+    """``native.read_pairs``'s result from the plain reader: per sorted
+    row the user's and the item's index in order of first appearance, and
+    those ids."""
+    rows = _read_interactions(path)
+    u_map: dict[str, int] = {}
+    i_map: dict[str, int] = {}
+    user = np.empty(len(rows), np.int32)
+    item = np.empty(len(rows), np.int32)
+    for n, (u, a) in enumerate(rows):
+        user[n] = u_map.setdefault(u, len(u_map))
+        item[n] = i_map.setdefault(a, len(i_map))
+    return user, item, list(u_map), list(i_map)
+
+
+def read_pairs(path: str):
+    """``(user_codes, item_codes, user_ids, item_ids)`` of a TSV: the
+    native reader, or the plain one under ``TEXTGCN_TPU_NATIVE=0``."""
+    if native.enabled():
+        return native.read_pairs(path)
+    return _python_pairs(path)
 
 
 def _missing_last(v):
@@ -154,28 +206,29 @@ def load_interactions(data_dir: str, *, reshuffle: bool = False,
     and the per-user tables; with ``reshuffle``, those of the split that
     ``reshuffle_train_test(data_dir, seed)`` writes."""
     folder = reshuffle_train_test(data_dir, seed) if reshuffle else data_dir
-    train = _read_interactions(os.path.join(folder, 'train.tsv'))
-    test = _read_interactions(os.path.join(folder, 'test.tsv'))
+    edge_user, edge_item, users, items = read_pairs(
+        os.path.join(folder, 'train.tsv'))
+    t_user, t_item, t_users, t_items = read_pairs(
+        os.path.join(folder, 'test.tsv'))
+    u_map = {u: k for k, u in enumerate(users)}
+    i_map = {a: k for k, a in enumerate(items)}
 
-    u_map: dict[str, int] = {}
-    i_map: dict[str, int] = {}
-    edge_user = np.empty(len(train), np.int32)
-    edge_item = np.empty(len(train), np.int32)
-    for n, (u, a) in enumerate(train):
-        edge_user[n] = u_map.setdefault(u, len(u_map))
-        edge_item[n] = i_map.setdefault(a, len(i_map))
-
-    test_only_users = {u for u, _ in test} - u_map.keys()
+    test_only_users = {u for u in t_users if u not in u_map}
     if test_only_users:
         raise ValueError(f"users {test_only_users} from test set don't "
                          'appear in train set')
-    test_only_items = {a for _, a in test} - i_map.keys()
+    # the test table's ids as train's, -1 for an item train lacks
+    to_user = np.array([u_map[u] for u in t_users], np.int64)
+    to_item = np.array([i_map.get(a, -1) for a in t_items], np.int64)
+    test_only_items = {a for a in t_items if a not in i_map}
     if test_only_items:
         log.warning("items %s from test set don't appear in train set, "
                     'removing them', test_only_items)
-        test = [(u, a) for u, a in test if a not in test_only_items]
+    test_u, test_i = to_user[t_user], to_item[t_item]
+    kept = test_i >= 0
+    test_u, test_i = test_u[kept], test_i[kept]
 
-    n_users, n_items, n_train = len(u_map), len(i_map), len(train)
+    n_users, n_items, n_train = len(users), len(items), len(edge_user)
     user_degree = np.bincount(edge_user, minlength=n_users).astype(np.int32)
     item_degree = np.bincount(edge_item, minlength=n_items).astype(np.int32)
     with np.errstate(divide='ignore'):
@@ -198,21 +251,22 @@ def load_interactions(data_dir: str, *, reshuffle: bool = False,
     pos_padded[sorted_u, col_idx] = sorted_i
 
     # test items of each user in the order of the sorted test table
-    by_user: dict[int, list[int]] = {}
-    for u, a in test:
-        by_user.setdefault(u_map[u], []).append(i_map[a])
-    test_users = np.array(sorted(by_user), dtype=np.int32)
-    true_test = [by_user[u] for u in test_users.tolist()]
+    order = np.argsort(test_u, kind='stable')
+    test_users, starts = np.unique(test_u[order], return_index=True)
+    items_in_order = test_i[order].tolist()
+    bounds = [*starts.tolist(), len(items_in_order)]
+    true_test = [items_in_order[a:b] for a, b in zip(bounds, bounds[1:])]
+    test_users = test_users.astype(np.int32)
 
     data = InteractionData(
-        n_users=n_users, n_items=n_items, n_train=n_train, n_test=len(test),
+        n_users=n_users, n_items=n_items, n_train=n_train, n_test=len(test_u),
         graph=graph, pos_padded=pos_padded, pos_degree=user_degree.copy(),
         test_users=test_users, true_test=true_test,
-        user_id_map={v: k for k, v in u_map.items()},
-        item_id_map={v: k for k, v in i_map.items()},
+        user_id_map=dict(enumerate(users)),
+        item_id_map=dict(enumerate(items)),
     )
     log.info('n_train:    %7d', n_train)
-    log.info('n_test:     %7d', len(test))
+    log.info('n_test:     %7d', len(test_u))
     log.info('n_users:    %7d', n_users)
     log.info('n_items:    %7d', n_items)
     return data

@@ -1,72 +1,100 @@
-"""The text encoder: a BERT in plain PyTorch, its WordPiece tokenizer and a
-checkpoint reader, with no Hugging Face package.
+"""The text encoder: BERT, DistilBERT, RoBERTa and MPNet in plain
+PyTorch, their tokenizers and a checkpoint reader, with no Hugging Face
+package.
 
-Counterpart of ``textgcn_tpu/data/encoder_flax.py`` (``flax_encode``): the
-Sentence Transformers recipe of ``all-MiniLM-L6-v2`` (transformer, then the
-attention-masked token mean, then L2 normalisation with 1e-9 floors),
-computed with ``torch.matmul`` in float32 (TF32 off) on the entry point's
-device.
+Two recipes, as ``TEXTGCN_TPU_TEXT_ENCODER`` names them
+(``data/text.encode_sentences``):
 
-* ``BertTokenizer``: the slow Hugging Face ``BertTokenizer``'s ids from a
-  ``vocab.txt`` (and ``tokenizer_config.json``/``special_tokens_map.json``
-  where they exist): special tokens kept whole, the text cleaned, spaces
-  put around CJK characters, lower-cased and accent-stripped where the
-  config says so, split on punctuation, then greedy longest-match
-  WordPiece (``[UNK]`` for a word of more than 100 characters);
-  ``[CLS] ... [SEP]``, truncated to ``max_length``, padded to the longest
-  row.
-* ``BertEncoder``: absolute position embeddings, token type 0,
-  post-LayerNorm layers, attention as a plain product and softmax with the
-  padding mask added as a bias of ``finfo(float32).min``, as Flax BERT
-  computes it; ``hidden_act`` ``gelu`` (erf), ``gelu_new`` or
-  ``gelu_pytorch_tanh`` (tanh) or ``relu``.  ``model_type`` must be
-  ``bert``.
-* ``read_state``: ``model.safetensors`` parsed with numpy (F32, F16,
-  BF16), else ``pytorch_model.bin`` through ``torch.load(weights_only=
-  True)``; keys with or without ``bert.``, the pooler ignored.  A
-  Flax-only directory is refused.
-* ``resolve_model_dir``: ``--bert_model`` as a local directory, or a name
-  looked up in the Hugging Face cache (``$HF_HUB_CACHE``, else
-  ``$HF_HOME/hub``, else ``~/.cache/huggingface/hub``:
-  ``models--<org>--<name>/snapshots/*/``); nothing is fetched.
+* ``flax``: the JAX package's ``encoder_flax.flax_encode`` -- the
+  transformer, its attention-masked token mean, L2 normalisation (both
+  divisions floored at 1e-9), the length capped at 512 tokens and at the
+  model's positions.  It runs ``bert``, ``distilbert`` and ``roberta``
+  (transformers has no Flax MPNet, so ``mpnet`` is refused, as the JAX
+  package's Flax path fails on it).
+* ``st`` and ``auto``: Sentence Transformers' semantics
+  (``textgcn_tpu/data/text._st_encode``), read from the model directory as
+  ``SentenceTransformer`` reads it (``read_pipeline``): the modules of
+  ``modules.json`` in order -- the transformer (its directory's
+  ``sentence_bert_config.json`` gives ``max_seq_length`` and
+  ``do_lower_case``), ``Pooling`` (``mean``, ``cls`` or ``max``, or several
+  concatenated, from its ``config.json``; another mode is refused by name)
+  and ``Normalize`` where it is listed.  A directory without
+  ``modules.json`` gets Sentence Transformers' default: mean pooling, no
+  normalisation.  Without a ``max_seq_length`` the limit is the
+  tokenizer's ``model_max_length`` capped at the model's positions.  All
+  four model types run.
+
+The tokenizers give the slow Hugging Face tokenizers' ids:
+
+* ``BertTokenizer``, WordPiece from ``vocab.txt`` (``bert``,
+  ``distilbert``, and ``mpnet`` with ``<s>``/``</s>``/``<pad>``/
+  ``<mask>``): special tokens kept whole (one marked ``lstrip`` or
+  ``rstrip``, as MPNet's ``<mask>``, eats the whitespace beside it), the
+  text cleaned, spaces put around CJK characters, lower-cased and
+  accent-stripped where the config says so, split on punctuation, then
+  greedy longest-match WordPiece (``[UNK]`` for a word of more than 100
+  characters); ``[CLS] ... [SEP]`` (MPNet ``<s> ... </s>``), truncated to
+  ``max_length``, padded to the longest row;
+* ``bpe.RobertaTokenizer``, byte-level BPE from ``vocab.json`` and
+  ``merges.txt`` (``roberta``).
+
+The models are in ``encoder_models.py``, what the tokenizers share in
+``tokenizing.py``.  ``read_state`` reads
+``model.safetensors`` with numpy (F32, F16, BF16), else
+``pytorch_model.bin`` through ``torch.load(weights_only=True)``; keys
+with or without the family's prefix (``bert.``, ``distilbert.``,
+``roberta.``, ``mpnet.``), the pooler and any head ignored.  A Flax-only
+directory is refused (``weights.bert_state_from_flax`` converts a Flax
+tree in code).  ``resolve_model_dir`` takes ``--bert_model`` as a local
+directory, or a name looked up in the Hugging Face cache
+(``$HF_HUB_CACHE``, else ``$HF_HOME/hub``, else
+``~/.cache/huggingface/hub``: ``models--<org>--<name>/snapshots/*/``);
+nothing is fetched.  A directory with only ``tokenizer.json``, and
+``xlm-roberta`` (SentencePiece), are refused.
 
 Unlike the JAX package, rows are padded to the longest row of their
 batch, not to power-of-two buckets: the buckets spare XLA recompiles, and
-the padding mask makes the result the same.
+the padding mask makes the result the same.  Everything runs in float32
+(TF32 off) on the entry point's device.
 """
 
 from __future__ import annotations
 
 import json
 import logging
-import math
 import os
 import re
 import time
 import unicodedata
+from dataclasses import dataclass
 
 import numpy as np
 import torch
-import torch.nn.functional as F
-from torch import nn
+
+from .encoder_models import BertEncoder, bert_name
+from .tokenizing import (capped_length, pad_rows, read_json, special_tokens,
+                         split_specials, truncate)
 
 log = logging.getLogger('textgcn_tpu_torch')
 
 MAX_LENGTH_CAP = 512
 MAX_WORD_CHARS = 100
-# the tokenizers' "no limit" sentinel lies above this
-_NO_LIMIT = 100_000
-SPECIAL_KEYS = ('unk_token', 'sep_token', 'pad_token', 'cls_token',
-                'mask_token')
 SPECIAL_DEFAULTS = {'unk_token': '[UNK]', 'sep_token': '[SEP]',
                     'pad_token': '[PAD]', 'cls_token': '[CLS]',
                     'mask_token': '[MASK]'}
-ACTIVATIONS = {
-    'gelu': F.gelu,
-    'gelu_new': lambda x: F.gelu(x, approximate='tanh'),
-    'gelu_pytorch_tanh': lambda x: F.gelu(x, approximate='tanh'),
-    'relu': F.relu,
-}
+# MPNetTokenizer's defaults; its mask token is lstrip
+MPNET_SPECIALS = {'bos_token': '<s>', 'eos_token': '</s>',
+                  'unk_token': '[UNK]', 'sep_token': '</s>',
+                  'pad_token': '<pad>', 'cls_token': '<s>',
+                  'mask_token': '<mask>'}
+POOLING_MODES = ('cls', 'max', 'mean')
+# Sentence Transformers' legacy pooling keys, in its order
+_LEGACY_POOLING = (
+    ('pooling_mode_cls_token', 'cls'), ('pooling_mode_max_tokens', 'max'),
+    ('pooling_mode_mean_tokens', 'mean'),
+    ('pooling_mode_mean_sqrt_len_tokens', 'mean_sqrt_len_tokens'),
+    ('pooling_mode_weightedmean_tokens', 'weightedmean'),
+    ('pooling_mode_lasttoken', 'lasttoken'))
 
 
 # ---------------------------------------------------------------------------
@@ -110,13 +138,6 @@ def resolve_model_dir(name: str) -> str:
     raise FileNotFoundError(
         f'text encoder model {name!r} not found (nothing is downloaded); '
         f'tried: {", ".join(tried)}')
-
-
-def _read_json(path: str) -> dict:
-    if not os.path.exists(path):
-        return {}
-    with open(path, encoding='utf-8') as f:
-        return json.load(f)
 
 
 # ---------------------------------------------------------------------------
@@ -164,38 +185,43 @@ def _split_on_punctuation(text: str) -> list[str]:
     return [''.join(w) for w in out]
 
 
-def _token_content(value) -> str:
-    return value['content'] if isinstance(value, dict) else value
-
-
 class BertTokenizer:
-    """WordPiece ids as the slow Hugging Face ``BertTokenizer`` gives them,
-    with its default basic tokenization (Chinese characters split, no
+    """WordPiece ids as the slow Hugging Face ``BertTokenizer`` (or
+    ``DistilBertTokenizer``, ``MPNetTokenizer``) gives them, with its
+    default basic tokenization (Chinese characters split, no
     ``never_split``) and no added tokens but the special ones."""
 
     def __init__(self, vocab: dict[str, int], *, do_lower_case: bool = True,
                  strip_accents: bool | None = None,
                  special: dict[str, str] | None = None,
+                 added: dict[str, int] | None = None,
+                 lstrip: frozenset[str] = frozenset(),
+                 rstrip: frozenset[str] = frozenset(),
                  model_max_length: int | None = None):
-        self.vocab = vocab
+        self.vocab = {**vocab, **(added or {})}
         self.do_lower_case = do_lower_case
         self.strip_accents = strip_accents
         self.special = {**SPECIAL_DEFAULTS, **(special or {})}
+        self.lstrip, self.rstrip = lstrip, rstrip
         self.model_max_length = model_max_length
+        # Sentence Transformers' do_lower_case: its Lowercase normalizer, a
+        # character at a time, the special tokens kept whole
+        self.lower = False
         # kept whole: split off the text first, never lower-cased
-        self._whole = set(self.special.values())
+        self._whole = set(self.special.values()) | set(added or ())
         specials = '|'.join(map(re.escape, sorted(self._whole, key=len,
                                                   reverse=True)))
         self._specials = re.compile(f'({specials})')
         self._lower = re.compile(f'({specials})|(.+?)')
         self._pieces: dict[str, list[str]] = {}
-        self.unk_id = vocab[self.special['unk_token']]
-        self.cls_id = vocab[self.special['cls_token']]
-        self.sep_id = vocab[self.special['sep_token']]
-        self.pad_id = vocab[self.special['pad_token']]
+        self.unk_id = self.vocab[self.special['unk_token']]
+        self.cls_id = self.vocab[self.special['cls_token']]
+        self.sep_id = self.vocab[self.special['sep_token']]
+        self.pad_id = self.vocab[self.special['pad_token']]
 
     @classmethod
-    def from_dir(cls, model_dir: str) -> 'BertTokenizer':
+    def from_dir(cls, model_dir: str,
+                 model_type: str = 'bert') -> 'BertTokenizer':
         vocab_path = os.path.join(model_dir, 'vocab.txt')
         if not os.path.exists(vocab_path):
             if os.path.exists(os.path.join(model_dir, 'tokenizer.json')):
@@ -208,34 +234,29 @@ class BertTokenizer:
         with open(vocab_path, encoding='utf-8') as f:
             for i, line in enumerate(f):
                 vocab[line.rstrip('\n')] = i
-        conf = _read_json(os.path.join(model_dir, 'tokenizer_config.json'))
-        smap = _read_json(os.path.join(model_dir, 'special_tokens_map.json'))
-        special = {k: _token_content(smap.get(k, conf.get(
-            k, SPECIAL_DEFAULTS[k]))) for k in SPECIAL_KEYS}
+        conf = read_json(os.path.join(model_dir, 'tokenizer_config.json'))
+        if model_type == 'mpnet':
+            defaults, lstrip = MPNET_SPECIALS, frozenset({'mask_token'})
+        else:
+            defaults, lstrip = SPECIAL_DEFAULTS, frozenset()
+        special, added, lstrip, rstrip, mml = special_tokens(
+            model_dir, conf, defaults, lstrip)
         unported = {k: conf[k] for k in ('do_basic_tokenize',
                                          'tokenize_chinese_chars')
                     if conf.get(k, True) is not True}
         if conf.get('never_split'):
             unported['never_split'] = conf['never_split']
-        for entry in conf.get('added_tokens_decoder', {}).values():
-            if entry['content'] not in special.values() or any(
-                    entry.get(f) for f in ('lstrip', 'rstrip',
-                                           'single_word')):
-                unported.setdefault('added_tokens', []).append(entry)
         if unported:
             raise NotImplementedError(f'{model_dir}: tokenizer settings '
                                       f'not ported: {unported}')
-        mml = conf.get('model_max_length')
         return cls(vocab, do_lower_case=conf.get('do_lower_case', True),
                    strip_accents=conf.get('strip_accents'), special=special,
-                   model_max_length=None if mml is None else int(mml))
+                   added=added, lstrip=lstrip, rstrip=rstrip,
+                   model_max_length=mml)
 
     def max_length(self, cap: int = MAX_LENGTH_CAP) -> int:
         """``encoder_flax._model_max_len``: the tokenizer's limit, capped."""
-        mml = self.model_max_length
-        if not mml or mml > _NO_LIMIT:
-            return cap
-        return min(int(mml), cap)
+        return capped_length(self.model_max_length, cap)
 
     # --- the pieces of a text ------------------------------------------------
 
@@ -289,13 +310,15 @@ class BertTokenizer:
         return pieces
 
     def tokenize(self, text: str) -> list[str]:
-        if self.do_lower_case:
+        if self.do_lower_case or self.lower:
             # one character at a time, as Hugging Face does (so no final
             # sigma)
             text = self._lower.sub(
                 lambda m: m.group(1) or m.group(2).lower(), text)
         tokens = []
-        for i, part in enumerate(self._specials.split(text)):
+        parts = split_specials(self._specials, text, self.lstrip,
+                               self.rstrip)
+        for i, part in enumerate(parts):
             if i % 2:
                 tokens.append(part)
             else:
@@ -304,117 +327,23 @@ class BertTokenizer:
         return tokens
 
     def encode(self, text: str, max_length: int) -> list[int]:
-        """``[CLS] ids [SEP]``, the ids cut to ``max_length - 2``; as in
-        Hugging Face's tokenizers, left whole where that would cut them
-        all."""
+        """``[CLS] ids [SEP]``, the ids cut to ``max_length - 2``."""
         ids = [self.vocab.get(t, self.unk_id) for t in self.tokenize(text)]
-        remove = len(ids) + 2 - max_length
-        if 0 < remove < len(ids):
-            ids = ids[:-remove]
-        return [self.cls_id, *ids, self.sep_id]
+        return truncate(ids, self.cls_id, self.sep_id, max_length)
 
     def __call__(self, sentences: list[str], max_length: int):
         """``(ids, mask)``, int64 ``(B, L)``, padded to the longest row."""
-        rows = [self.encode(s, max_length) for s in sentences]
-        width = max(map(len, rows))
-        ids = np.full((len(rows), width), self.pad_id, np.int64)
-        mask = np.zeros((len(rows), width), np.int64)
-        for r, row in enumerate(rows):
-            ids[r, :len(row)] = row
-            mask[r, :len(row)] = 1
-        return ids, mask
+        return pad_rows([self.encode(s, max_length) for s in sentences],
+                        self.pad_id)
 
 
-# ---------------------------------------------------------------------------
-# the model
-
-class BertLayer(nn.Module):
-    """One post-LayerNorm encoder layer, under BERT's parameter names."""
-
-    def __init__(self, hidden: int, heads: int, inner: int, eps: float,
-                 act):
-        super().__init__()
-        self.heads = heads
-        self.act = act
-        self.attention = nn.Module()
-        self.attention.self = nn.Module()
-        for name in ('query', 'key', 'value'):
-            setattr(self.attention.self, name, nn.Linear(hidden, hidden))
-        self.attention.output = nn.Module()
-        self.attention.output.dense = nn.Linear(hidden, hidden)
-        self.attention.output.LayerNorm = nn.LayerNorm(hidden, eps=eps)
-        self.intermediate = nn.Module()
-        self.intermediate.dense = nn.Linear(hidden, inner)
-        self.output = nn.Module()
-        self.output.dense = nn.Linear(inner, hidden)
-        self.output.LayerNorm = nn.LayerNorm(hidden, eps=eps)
-
-    def forward(self, x: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
-        b, n, h = x.shape
-        heads, sa = self.heads, self.attention.self
-
-        def split(t):
-            return t.view(b, n, heads, h // heads).transpose(1, 2)
-
-        q = split(sa.query(x)) / math.sqrt(h // heads)
-        k, v = split(sa.key(x)), split(sa.value(x))
-        weights = torch.softmax(torch.matmul(q, k.transpose(-1, -2)) + bias,
-                                dim=-1)
-        ctx = torch.matmul(weights, v).transpose(1, 2).reshape(b, n, h)
-        out = self.attention.output
-        x = out.LayerNorm(out.dense(ctx) + x)
-        y = self.output.dense(self.act(self.intermediate.dense(x)))
-        return self.output.LayerNorm(y + x)
-
-
-class BertEncoder(nn.Module):
-    """The BERT encoder's last hidden state, ``state_dict`` keys as the
-    Hugging Face ``BertModel``'s without its pooler."""
-
-    def __init__(self, config: dict):
-        super().__init__()
-        model_type = config.get('model_type')
-        if model_type != 'bert':
-            raise NotImplementedError(
-                f'text encoder model_type {model_type!r} is not ported yet: '
-                'the port runs BERT (all-MiniLM-L6-v2 is one)')
-        act = config.get('hidden_act', 'gelu')
-        if act not in ACTIVATIONS:
-            raise NotImplementedError(
-                f'hidden_act {act!r} is not ported yet: use one of '
-                f'{sorted(ACTIVATIONS)}')
-        kind = config.get('position_embedding_type', 'absolute')
-        if kind != 'absolute':
-            raise NotImplementedError(
-                f'position_embedding_type {kind!r} is not ported yet')
-        hidden, eps = config['hidden_size'], config.get('layer_norm_eps',
-                                                        1e-12)
-        self.max_positions = config.get('max_position_embeddings', 512)
-        self.embeddings = nn.Module()
-        self.embeddings.word_embeddings = nn.Embedding(config['vocab_size'],
-                                                       hidden)
-        self.embeddings.position_embeddings = nn.Embedding(
-            self.max_positions, hidden)
-        self.embeddings.token_type_embeddings = nn.Embedding(
-            config.get('type_vocab_size', 2), hidden)
-        self.embeddings.LayerNorm = nn.LayerNorm(hidden, eps=eps)
-        self.encoder = nn.Module()
-        self.encoder.layer = nn.ModuleList(
-            BertLayer(hidden, config['num_attention_heads'],
-                      config['intermediate_size'], eps, ACTIVATIONS[act])
-            for _ in range(config['num_hidden_layers']))
-
-    def forward(self, ids: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-        emb = self.embeddings
-        pos = torch.arange(ids.shape[1], device=ids.device)
-        x = (emb.word_embeddings(ids) + emb.token_type_embeddings.weight[0]
-             + emb.position_embeddings(pos))
-        x = emb.LayerNorm(x)
-        bias = torch.where(mask[:, None, None, :] > 0, 0.0,
-                           torch.finfo(torch.float32).min).to(x.dtype)
-        for layer in self.encoder.layer:
-            x = layer(x, bias)
-        return x
+def load_tokenizer(model_dir: str, model_type: str):
+    """The tokenizer of a model directory: WordPiece for ``bert``,
+    ``distilbert`` and ``mpnet``, byte-level BPE for ``roberta``."""
+    if model_type == 'roberta':
+        from .bpe import RobertaTokenizer
+        return RobertaTokenizer.from_dir(model_dir)
+    return BertTokenizer.from_dir(model_dir, model_type)
 
 
 # ---------------------------------------------------------------------------
@@ -453,13 +382,16 @@ def read_safetensors(path: str) -> dict[str, torch.Tensor]:
 
 _RENAMES = (('LayerNorm.gamma', 'LayerNorm.weight'),
             ('LayerNorm.beta', 'LayerNorm.bias'))
+_PREFIXES = ('bert.', 'distilbert.', 'roberta.', 'mpnet.')
+_PARTS = ('embeddings.', 'encoder.', 'transformer.')
 
 
 def read_state(model_dir: str) -> dict[str, torch.Tensor]:
     """The encoder's ``state_dict`` from ``model.safetensors`` or
-    ``pytorch_model.bin``: the ``bert.`` prefix dropped, the pooler,
-    ``position_ids`` and any head left out, old ``gamma``/``beta`` names
-    renamed."""
+    ``pytorch_model.bin``: the family's prefix dropped, the pooler,
+    ``position_ids``/``token_type_ids`` buffers and any head left out, old
+    ``gamma``/``beta`` names renamed, and DistilBERT's and MPNet's layer
+    names mapped onto BERT's (``encoder_models.bert_name``)."""
     st = os.path.join(model_dir, 'model.safetensors')
     pt = os.path.join(model_dir, 'pytorch_model.bin')
     if os.path.exists(st):
@@ -475,69 +407,195 @@ def read_state(model_dir: str) -> dict[str, torch.Tensor]:
                                 f'in {model_dir}')
     state = {}
     for name, t in raw.items():
-        if name.startswith('bert.'):
-            name = name[len('bert.'):]
-        if not name.startswith(('embeddings.', 'encoder.')) \
-                or name.endswith('position_ids'):
+        for prefix in _PREFIXES:
+            if name.startswith(prefix):
+                name = name[len(prefix):]
+                break
+        if not name.startswith(_PARTS) \
+                or name.endswith(('position_ids', 'token_type_ids')):
             continue
         for old, new in _RENAMES:
             name = name.replace(old, new)
-        state[name] = t.float()
+        state[bert_name(name)] = t.float()
     return state
 
 
-def load_encoder(model_dir: str, device, state: dict | None = None
-                 ) -> tuple[BertTokenizer, BertEncoder, int]:
-    """``(tokenizer, model, max_length)`` of a model directory, the model
-    on ``device`` in float32 and in eval mode, its weights ``state`` (a
-    ``state_dict``, e.g. ``weights.bert_state_from_flax``'s) or the
-    directory's checkpoint."""
-    config = _read_json(os.path.join(model_dir, 'config.json'))
+# ---------------------------------------------------------------------------
+# Sentence Transformers' model directory
+
+@dataclass(frozen=True)
+class SentencePipeline:
+    """What ``SentenceTransformer`` runs for a model directory."""
+    transformer_dir: str
+    max_seq_length: int | None = None
+    do_lower_case: bool = False
+    pooling: tuple[str, ...] = ('mean',)
+    normalize: bool = False
+
+
+def _pooling_modes(conf: dict, path: str) -> tuple[str, ...]:
+    mode = conf.get('pooling_mode')
+    if mode is None:
+        modes = tuple(m for k, m in _LEGACY_POOLING if conf.get(k))
+        modes = modes or ('mean',)
+    else:
+        modes = (mode,) if isinstance(mode, str) else tuple(mode)
+    for m in modes:
+        if m not in POOLING_MODES:
+            raise NotImplementedError(
+                f'{path}: pooling mode {m!r} is not ported: the port pools '
+                f'with {", ".join(POOLING_MODES)}')
+    return modes
+
+
+def read_pipeline(model_dir: str) -> SentencePipeline:
+    """The modules of ``model_dir/modules.json`` in order: a
+    ``Transformer`` first, then ``Pooling`` and, where listed,
+    ``Normalize``; any other module is refused by name.  Without
+    ``modules.json``: the transformer at ``model_dir``, mean pooling, no
+    normalisation."""
+    modules = os.path.join(model_dir, 'modules.json')
+    if not os.path.exists(modules):
+        return SentencePipeline(model_dir)
+    with open(modules, encoding='utf-8') as f:
+        entries = json.load(f)
+    kinds = [e['type'].rsplit('.', 1)[-1] for e in entries]
+    if kinds not in (['Transformer', 'Pooling'],
+                     ['Transformer', 'Pooling', 'Normalize']):
+        raise NotImplementedError(
+            f'{modules}: modules {kinds} are not ported: the port runs a '
+            'Transformer, then Pooling, then Normalize or nothing')
+    where = [os.path.join(model_dir, e.get('path', '')) for e in entries]
+    sbert = read_json(os.path.join(where[0], 'sentence_bert_config.json'))
+    path = os.path.join(where[1], 'config.json')
+    pooling = _pooling_modes(read_json(path), path)
+    mml = sbert.get('max_seq_length')
+    return SentencePipeline(
+        where[0], None if mml is None else int(mml),
+        bool(sbert.get('do_lower_case', False)), pooling,
+        'Normalize' in kinds)
+
+
+# ---------------------------------------------------------------------------
+# loading and encoding
+
+def _model_and_tokenizer(model_dir: str, device, state: dict | None):
+    config = read_json(os.path.join(model_dir, 'config.json'))
     if not config:
         raise FileNotFoundError(f'no config.json in {model_dir}')
     model = BertEncoder(config)
-    tokenizer = BertTokenizer.from_dir(model_dir)
+    tokenizer = load_tokenizer(model_dir, model.model_type)
     model.load_state_dict(read_state(model_dir) if state is None else state)
-    max_length = min(tokenizer.max_length(), model.max_positions)
-    return tokenizer, model.to(device).eval(), max_length
+    return tokenizer, model.to(device).eval()
 
 
-def encode_with(tokenizer: BertTokenizer, model: BertEncoder,
-                max_length: int, sentences: list[str],
-                batch_size: int) -> np.ndarray:
-    """``(len(sentences), hidden)`` float32 unit vectors: the transformer's
-    last hidden state, its attention-masked token mean, L2-normalised
-    (both divisions floored at 1e-9), ``batch_size`` rows a forward pass on
-    the model's device."""
+def load_encoder(model_dir: str, device, state: dict | None = None):
+    """``(tokenizer, model, max_length)`` of the ``flax`` recipe: the model
+    on ``device`` in float32 and in eval mode, its weights ``state`` (a
+    ``state_dict``, e.g. ``weights.bert_state_from_flax``'s) or the
+    directory's checkpoint; the length capped at 512 and at the model's
+    positions.  ``mpnet`` is refused: transformers has no Flax MPNet."""
+    config = read_json(os.path.join(model_dir, 'config.json'))
+    if config.get('model_type') == 'mpnet':
+        raise NotImplementedError(
+            f'{model_dir}: mpnet has no Flax model in transformers, so the '
+            "JAX package's flax backend cannot run it: use "
+            'TEXTGCN_TPU_TEXT_ENCODER=st')
+    tokenizer, model = _model_and_tokenizer(model_dir, device, state)
+    max_length = min(tokenizer.max_length(), model.max_positions,
+                     model.max_tokens)
+    return tokenizer, model, max_length
+
+
+def load_sentence_encoder(model_dir: str, device):
+    """``(tokenizer, model, max_length, pipeline)`` of Sentence
+    Transformers' reading of ``model_dir`` (``read_pipeline``); the length
+    is ``max_seq_length``, else the tokenizer's limit capped at the
+    model's positions (and, past them, at the tokens the model can
+    place)."""
+    pipe = read_pipeline(model_dir)
+    tokenizer, model = _model_and_tokenizer(pipe.transformer_dir, device,
+                                            None)
+    tokenizer.lower = pipe.do_lower_case
+    if pipe.max_seq_length is not None:
+        max_length = pipe.max_seq_length
+    else:
+        max_length = min(tokenizer.model_max_length or model.max_positions,
+                         model.max_positions)
+    return tokenizer, model, min(max_length, model.max_tokens), pipe
+
+
+def pool(hidden: torch.Tensor, mask: torch.Tensor,
+         modes: tuple[str, ...]) -> torch.Tensor:
+    """Sentence Transformers' ``Pooling``: each mode's ``(B, hidden)``
+    vector, concatenated in order."""
+    w = mask[..., None].to(hidden.dtype)
+    out = []
+    for mode in modes:
+        if mode == 'cls':
+            out.append(hidden[:, 0])
+        elif mode == 'max':
+            out.append(hidden.masked_fill(w == 0, float('-inf')).max(1)
+                       .values)
+        else:
+            out.append((hidden * w).sum(1) / w.sum(1).clamp(min=1e-9))
+    return torch.cat(out, dim=-1)
+
+
+def encode_with(tokenizer, model, max_length: int, sentences: list[str],
+                batch_size: int, pooling: tuple[str, ...] = ('mean',),
+                norm_floor: float | None = 1e-9) -> np.ndarray:
+    """``(len(sentences), D)`` float32 vectors: the transformer's last
+    hidden state pooled (``pool``), divided by its L2 norm floored at
+    ``norm_floor`` (none when ``None``), ``batch_size`` rows a forward pass
+    on the model's device.  The defaults are the ``flax`` recipe."""
     device = model.embeddings.word_embeddings.weight.device
     torch.backends.cuda.matmul.allow_tf32 = False
-    out = [np.zeros((0, model.embeddings.word_embeddings.embedding_dim),
-                    np.float32)]
+    width = model.embeddings.word_embeddings.embedding_dim * len(pooling)
+    out = [np.zeros((0, width), np.float32)]
     with torch.no_grad():
         for start in range(0, len(sentences), batch_size):
             ids, mask = tokenizer(sentences[start:start + batch_size],
                                   max_length)
             ids = torch.from_numpy(ids).to(device)
             mask = torch.from_numpy(mask).to(device)
-            hidden = model(ids, mask)
-            w = mask[..., None].to(hidden.dtype)
-            emb = (hidden * w).sum(1) / w.sum(1).clamp(min=1e-9)
-            norm = torch.linalg.vector_norm(emb, dim=-1, keepdim=True)
-            out.append((emb / norm.clamp(min=1e-9)).cpu().numpy())
+            emb = pool(model(ids, mask), mask, pooling)
+            if norm_floor is not None:
+                norm = torch.linalg.vector_norm(emb, dim=-1, keepdim=True)
+                emb = emb / norm.clamp(min=norm_floor)
+            out.append(emb.cpu().numpy())
     return np.concatenate(out).astype(np.float32)
 
 
+BACKENDS = ('flax', 'st', 'auto')
+
+
 def encode(sentences: list[str], model_dir: str, batch_size: int,
-           device) -> np.ndarray:
-    """``encode_with`` the model that ``model_dir`` names (a directory, or
-    a name in the Hugging Face cache) on ``device``; logs the rate."""
+           device, backend: str = 'flax') -> np.ndarray:
+    """The vectors of ``sentences`` from the model that ``model_dir`` names
+    (a directory, or a name in the Hugging Face cache) on ``device``, by
+    the recipe of ``backend``: ``flax`` (``load_encoder``), or ``st`` and
+    ``auto`` (``load_sentence_encoder``: its pooling, and ``Normalize``'s
+    L2 norm floored at 1e-12 where the directory lists it).  Logs the
+    rate."""
+    if backend not in BACKENDS:
+        raise ValueError(f'text encoder backend {backend!r}: use one of '
+                         f'{", ".join(BACKENDS)}')
     device = torch.device(device)
     path = resolve_model_dir(model_dir)
-    tokenizer, model, max_length = load_encoder(path, device)
+    if backend == 'flax':
+        tokenizer, model, max_length = load_encoder(path, device)
+        recipe = {}
+    else:
+        tokenizer, model, max_length, pipe = load_sentence_encoder(path,
+                                                                   device)
+        recipe = {'pooling': pipe.pooling,
+                  'norm_floor': 1e-12 if pipe.normalize else None}
     t0 = time.perf_counter()
-    out = encode_with(tokenizer, model, max_length, sentences, batch_size)
+    out = encode_with(tokenizer, model, max_length, sentences, batch_size,
+                      **recipe)
     seconds = time.perf_counter() - t0
-    log.info('Encoded %d sentences with %s on %s in %.3f s (%.1f '
-             'sentences/s)', len(sentences), path, device, seconds,
-             len(sentences) / max(seconds, 1e-9))
+    log.info('Encoded %d sentences with %s (%s, %s) on %s in %.3f s (%.1f '
+             'sentences/s)', len(sentences), path, model.model_type,
+             backend, device, seconds, len(sentences) / max(seconds, 1e-9))
     return out

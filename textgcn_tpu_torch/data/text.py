@@ -26,12 +26,16 @@ Encoders (``TEXTGCN_TPU_TEXT_ENCODER``), used when no cache fits:
 
 * ``stub``: the JAX package's deterministic hash-seeded unit vectors, bit
   for bit;
-* ``flax``, ``st`` and ``auto`` (the default): the port's BERT
-  (``encoder.py``) over ``--bert_model`` (a local directory, or a name in
-  the Hugging Face cache), on the entry point's device.  It is the
-  pipeline of both JAX backends (transformer, token mean, L2 norm).
-  ``auto`` does not fall back to the stub when the model is missing, as
-  the JAX package's cascade does: it raises.
+* ``flax``: the port's encoder (``encoder.py``: BERT, DistilBERT or
+  RoBERTa) over ``--bert_model`` (a local directory, or a name in the
+  Hugging Face cache) on the entry point's device, by the JAX package's
+  Flax recipe (token mean, L2 norm, 512 tokens at most);
+* ``st`` and ``auto`` (the default): the same encoders, MPNet too, with
+  Sentence Transformers' semantics read from the directory (its modules,
+  pooling, ``Normalize`` and ``max_seq_length``), which the JAX package's
+  ``auto`` reaches first wherever sentence-transformers is installed.
+  ``auto`` does not fall back to Flax or to the stub, as the JAX
+  package's cascade does: it raises.
 """
 
 from __future__ import annotations
@@ -86,8 +90,9 @@ def encode_sentences(sentences: list[str], bert_model: str,
                      batch_size: int) -> np.ndarray:
     """``(len(sentences), D)`` vectors from the encoder that
     ``TEXTGCN_TPU_TEXT_ENCODER`` names: ``stub``, or ``flax``, ``st`` and
-    ``auto``, which all run the port's BERT on the entry point's device
-    (``config.platform_device``)."""
+    ``auto``, which run the port's encoder on the entry point's device
+    (``config.platform_device``) by the Flax recipe or Sentence
+    Transformers' (``encoder.encode``)."""
     backend = os.environ.get(ENCODER_ENV, 'auto')
     if backend == 'stub':
         return _stub_encode(sentences)
@@ -96,7 +101,8 @@ def encode_sentences(sentences: list[str], bert_model: str,
                          f'{", ".join(ENCODERS)}')
     from ..config import platform_device
     from .encoder import encode
-    return encode(sentences, bert_model, batch_size, platform_device())
+    return encode(sentences, bert_model, batch_size, platform_device(),
+                  backend)
 
 
 # ---------------------------------------------------------------------------

@@ -21,8 +21,9 @@ The boosted heads' fitted ensemble is carried across by
 estimator (``tree.pkl``), which the port reads duck-typed, never
 importing scikit-learn.
 
-``bert_state_from_flax`` turns a Flax BERT's parameter tree into the
-``state_dict`` of the port's text encoder (``data/encoder.BertEncoder``).
+``bert_state_from_flax`` turns a Flax BERT's, RoBERTa's or DistilBERT's
+parameter tree into the ``state_dict`` of the port's text encoder
+(``data/encoder_models.py``).
 """
 
 from __future__ import annotations
@@ -31,6 +32,8 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+
+from .data.encoder_models import bert_name
 
 
 class RowShard(NamedTuple):
@@ -128,11 +131,15 @@ def forest_from_estimator(est):
 
 
 def bert_state_from_flax(params: dict) -> dict[str, torch.Tensor]:
-    """The ``data.encoder.BertEncoder`` ``state_dict`` of a Flax BERT's
-    parameter tree of numpy arrays (``FlaxBertModel.params``): Dense
+    """The ``state_dict`` of the port's text encoder
+    (``data.encoder_models``) from a Flax BERT's, RoBERTa's or
+    DistilBERT's parameter tree of numpy arrays (``FlaxBertModel.params``,
+    ``FlaxRobertaModel.params``, ``FlaxDistilBertModel.params``): Dense
     kernels ``(in, out)`` transposed into ``nn.Linear.weight``, LayerNorm
-    ``scale`` as ``weight``, Embed ``embedding`` as ``weight``; the pooler
-    left out."""
+    ``scale`` as ``weight``, Embed ``embedding`` as ``weight``, DistilBERT's
+    names mapped onto BERT's (``bert_name``); the pooler left out.  A
+    DistilBERT with ``sinusoidal_pos_embds`` has no position table in
+    Flax: the encoder makes its own."""
     names = {'kernel': 'weight', 'scale': 'weight', 'embedding': 'weight',
              'bias': 'bias'}
     out = {}
@@ -145,8 +152,9 @@ def bert_state_from_flax(params: dict) -> dict[str, torch.Tensor]:
             t = torch.from_numpy(np.array(value, np.float32))
             if key == 'kernel':
                 t = t.T.contiguous()
-            out['.'.join((*path, names[key]))] = t
+            out[bert_name('.'.join((*path, names[key])))] = t
 
-    for top in ('embeddings', 'encoder'):
-        walk(params[top], (top,))
+    for top in ('embeddings', 'encoder', 'transformer'):
+        if top in params:
+            walk(params[top], (top,))
     return out
