@@ -239,20 +239,30 @@ Phases, each of which passes or ends the run with a non-zero exit:
    descriptions and reviews on the card and writes both caches (K1
    exactly ``6 + steps x 6 + 6``; sentences/s logged), and a second run
    reads them and encodes nothing;
-9j3'. encoder families: Sentence Transformers directories of three
+9j3'. encoder families: Sentence Transformers directories of six
    published shapes with seeded random weights: all-mpnet-base-v2
    (``mpnet``, hidden 768, 12 layers, 12 heads, FFN 3,072, vocabulary
    30,527, 514 positions, 32 relative buckets; mean pooling,
    ``Normalize``, ``max_seq_length`` 384), all-distilroberta-v1
    (``roberta``, 768, 6 layers, vocabulary 50,265 over a byte-level BPE
-   learnt from the cut's text; mean, ``Normalize``, 512) and
-   msmarco-distilbert-base-v4 (``distilbert``, 768, 6 layers; mean, 512):
-   for each, 256 of the cut's texts encoded on the card against the CPU
-   (1e-4), and 4,096 timed on the card and through the tokenizer alone;
-   then ``ltr_linear --load_base --freeze`` for 1 epoch on a copy of the
-   cut without caches under ``TEXTGCN_TPU_TEXT_ENCODER=st`` over the MPNet
-   directory: every text encoded 768 wide on the card, both caches
-   written with unit rows, K1 exactly ``6 + steps x 6 + 6``;
+   learnt from the cut's text; mean, ``Normalize``, 512),
+   msmarco-distilbert-base-v4 (``distilbert``, 768, 6 layers; mean, 512),
+   paraphrase-multilingual-MiniLM-L12-v2 (``bert``, 384, 12 layers, FFN
+   1,536, vocabulary 250,037) and paraphrase-multilingual-mpnet-base-v2
+   (``xlm-roberta``, 768, 12 layers, vocabulary 250,002, 514 positions)
+   over XLM-RoBERTa's ``tokenizer.json`` (a 250,002-piece Unigram that
+   covers the cut's text, a precompiled NFKC charsmap, ``Metaspace``;
+   mean, 128), and distiluse-base-multilingual-cased-v2 (``distilbert``,
+   768, 6 layers, vocabulary 119,547 over a cased WordPiece
+   ``tokenizer.json``; mean, ``Dense`` 768 -> 512 ``tanh``, 128): for each,
+   64 of the cut's texts (for the multilingual ones eight of them
+   non-Latin lines) encoded on the card against the CPU (1e-4), and 2,048
+   timed on the card and through the tokenizer alone; then ``ltr_linear
+   --load_base --freeze`` for 1 epoch on a copy of the cut without caches
+   under ``TEXTGCN_TPU_TEXT_ENCODER=st`` over the MPNet directory (every
+   text encoded 768 wide on the card, both caches written with unit rows)
+   and over the multilingual MiniLM one (384 wide): K1 exactly ``6 + steps
+   x 6 + 6`` each;
 9j4. health check: a probe of the card, and the ``Device backend ready``
    line of phase 9j3's first CLI run;
 9j5. cold_report: a 5,000 x 2,000 ``--sharp --cold 0.2`` set, ``lgcn``
@@ -297,6 +307,7 @@ from __future__ import annotations
 
 import ast
 import csv
+import copy
 import json
 import os
 import pickle
@@ -3299,17 +3310,20 @@ def write_safetensors(path: str, tensors: dict[str, np.ndarray]):
             f.write(np.ascontiguousarray(a, np.float32).tobytes())
 
 
-def random_weights(model, seed: int) -> dict[str, np.ndarray]:
-    """``model``'s ``state_dict`` as N(0, 0.02) numpy arrays from
-    ``seed``, LayerNorms 1 and 0, biases 0."""
+def random_weights(config: dict, seed: int) -> dict[str, np.ndarray]:
+    """The ``state_dict`` of ``BertEncoder(config)`` (built without
+    storage) as N(0, 0.02) numpy arrays from ``seed``, LayerNorms 1 and 0,
+    biases 0."""
+    from textgcn_tpu_torch.data.encoder_models import BertEncoder
+    with torch.device('meta'):
+        model = BertEncoder(config)
     gen = torch.Generator().manual_seed(seed)
     state = {}
     for name, t in model.state_dict().items():
-        if 'LayerNorm' in name:
-            t = torch.ones_like(t) if name.endswith('weight') \
-                else torch.zeros_like(t)
-        elif name.endswith('bias'):
-            t = torch.zeros_like(t)
+        if 'LayerNorm' in name and name.endswith('weight'):
+            t = torch.ones(t.shape)
+        elif 'LayerNorm' in name or name.endswith('bias'):
+            t = torch.zeros(t.shape)
         else:
             t = 0.02 * torch.randn(t.shape, generator=gen)
         state[name] = t.numpy()
@@ -3322,7 +3336,6 @@ def write_minilm(root: str, seed: int = 0) -> str:
     lower-casing ``vocab.txt`` that holds the synthetic text's words,
     digits and letters (and their ``##`` pieces), filled with unused
     entries to the vocabulary's size."""
-    from textgcn_tpu_torch.data.encoder import BertEncoder
     out = os.path.join(root, 'minilm-shaped')
     os.makedirs(out, exist_ok=True)
     with open(os.path.join(out, 'config.json'), 'w') as f:
@@ -3339,7 +3352,7 @@ def write_minilm(root: str, seed: int = 0) -> str:
     with open(os.path.join(out, 'vocab.txt'), 'w') as f:
         f.write('\n'.join(vocab) + '\n')
     write_safetensors(os.path.join(out, 'model.safetensors'),
-                      random_weights(BertEncoder(MINILM), seed))
+                      random_weights(MINILM, seed))
     return out
 
 
@@ -3481,8 +3494,9 @@ def encoder_phase(root: str, cut_dir: str, base_ck: str, card: str,
     return out
 
 
-# the published shapes of three sentence encoders (their config.json,
-# modules.json, 1_Pooling/config.json and sentence_bert_config.json)
+# the published shapes of six sentence encoders (their config.json,
+# modules.json, 1_Pooling/config.json, 2_Dense/config.json and
+# sentence_bert_config.json); the last three tokenize from tokenizer.json
 ST_MODELS = {
     'all-mpnet-base-v2': {
         'config': {'model_type': 'mpnet', 'vocab_size': 30527,
@@ -3508,29 +3522,147 @@ ST_MODELS = {
                    'activation': 'gelu', 'sinusoidal_pos_embds': False,
                    'pad_token_id': 0},
         'normalize': False, 'max_seq_length': 512},
+    'paraphrase-multilingual-MiniLM-L12-v2': {
+        'config': {'model_type': 'bert', 'vocab_size': 250037,
+                   'hidden_size': 384, 'num_hidden_layers': 12,
+                   'num_attention_heads': 12, 'intermediate_size': 1536,
+                   'max_position_embeddings': 512, 'type_vocab_size': 2,
+                   'hidden_act': 'gelu', 'layer_norm_eps': 1e-12,
+                   'pad_token_id': 0},
+        'tokenizer': 'unigram', 'normalize': False, 'max_seq_length': 128},
+    'paraphrase-multilingual-mpnet-base-v2': {
+        'config': {'model_type': 'xlm-roberta', 'vocab_size': 250002,
+                   'hidden_size': 768, 'num_hidden_layers': 12,
+                   'num_attention_heads': 12, 'intermediate_size': 3072,
+                   'max_position_embeddings': 514, 'type_vocab_size': 1,
+                   'hidden_act': 'gelu', 'layer_norm_eps': 1e-5,
+                   'pad_token_id': 1, 'bos_token_id': 0, 'eos_token_id': 2},
+        'tokenizer': 'unigram', 'normalize': False, 'max_seq_length': 128},
+    'distiluse-base-multilingual-cased-v2': {
+        'config': {'model_type': 'distilbert', 'vocab_size': 119547,
+                   'dim': 768, 'n_layers': 6, 'n_heads': 12,
+                   'hidden_dim': 3072, 'max_position_embeddings': 512,
+                   'activation': 'gelu', 'sinusoidal_pos_embds': False,
+                   'pad_token_id': 0},
+        'tokenizer': 'wordpiece', 'dense': 512, 'normalize': False,
+        'max_seq_length': 128},
 }
-FAMILY_SENTENCES = 256      # card against CPU
-RATE_SENTENCES = 4096       # sentences/s on the card
+# card against CPU (the multilingual models' with MULTILINGUAL's lines
+# among them), and sentences/s on the card
+FAMILY_SENTENCES = 64
+RATE_SENTENCES = 2048
 CUT_WORDS = ('title of a longer description its detail review by opinion '
              'sep').split()
+# XLM-RoBERTa's SentencePiece vocabulary: 250,002 pieces, <mask> the last
+UNIGRAM_PIECES = 250_002
+MULTILINGUAL = [
+    "Émile's café, naïve façade — très bien",
+    'Ελληνικά κείμενα ΟΔΟΣ Σοφία', 'русский текст пример отзыва',
+    '한국어 리뷰 텍스트', 'हिन्दी पाठ समीक्षा', '中文文本示例评论',
+    'ｆｕｌｌ ｗｉｄｔｈ ＡＢＣ １２３  two  spaces', 'ﬁne ﬂow ① ½ ™']
 
 
-def _wordpiece_vocab(specials: list[str], size: int) -> list[str]:
+def _wordpiece_vocab(specials: list[str], size: int,
+                     cased: bool = False) -> list[str]:
     chars = list('abcdefghijklmnopqrstuvwxyz0123456789,:.[]_')
+    if cased:
+        chars += list('ABCDEFGHIJKLMNOPQRSTUVWXYZ')
     vocab = specials + CUT_WORDS + [str(i) for i in range(100)] + chars \
         + ['##' + c for c in chars]
     return vocab + [f'[unused{i}]' for i in range(size - len(vocab))]
 
 
+def unigram_tokenizer_json(corpus: list[str], size: int) -> dict:
+    """XLM-RoBERTa's ``tokenizer.json`` layout (Precompiled, then Replace
+    of ``" {2,}"``, Metaspace, ``<s> $A </s>``) over a Unigram vocabulary
+    of ``size`` pieces: the four specials, the corpus's words after ``▁``
+    (-6), ``▁``, its characters and two-digit numbers (-9), filler pieces
+    (-20, behind U+E000) and ``<mask>``.  The charsmap holds a few hundred
+    NFKC mappings (``tests/helpers/torch_charsmap.py``)."""
+    sys.path.insert(0, os.path.join(REPO, 'tests', 'helpers'))
+    from torch_charsmap import charsmap_b64, nfkc_mappings
+    words, chars = set(), set()
+    for text in corpus:
+        for w in text.split():
+            words.add('▁' + w)
+            chars.update(w)
+    pieces = [['<s>', 0.0], ['<pad>', 0.0], ['</s>', 0.0], ['<unk>', 0.0]]
+    pieces += [[w, -6.0] for w in sorted(words)]
+    pieces += [[p, -9.0] for p in ['▁', *sorted(chars),
+                                   *(f'{i:02d}' for i in range(100))]]
+    # fillers behind a private-use character that no text holds
+    pieces += [[f'\ue000{k:x}', -20.0]
+               for k in range(size - 1 - len(pieces))]
+    pieces.append(['<mask>', 0.0])
+    added = [{'id': i, 'content': t, 'single_word': False, 'lstrip': False,
+              'rstrip': False, 'normalized': False, 'special': True}
+             for i, t in enumerate(('<s>', '<pad>', '</s>', '<unk>'))]
+    added.append({'id': size - 1, 'content': '<mask>', 'single_word': False,
+                  'lstrip': True, 'rstrip': False, 'normalized': False,
+                  'special': True})
+    return {
+        'version': '1.0', 'truncation': None, 'padding': None,
+        'added_tokens': added,
+        'normalizer': {'type': 'Sequence', 'normalizers': [
+            {'type': 'Precompiled',
+             'precompiled_charsmap': charsmap_b64(nfkc_mappings())},
+            {'type': 'Replace', 'pattern': {'Regex': ' {2,}'},
+             'content': ' '}]},
+        'pre_tokenizer': {'type': 'Metaspace', 'replacement': '▁',
+                          'prepend_scheme': 'always', 'split': True},
+        'post_processor': {
+            'type': 'TemplateProcessing',
+            'single': [{'SpecialToken': {'id': '<s>', 'type_id': 0}},
+                       {'Sequence': {'id': 'A', 'type_id': 0}},
+                       {'SpecialToken': {'id': '</s>', 'type_id': 0}}],
+            'pair': [], 'special_tokens': {
+                '<s>': {'id': '<s>', 'ids': [0], 'tokens': ['<s>']},
+                '</s>': {'id': '</s>', 'ids': [2], 'tokens': ['</s>']}}},
+        'decoder': None,
+        'model': {'type': 'Unigram', 'unk_id': 3, 'vocab': pieces,
+                  'byte_fallback': False}}
+
+
+def wordpiece_tokenizer_json(size: int) -> dict:
+    """A cased multilingual BERT's ``tokenizer.json`` layout
+    (``BertNormalizer`` without lower-casing, ``BertPreTokenizer``,
+    ``[CLS] $A [SEP]``) over ``_wordpiece_vocab``."""
+    specials = ['[PAD]', '[UNK]', '[CLS]', '[SEP]', '[MASK]']
+    vocab = _wordpiece_vocab(specials, size, cased=True)
+    return {
+        'version': '1.0', 'truncation': None, 'padding': None,
+        'added_tokens': [{'id': i, 'content': t, 'single_word': False,
+                          'lstrip': False, 'rstrip': False,
+                          'normalized': False, 'special': True}
+                         for i, t in enumerate(specials)],
+        'normalizer': {'type': 'BertNormalizer', 'clean_text': True,
+                       'handle_chinese_chars': True, 'strip_accents': None,
+                       'lowercase': False},
+        'pre_tokenizer': {'type': 'BertPreTokenizer'},
+        'post_processor': {
+            'type': 'TemplateProcessing',
+            'single': [{'SpecialToken': {'id': '[CLS]', 'type_id': 0}},
+                       {'Sequence': {'id': 'A', 'type_id': 0}},
+                       {'SpecialToken': {'id': '[SEP]', 'type_id': 0}}],
+            'pair': [], 'special_tokens': {
+                '[CLS]': {'id': '[CLS]', 'ids': [2], 'tokens': ['[CLS]']},
+                '[SEP]': {'id': '[SEP]', 'ids': [3], 'tokens': ['[SEP]']}}},
+        'decoder': None,
+        'model': {'type': 'WordPiece', 'unk_token': '[UNK]',
+                  'continuing_subword_prefix': '##',
+                  'max_input_chars_per_word': 100,
+                  'vocab': {t: i for i, t in enumerate(vocab)}}}
+
+
 def write_st_model(root: str, name: str, corpus: list[str],
                    seed: int = 0) -> str:
     """A Sentence Transformers directory of ``ST_MODELS[name]``'s published
-    shape: ``config.json``, the tokenizer files (a WordPiece ``vocab.txt``
-    or a BPE ``vocab.json``/``merges.txt`` that cover the cut's text),
-    N(0, 0.02) weights from ``seed`` (LayerNorms 1 and 0, biases 0) in
-    ``model.safetensors``, ``modules.json`` (Transformer, mean Pooling and,
-    where the model has one, Normalize) and ``sentence_bert_config.json``."""
-    from textgcn_tpu_torch.data.encoder_models import BertEncoder
+    shape: ``config.json``, the tokenizer files (a WordPiece ``vocab.txt``,
+    a BPE ``vocab.json``/``merges.txt``, or a Unigram or WordPiece
+    ``tokenizer.json`` that cover the cut's text), N(0, 0.02) weights from
+    ``seed`` (LayerNorms 1 and 0, biases 0) in ``model.safetensors``,
+    ``modules.json`` (Transformer, mean Pooling, the model's Dense and
+    Normalize) and ``sentence_bert_config.json``."""
     spec = ST_MODELS[name]
     config = spec['config']
     out = os.path.join(root, name)
@@ -3538,7 +3670,25 @@ def write_st_model(root: str, name: str, corpus: list[str],
     with open(os.path.join(out, 'config.json'), 'w') as f:
         json.dump(config, f)
     kind = config['model_type']
-    if kind == 'roberta':
+    tokenizer = spec.get('tokenizer')
+    if tokenizer is not None:
+        if tokenizer == 'unigram':
+            tok = unigram_tokenizer_json(corpus + MULTILINGUAL,
+                                         UNIGRAM_PIECES)
+            tok_conf = {'tokenizer_class': 'XLMRobertaTokenizer',
+                        'model_max_length': 512, 'bos_token': '<s>',
+                        'eos_token': '</s>', 'unk_token': '<unk>',
+                        'sep_token': '</s>', 'pad_token': '<pad>',
+                        'cls_token': '<s>', 'mask_token': '<mask>'}
+        else:
+            tok = wordpiece_tokenizer_json(config['vocab_size'])
+            tok_conf = {'tokenizer_class': 'BertTokenizer',
+                        'do_lower_case': False, 'model_max_length': 512,
+                        'pad_token': '[PAD]'}
+        with open(os.path.join(out, 'tokenizer.json'), 'w',
+                  encoding='utf-8') as f:
+            json.dump(tok, f, ensure_ascii=False)
+    elif kind == 'roberta':
         from textgcn_tpu_torch.data import bpe
         vocab, merges = bpe.learn(
             [w for text in corpus for w in bpe.pretokenize(text)], 400,
@@ -3559,15 +3709,29 @@ def write_st_model(root: str, name: str, corpus: list[str],
         tok_conf = {'do_lower_case': True, 'model_max_length': 512}
     with open(os.path.join(out, 'tokenizer_config.json'), 'w') as f:
         json.dump(tok_conf, f)
+    width = config.get('hidden_size', config.get('dim'))
     modules = [('Transformer', ''), ('Pooling', '1_Pooling')]
+    if spec.get('dense'):
+        dense_dir = os.path.join(out, '2_Dense')
+        os.makedirs(dense_dir, exist_ok=True)
+        with open(os.path.join(dense_dir, 'config.json'), 'w') as f:
+            json.dump({'in_features': width, 'out_features': spec['dense'],
+                       'bias': True, 'activation_function':
+                       'torch.nn.modules.activation.Tanh'}, f)
+        gen = torch.Generator().manual_seed(seed + 1)
+        write_safetensors(os.path.join(dense_dir, 'model.safetensors'), {
+            'linear.weight': (0.02 * torch.randn(
+                spec['dense'], width, generator=gen)).numpy(),
+            'linear.bias': (0.02 * torch.randn(
+                spec['dense'], generator=gen)).numpy()})
+        modules.append(('Dense', '2_Dense'))
     if spec['normalize']:
-        modules.append(('Normalize', '2_Normalize'))
-        os.makedirs(os.path.join(out, '2_Normalize'), exist_ok=True)
+        modules.append(('Normalize', f'{len(modules)}_Normalize'))
+        os.makedirs(os.path.join(out, modules[-1][1]), exist_ok=True)
     with open(os.path.join(out, 'modules.json'), 'w') as f:
         json.dump([{'idx': k, 'name': str(k), 'path': path,
                     'type': f'sentence_transformers.models.{m}'}
                    for k, (m, path) in enumerate(modules)], f)
-    width = config.get('hidden_size', config.get('dim'))
     with open(os.path.join(out, '1_Pooling', 'config.json'), 'w') as f:
         json.dump({'word_embedding_dimension': width,
                    'pooling_mode_cls_token': False,
@@ -3578,7 +3742,7 @@ def write_st_model(root: str, name: str, corpus: list[str],
         json.dump({'max_seq_length': spec['max_seq_length'],
                    'do_lower_case': False}, f)
     write_safetensors(os.path.join(out, 'model.safetensors'),
-                      random_weights(BertEncoder(config), seed))
+                      random_weights(config, seed))
     return out
 
 
@@ -3595,71 +3759,18 @@ def _cut_texts(cut_dir: str) -> list[str]:
     return reviews + items
 
 
-def encoder_families_phase(root: str, cut_dir: str, base_ck: str, card: str,
-                           dev) -> dict:
-    """The sentence encoders at their published shapes
-    (``write_st_model``: all-mpnet-base-v2, all-distilroberta-v1 and
-    msmarco-distilbert-base-v4) by Sentence Transformers' recipe: for each,
-    ``FAMILY_SENTENCES`` of the 4,096-user cut's texts encoded on the card
-    against the CPU (``ENCODE_TOL``), then ``RATE_SENTENCES`` timed on the
-    card (sentences/s) and through the tokenizer alone (its share); then
-    ``ltr_linear --load_base <the boosted phase's base> --freeze`` for 1
-    epoch on a copy of the cut without caches under
-    ``TEXTGCN_TPU_TEXT_ENCODER=st --bert_model <the MPNet directory>``: it
-    encodes every text of the cut 768 wide on the card and writes both
-    caches (unit rows: the directory lists ``Normalize``); K1 launches
-    exactly ``6 + steps x 6 + 6``."""
+def st_ltr_run(root: str, cut_dir: str, base_ck: str, model_dir: str,
+               uid: str) -> dict:
+    """``ltr_linear --load_base <base_ck> --freeze`` for 1 epoch on a copy
+    of the cut without caches under ``TEXTGCN_TPU_TEXT_ENCODER=st
+    --bert_model <model_dir>``: every text of the cut encoded on the card,
+    both caches written; K1 launches exactly ``6 + steps x 6 + 6``.
+    Returns the launches, the encode calls' sentences and seconds, the
+    CLI's seconds and the caches' arrays."""
     import shutil
 
     from textgcn_tpu_torch.data import encoder, text
-    texts = _cut_texts(cut_dir)
-    step = max(1, len(texts) // RATE_SENTENCES)
-    sample = texts[::step][:RATE_SENTENCES]
-    out = {}
-    dirs = {}
-    for name, spec in ST_MODELS.items():
-        t0 = time.perf_counter()
-        dirs[name] = path = write_st_model(root, name, texts[:2000])
-        write_s = time.perf_counter() - t0
-        tok, model, length, pipe = encoder.load_sentence_encoder(path, dev)
-        recipe = {'pooling': pipe.pooling,
-                  'norm_floor': 1e-12 if pipe.normalize else None}
-        few = sample[:FAMILY_SENTENCES]
-        on_card = encoder.encode(few, path, 64, dev, 'st')
-        on_cpu = encoder.encode(few, path, 64, 'cpu', 'st')
-        err = float(np.abs(on_card - on_cpu).max())
-        width = spec['config'].get('hidden_size', spec['config'].get('dim'))
-        check(on_card.shape == (len(few), width) and err <= ENCODE_TOL
-              and np.isfinite(on_card).all(),
-              f'{name}: card vs CPU {err}, shape {on_card.shape}')
-        encoder.encode_with(tok, model, length, sample[:64], 64, **recipe)
-        t0 = time.perf_counter()
-        encoder.encode_with(tok, model, length, sample, 64, **recipe)
-        card_s = time.perf_counter() - t0
-        fresh = encoder.load_tokenizer(pipe.transformer_dir,
-                                       model.model_type)
-        t0 = time.perf_counter()
-        for start in range(0, len(sample), 64):
-            fresh(sample[start:start + 64], length)
-        tok_s = time.perf_counter() - t0
-        out[name] = {'model_type': model.model_type,
-                     'card_vs_cpu_max_abs_err': err,
-                     'sentences_per_s': len(sample) / card_s,
-                     'tokenizer_share': tok_s / card_s,
-                     'tokenizer_sentences_per_s': len(sample) / tok_s,
-                     'max_length': length, 'write_s': write_s}
-        log(f'encoder {name} ({model.model_type}, {width} wide): '
-            f'{len(few)} sentences on the card vs the CPU max abs err '
-            f'{err:.3e}; {len(sample)} sentences in {card_s:.3f} s on the '
-            f'card ({len(sample) / card_s:.1f} sentences/s), the tokenizer '
-            f'alone {tok_s:.3f} s ({tok_s / card_s:.3f} of it); written in '
-            f'{write_s:.3f} s')
-        del model
-        torch.cuda.empty_cache()
-
-    mpnet = dirs['all-mpnet-base-v2']
-    width = ST_MODELS['all-mpnet-base-v2']['config']['hidden_size']
-    enc_dir = os.path.join(root, 's1_mpnet')
+    enc_dir = os.path.join(root, f's1_{uid}')
     os.makedirs(enc_dir, exist_ok=True)
     for name in ('train.tsv', 'test.tsv', 'meta_synced.tsv',
                  'reviews_text.tsv'):
@@ -3678,10 +3789,9 @@ def encoder_families_phase(root: str, cut_dir: str, base_ck: str, card: str,
     text.load_ltr_data = getattr(loader, 'real', loader)
     os.environ[text.ENCODER_ENV] = 'st'
     argv = ['--model', 'ltr_linear', '--load_base', base_ck, '--freeze',
-            '--epochs', '1', '--evaluate_every', '1', '--bert_model', mpnet,
-            '--emb_size', str(D), '--n_layers', str(LAYERS),
-            '--batch_size', str(BATCH), '-k', *map(str, KS), '--uid',
-            'mpnet-st']
+            '--epochs', '1', '--evaluate_every', '1', '--bert_model',
+            model_dir, '--emb_size', str(D), '--n_layers', str(LAYERS),
+            '--batch_size', str(BATCH), '-k', *map(str, KS), '--uid', uid]
     try:
         reset_counts()
         t0 = time.perf_counter()
@@ -3697,26 +3807,106 @@ def encoder_families_phase(root: str, cut_dir: str, base_ck: str, card: str,
     steps = trainer.model.num_batches(BATCH)
     want = dict.fromkeys(_wrappers(), 0)
     want['spmm_dropout'] = 2 * LAYERS * (steps + 2)
-    check(launches == want, f'mpnet ltr_linear: launches {launches}, '
+    check(launches == want, f'{uid} ltr_linear: launches {launches}, '
           f'expected {want} (base eval + steps + eval, forward only)')
-    n, s = sum(c[0] for c in calls), sum(c[1] for c in calls)
-    check(len(calls) == 2, f'mpnet ltr_linear: {len(calls)} encode calls')
+    check(len(calls) == 2, f'{uid} ltr_linear: {len(calls)} encode calls')
     caches = sorted(os.listdir(os.path.join(enc_dir, 'embeddings')))
-    for name in caches:
-        if name.endswith('.npy'):
-            v = np.load(os.path.join(enc_dir, 'embeddings', name))
+    check(len(caches) == 4, f'{uid} caches {caches}')
+    arrays = {name: np.load(os.path.join(enc_dir, 'embeddings', name))
+              for name in caches if name.endswith('.npy')}
+    n, s = sum(c[0] for c in calls), sum(c[1] for c in calls)
+    return {'launches': launches['spmm_dropout'], 'encoded': n,
+            'encode_s': s, 'sentences_per_s': n / s, 'cli_s': seconds,
+            'caches': caches, 'arrays': arrays}
+
+
+def encoder_families_phase(root: str, cut_dir: str, base_ck: str, card: str,
+                           dev) -> dict:
+    """The sentence encoders at their published shapes
+    (``write_st_model``: all-mpnet-base-v2, all-distilroberta-v1,
+    msmarco-distilbert-base-v4, paraphrase-multilingual-MiniLM-L12-v2 and
+    paraphrase-multilingual-mpnet-base-v2 over a Unigram tokenizer.json,
+    distiluse-base-multilingual-cased-v2 over a WordPiece tokenizer.json
+    and a Dense 768 -> 512 tanh) by Sentence Transformers' recipe: for
+    each, ``FAMILY_SENTENCES`` of the 4,096-user cut's texts (the
+    multilingual ones with ``MULTILINGUAL``'s lines) encoded on the card
+    against the CPU
+    (``ENCODE_TOL``), then ``RATE_SENTENCES`` timed on the card
+    (sentences/s) and through the tokenizer alone (its share); then
+    ``st_ltr_run`` with the MPNet directory (unit rows: it lists
+    ``Normalize``) and with the multilingual MiniLM one (the slice's
+    path)."""
+    from textgcn_tpu_torch.data import encoder
+    texts = _cut_texts(cut_dir)
+    step = max(1, len(texts) // RATE_SENTENCES)
+    sample = texts[::step][:RATE_SENTENCES]
+    out = {}
+    dirs = {}
+    for name, spec in ST_MODELS.items():
+        t0 = time.perf_counter()
+        dirs[name] = path = write_st_model(root, name, texts[:2000])
+        write_s = time.perf_counter() - t0
+        tok, model, length, pipe = encoder.load_sentence_encoder(path, dev)
+        recipe = {'pooling': pipe.pooling, 'dense': pipe.dense,
+                  'norm_floor': 1e-12 if pipe.normalize else None}
+        few = sample[:FAMILY_SENTENCES]
+        if 'tokenizer' in spec:
+            few = few[:-len(MULTILINGUAL)] + MULTILINGUAL
+        on_card = encoder.encode_with(tok, model, length, few, 64, **recipe)
+        on_cpu = encoder.encode_with(tok, copy.deepcopy(model).to('cpu'),
+                                     length, few, 64, **recipe)
+        err = float(np.abs(on_card - on_cpu).max())
+        width = spec.get('dense') or spec['config'].get(
+            'hidden_size', spec['config'].get('dim'))
+        check(on_card.shape == (len(few), width) and err <= ENCODE_TOL
+              and np.isfinite(on_card).all(),
+              f'{name}: card vs CPU {err}, shape {on_card.shape}')
+        encoder.encode_with(tok, model, length, sample[:64], 64, **recipe)
+        t0 = time.perf_counter()
+        encoder.encode_with(tok, model, length, sample, 64, **recipe)
+        card_s = time.perf_counter() - t0
+        fresh = encoder.load_tokenizer(pipe.transformer_dir,
+                                       model.model_type)
+        t0 = time.perf_counter()
+        for start in range(0, len(sample), 64):
+            fresh(sample[start:start + 64], length)
+        tok_s = time.perf_counter() - t0
+        out[name] = {'model_type': model.model_type,
+                     'tokenizer': type(tok).__name__,
+                     'card_vs_cpu_max_abs_err': err,
+                     'card_vs_cpu_sentences': len(few),
+                     'sentences_per_s': len(sample) / card_s,
+                     'tokenizer_share': tok_s / card_s,
+                     'tokenizer_sentences_per_s': len(sample) / tok_s,
+                     'max_length': length, 'write_s': write_s}
+        log(f'encoder {name} ({model.model_type}, {type(tok).__name__}, '
+            f'{width} wide): {len(few)} sentences on the card vs the CPU '
+            f'max abs err {err:.3e}; {len(sample)} sentences in '
+            f'{card_s:.3f} s on the card ({len(sample) / card_s:.1f} '
+            f'sentences/s on {card}), the tokenizer alone {tok_s:.3f} s '
+            f'({tok_s / card_s:.3f} of it); written in {write_s:.3f} s')
+        del model
+        torch.cuda.empty_cache()
+
+    for key, name, uid in (
+            ('ltr_linear_st_mpnet', 'all-mpnet-base-v2', 'mpnet-st'),
+            ('ltr_linear_st_multilingual_minilm',
+             'paraphrase-multilingual-MiniLM-L12-v2', 'minilm-ml-st')):
+        run = st_ltr_run(root, cut_dir, base_ck, dirs[name], uid)
+        spec = ST_MODELS[name]
+        width = spec['config']['hidden_size']
+        for cache, v in run.pop('arrays').items():
             check(v.shape[1] == width and np.isfinite(v).all()
-                  and np.allclose(np.linalg.norm(v, axis=1), 1, atol=1e-4),
-                  f'mpnet cache {name}: {v.shape}')
-    check(len(caches) == 4, f'mpnet caches {caches}')
-    out['ltr_linear_st_mpnet'] = {
-        'launches': launches['spmm_dropout'], 'encoded': n, 'encode_s': s,
-        'sentences_per_s': n / s, 'cli_s': seconds, 'caches': caches}
-    log(f'encoder: ltr_linear --freeze under TEXTGCN_TPU_TEXT_ENCODER=st '
-        f'with the all-mpnet-base-v2-shaped model encoded {n} sentences '
-        f'in {s:.3f} s ({n / s:.1f} sentences/s on {card}); cli.main took '
-        f'{seconds:.3f} s; K1 {launches["spmm_dropout"]} launches; caches '
-        f'{caches}')
+                  and (not spec['normalize'] or np.allclose(
+                      np.linalg.norm(v, axis=1), 1, atol=1e-4)),
+                  f'{uid} cache {cache}: {v.shape}')
+        out[key] = run
+        log(f'encoder: ltr_linear --freeze under TEXTGCN_TPU_TEXT_ENCODER='
+            f'st with the {name}-shaped model encoded {run["encoded"]} '
+            f'sentences in {run["encode_s"]:.3f} s '
+            f'({run["sentences_per_s"]:.1f} sentences/s on {card}); '
+            f'cli.main took {run["cli_s"]:.3f} s; K1 {run["launches"]} '
+            f'launches; caches {run["caches"]}')
     return out
 
 
@@ -4175,6 +4365,9 @@ def main():
                'train_ltr_linear_st_mpnet': {
                    'spmm_dropout':
                    families['ltr_linear_st_mpnet']['launches']},
+               'train_ltr_linear_st_multilingual_minilm': {
+                   'spmm_dropout': families[
+                       'ltr_linear_st_multilingual_minilm']['launches']},
                'cold_report': {'spmm_dropout': cold['launches']},
                'sem_cold_sweep_quick': {'spmm_dropout': tools['launches']}}
     by_path.update({f'train_{m}': {k: n for k, n in r['launches'].items()
@@ -4248,7 +4441,8 @@ def main():
         # serve lgcn --approx_topk 0.95; train ltr_linear --freeze on the
         # 4,096-user cut as the encoder writes its caches, then from them
         # (forward only), and again with the all-mpnet-base-v2-shaped
-        # encoder under TEXTGCN_TPU_TEXT_ENCODER=st; cold_report (the
+        # and the paraphrase-multilingual-MiniLM-L12-v2-shaped encoders
+        # under TEXTGCN_TPU_TEXT_ENCODER=st; cold_report (the
         # load's evaluation and one ranking pass); sem_cold_sweep --quick
         # --rows 2 (lgcn and two kg runs, each trained and reported)
         **launch_fields('spmm_dropout', 'lgcn'),

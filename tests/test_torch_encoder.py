@@ -206,15 +206,6 @@ def test_a_tokenizer_setting_not_ported_is_refused(tmp_path, setting):
         encoder.BertTokenizer.from_dir(str(tmp_path))
 
 
-def test_a_tokenizer_json_alone_is_refused(tmp_path):
-    (tmp_path / 'tokenizer.json').write_text('{}')
-    with pytest.raises(NotImplementedError, match='vocab.txt'):
-        encoder.BertTokenizer.from_dir(str(tmp_path))
-    os.remove(tmp_path / 'tokenizer.json')
-    with pytest.raises(FileNotFoundError, match='vocab.txt'):
-        encoder.BertTokenizer.from_dir(str(tmp_path))
-
-
 # --- the encoder -------------------------------------------------------------
 
 @pytest.mark.parametrize('kind', ['safetensors', 'bin'])
@@ -292,8 +283,9 @@ def test_safetensors_half_types_read_as_float32(tmp_path):
 
 @pytest.mark.parametrize('change, match', [
     # roberta, distilbert and mpnet run since the encoder families came
-    # (tests/test_torch_encoder_families.py); xlm-roberta is queued
-    ({'model_type': 'xlm-roberta'}, "'xlm-roberta' is not ported yet"),
+    # (tests/test_torch_encoder_families.py), xlm-roberta since the
+    # multilingual encoders (tests/test_torch_encoder_multilingual.py)
+    ({'model_type': 'gpt2'}, "'gpt2' is not ported yet"),
     ({'hidden_act': 'silu'}, "'silu' is not ported yet"),
     ({'position_embedding_type': 'relative_key'}, 'not ported yet'),
 ])

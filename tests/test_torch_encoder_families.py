@@ -26,9 +26,11 @@ is downloaded.
 * ``flax``: bert, distilbert and roberta within 1e-5 of ``flax_encode``,
   from the torch checkpoints and from Flax parameter trees carried by
   ``weights.bert_state_from_flax`` (a sinusoidal DistilBERT among them).
-* Refusals by name: ``xlm-roberta``, an unknown pooling mode, a module
-  the port does not run, ``flax`` on ``mpnet``, a BPE directory with only
-  ``tokenizer.json``.
+* Refusals by name: a ``Dense`` activation the port does not run,
+  ``flax`` on ``mpnet``, a directory whose only tokenizer is a
+  SentencePiece model (``xlm-roberta``, the new pooling modes, ``Dense``
+  and ``tokenizer.json`` directories run since the multilingual encoders:
+  ``tests/test_torch_encoder_multilingual.py``).
 """
 
 import json
@@ -340,37 +342,6 @@ def test_flax_parameters_carry_across(models, tmp_path, family):
 
 # --- refusals -------------------------------------------------------------------
 
-def test_xlm_roberta_is_refused_by_name(models, tmp_path):
-    d = str(tmp_path / 'xlmr')
-    shutil.copytree(models['roberta'], d)
-    with open(os.path.join(d, 'config.json')) as f:
-        config = json.load(f)
-    config['model_type'] = 'xlm-roberta'
-    with open(os.path.join(d, 'config.json'), 'w') as f:
-        json.dump(config, f)
-    for backend in ('flax', 'st'):
-        with pytest.raises(NotImplementedError,
-                           match="'xlm-roberta' is not ported yet: its "
-                                 'tokenizer is SentencePiece'):
-            encoder.encode(SENTENCES, d, 4, 'cpu', backend)
-
-
-@pytest.mark.parametrize('change, match', [
-    ({'pooling_mode': 'weightedmean'}, "pooling mode 'weightedmean'"),
-    ({'pooling_mode_lasttoken': True}, "pooling mode 'lasttoken'"),
-])
-def test_an_unknown_pooling_mode_is_refused_by_name(models, tmp_path,
-                                                    change, match):
-    d = _st_dir(str(tmp_path), models['bert'], 'mean_normalize')
-    path = os.path.join(d, '1_Pooling', 'config.json')
-    with open(path) as f:
-        conf = json.load(f)
-    with open(path, 'w') as f:
-        json.dump({**conf, **change}, f)
-    with pytest.raises(NotImplementedError, match=match):
-        encoder.encode(SENTENCES, d, 4, 'cpu', 'st')
-
-
 def test_other_refusals(models, tmp_path):
     d = _st_dir(str(tmp_path), models['bert'], 'mean_normalize')
     with open(os.path.join(d, 'modules.json')) as f:
@@ -379,12 +350,22 @@ def test_other_refusals(models, tmp_path):
                        'type': 'sentence_transformers.models.Dense'})
     with open(os.path.join(d, 'modules.json'), 'w') as f:
         json.dump(modules, f)
-    with pytest.raises(NotImplementedError, match="'Dense'"):
+    os.makedirs(os.path.join(d, '2_Dense'))
+    with open(os.path.join(d, '2_Dense', 'config.json'), 'w') as f:
+        json.dump({'in_features': SIZES['hidden'], 'out_features': 8,
+                   'activation_function':
+                       'torch.nn.modules.activation.Softplus'}, f)
+    with pytest.raises(NotImplementedError,
+                       match="Dense activation 'torch.nn.modules"
+                             ".activation.Softplus'"):
         encoder.encode(SENTENCES, d, 4, 'cpu', 'st')
     with pytest.raises(NotImplementedError, match='mpnet has no Flax'):
         encoder.encode(SENTENCES, models['mpnet'], 4, 'cpu', 'flax')
-    only = tmp_path / 'bpe_json_only'
-    only.mkdir()
-    (only / 'tokenizer.json').write_text('{}')
-    with pytest.raises(NotImplementedError, match='vocab.json'):
-        bpe.RobertaTokenizer.from_dir(str(only))
+    only = tmp_path / 'spiece_only'
+    shutil.copytree(models['roberta'], only)
+    for name in ('vocab.json', 'merges.txt'):
+        os.remove(only / name)
+    (only / 'spiece.model').write_bytes(b'\n\x05')
+    with pytest.raises(NotImplementedError,
+                       match='SentencePiece model spiece.model'):
+        encoder.load_tokenizer(str(only), 'roberta')

@@ -147,19 +147,18 @@ def test_reference_torch_cache_and_missing_encoder(tmp_path, monkeypatch):
                                                   'm', 4), vecs.numpy())
     # without a cache the encoder runs: it refuses a model that is absent
     # (nothing is downloaded) or of a type it does not run (roberta runs
-    # since the encoder families came; xlm-roberta's SentencePiece
-    # tokenizer is queued), and never falls back
+    # since the encoder families came, xlm-roberta since the multilingual
+    # encoders), and never falls back
     monkeypatch.setenv('TEXTGCN_TPU_PLATFORM', 'cpu')
     monkeypatch.setenv('HF_HUB_CACHE', str(tmp_path / 'hub'))
     monkeypatch.setenv(text.ENCODER_ENV, 'st')
     with pytest.raises(FileNotFoundError, match="'m' not found"):
         text.embed_text(['a', 'b'], cache, 'm', 4)
     monkeypatch.delenv(text.ENCODER_ENV)
-    other = tmp_path / 'xlm-roberta'
+    other = tmp_path / 'gpt2'
     other.mkdir()
-    (other / 'config.json').write_text('{"model_type": "xlm-roberta"}')
-    with pytest.raises(NotImplementedError,
-                       match="'xlm-roberta' is not ported"):
+    (other / 'config.json').write_text('{"model_type": "gpt2"}')
+    with pytest.raises(NotImplementedError, match="'gpt2' is not ported"):
         text.encode_sentences(['a'], str(other), 4)
 
 

@@ -141,11 +141,6 @@ class RobertaTokenizer:
         paths = [os.path.join(model_dir, f) for f in ('vocab.json',
                                                       'merges.txt')]
         if not all(map(os.path.exists, paths)):
-            if os.path.exists(os.path.join(model_dir, 'tokenizer.json')):
-                raise NotImplementedError(
-                    f'{model_dir} holds tokenizer.json but no vocab.json '
-                    'and merges.txt: the port reads byte-level BPE from '
-                    'those two files only')
             raise FileNotFoundError(f'no vocab.json and merges.txt in '
                                     f'{model_dir}')
         with open(paths[0], encoding='utf-8') as f:

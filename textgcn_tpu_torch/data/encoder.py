@@ -1,6 +1,6 @@
-"""The text encoder: BERT, DistilBERT, RoBERTa and MPNet in plain
-PyTorch, their tokenizers and a checkpoint reader, with no Hugging Face
-package.
+"""The text encoder: BERT, DistilBERT, RoBERTa, XLM-RoBERTa and MPNet in
+plain PyTorch, their tokenizers and a checkpoint reader, with no Hugging
+Face package.
 
 Two recipes, as ``TEXTGCN_TPU_TEXT_ENCODER`` names them
 (``data/text.encode_sentences``):
@@ -8,23 +8,30 @@ Two recipes, as ``TEXTGCN_TPU_TEXT_ENCODER`` names them
 * ``flax``: the JAX package's ``encoder_flax.flax_encode`` -- the
   transformer, its attention-masked token mean, L2 normalisation (both
   divisions floored at 1e-9), the length capped at 512 tokens and at the
-  model's positions.  It runs ``bert``, ``distilbert`` and ``roberta``
-  (transformers has no Flax MPNet, so ``mpnet`` is refused, as the JAX
-  package's Flax path fails on it).
+  model's positions.  It runs ``bert``, ``distilbert``, ``roberta`` and
+  ``xlm-roberta`` (transformers has no Flax MPNet, so ``mpnet`` is
+  refused, as the JAX package's Flax path fails on it).
 * ``st`` and ``auto``: Sentence Transformers' semantics
   (``textgcn_tpu/data/text._st_encode``), read from the model directory as
   ``SentenceTransformer`` reads it (``read_pipeline``): the modules of
   ``modules.json`` in order -- the transformer (its directory's
   ``sentence_bert_config.json`` gives ``max_seq_length`` and
-  ``do_lower_case``), ``Pooling`` (``mean``, ``cls`` or ``max``, or several
-  concatenated, from its ``config.json``; another mode is refused by name)
-  and ``Normalize`` where it is listed.  A directory without
+  ``do_lower_case``), ``Pooling`` (``mean``, ``cls``, ``max``,
+  ``mean_sqrt_len_tokens``, ``weightedmean`` or ``lasttoken``, or several
+  concatenated, from its ``config.json``), any number of ``Dense`` modules
+  (``nn.Linear`` from their ``config.json`` and weights, then ``Tanh``,
+  ``Identity``, ``ReLU`` or ``GELU``; another activation is refused by
+  name) and ``Normalize`` where it is listed.  A directory without
   ``modules.json`` gets Sentence Transformers' default: mean pooling, no
   normalisation.  Without a ``max_seq_length`` the limit is the
   tokenizer's ``model_max_length`` capped at the model's positions.  All
-  four model types run.
+  five model types run.
 
-The tokenizers give the slow Hugging Face tokenizers' ids:
+The tokenizer is picked from the directory, as ``AutoTokenizer`` does:
+its ``tokenizer.json`` when it has one, whatever the model type
+(``tokenizer_json.JsonTokenizer``: the fast tokenizers' ids; WordPiece,
+byte-level BPE, SentencePiece Unigram ...); else the slow Hugging Face
+tokenizers' ids from the vocabulary files:
 
 * ``BertTokenizer``, WordPiece from ``vocab.txt`` (``bert``,
   ``distilbert``, and ``mpnet`` with ``<s>``/``</s>``/``<pad>``/
@@ -49,8 +56,9 @@ tree in code).  ``resolve_model_dir`` takes ``--bert_model`` as a local
 directory, or a name looked up in the Hugging Face cache
 (``$HF_HUB_CACHE``, else ``$HF_HOME/hub``, else
 ``~/.cache/huggingface/hub``: ``models--<org>--<name>/snapshots/*/``);
-nothing is fetched.  A directory with only ``tokenizer.json``, and
-``xlm-roberta`` (SentencePiece), are refused.
+nothing is fetched.  A directory whose only tokenizer file is a
+SentencePiece model (``sentencepiece.bpe.model``, ``spiece.model``) is
+refused by name.
 
 Unlike the JAX package, rows are padded to the longest row of their
 batch, not to power-of-two buckets: the buckets spare XLA recompiles, and
@@ -87,7 +95,8 @@ MPNET_SPECIALS = {'bos_token': '<s>', 'eos_token': '</s>',
                   'unk_token': '[UNK]', 'sep_token': '</s>',
                   'pad_token': '<pad>', 'cls_token': '<s>',
                   'mask_token': '<mask>'}
-POOLING_MODES = ('cls', 'max', 'mean')
+POOLING_MODES = ('cls', 'max', 'mean', 'mean_sqrt_len_tokens',
+                 'weightedmean', 'lasttoken')
 # Sentence Transformers' legacy pooling keys, in its order
 _LEGACY_POOLING = (
     ('pooling_mode_cls_token', 'cls'), ('pooling_mode_max_tokens', 'max'),
@@ -224,11 +233,6 @@ class BertTokenizer:
                  model_type: str = 'bert') -> 'BertTokenizer':
         vocab_path = os.path.join(model_dir, 'vocab.txt')
         if not os.path.exists(vocab_path):
-            if os.path.exists(os.path.join(model_dir, 'tokenizer.json')):
-                raise NotImplementedError(
-                    f'{model_dir} holds tokenizer.json but no vocab.txt: '
-                    'the port reads WordPiece vocabularies from vocab.txt '
-                    'only')
             raise FileNotFoundError(f'no vocab.txt in {model_dir}')
         vocab: dict[str, int] = {}
         with open(vocab_path, encoding='utf-8') as f:
@@ -337,9 +341,25 @@ class BertTokenizer:
                         self.pad_id)
 
 
+SENTENCEPIECE_FILES = ('sentencepiece.bpe.model', 'spiece.model')
+
+
 def load_tokenizer(model_dir: str, model_type: str):
-    """The tokenizer of a model directory: WordPiece for ``bert``,
-    ``distilbert`` and ``mpnet``, byte-level BPE for ``roberta``."""
+    """The tokenizer of a model directory: its ``tokenizer.json`` when it
+    has one; else WordPiece from ``vocab.txt`` (``bert``, ``distilbert``,
+    ``mpnet``) or byte-level BPE from ``vocab.json`` and ``merges.txt``
+    (``roberta``).  A directory whose only tokenizer is a SentencePiece
+    model is refused by name."""
+    if os.path.exists(os.path.join(model_dir, 'tokenizer.json')):
+        from .tokenizer_json import JsonTokenizer
+        return JsonTokenizer.from_dir(model_dir)
+    pieces = [f for f in SENTENCEPIECE_FILES
+              if os.path.exists(os.path.join(model_dir, f))]
+    if pieces:
+        raise NotImplementedError(
+            f'{model_dir} holds the SentencePiece model {pieces[0]} and no '
+            'tokenizer.json: the port reads SentencePiece through '
+            'tokenizer.json only')
     if model_type == 'roberta':
         from .bpe import RobertaTokenizer
         return RobertaTokenizer.from_dir(model_dir)
@@ -424,6 +444,24 @@ def read_state(model_dir: str) -> dict[str, torch.Tensor]:
 # Sentence Transformers' model directory
 
 @dataclass(frozen=True)
+class DenseSpec:
+    """A Sentence Transformers ``Dense`` module: ``nn.Linear`` and an
+    activation (``DENSE_ACTIVATIONS``)."""
+    weight: torch.Tensor
+    bias: torch.Tensor | None
+    activation: str
+
+
+# the activations of Dense's config (their fully qualified torch names)
+DENSE_ACTIVATIONS = {
+    'torch.nn.modules.activation.Tanh': torch.tanh,
+    'torch.nn.modules.linear.Identity': lambda x: x,
+    'torch.nn.modules.activation.ReLU': torch.relu,
+    'torch.nn.modules.activation.GELU': torch.nn.functional.gelu,
+}
+
+
+@dataclass(frozen=True)
 class SentencePipeline:
     """What ``SentenceTransformer`` runs for a model directory."""
     transformer_dir: str
@@ -431,6 +469,7 @@ class SentencePipeline:
     do_lower_case: bool = False
     pooling: tuple[str, ...] = ('mean',)
     normalize: bool = False
+    dense: tuple[DenseSpec, ...] = ()
 
 
 def _pooling_modes(conf: dict, path: str) -> tuple[str, ...]:
@@ -448,23 +487,62 @@ def _pooling_modes(conf: dict, path: str) -> tuple[str, ...]:
     return modes
 
 
+def read_dense(module_dir: str) -> DenseSpec:
+    """A ``Dense`` module's ``config.json`` (``in_features``,
+    ``out_features``, ``bias``, ``activation_function``, Tanh when it is
+    missing) and its ``linear.weight``/``linear.bias`` from
+    ``model.safetensors`` or ``pytorch_model.bin``.  Refuses another
+    activation, and another input or output than the sentence embedding,
+    by name."""
+    path = os.path.join(module_dir, 'config.json')
+    conf = read_json(path)
+    act = conf.get('activation_function', 'torch.nn.modules.activation.Tanh')
+    if act not in DENSE_ACTIVATIONS:
+        raise NotImplementedError(
+            f'{path}: Dense activation {act!r} is not ported: the port runs '
+            f'{", ".join(a.rsplit(".", 1)[-1] for a in DENSE_ACTIVATIONS)}')
+    for key in ('module_input_name', 'module_output_name'):
+        if conf.get(key, 'sentence_embedding') not in (None,
+                                                       'sentence_embedding'):
+            raise NotImplementedError(f'{path}: Dense {key} {conf[key]!r} '
+                                      'is not ported')
+    st_path = os.path.join(module_dir, 'model.safetensors')
+    if os.path.exists(st_path):
+        weights = read_safetensors(st_path)
+    else:
+        weights = {k: t.float() for k, t in torch.load(
+            os.path.join(module_dir, 'pytorch_model.bin'), map_location='cpu',
+            weights_only=True).items()}
+    weight = weights['linear.weight']
+    shape = (conf['out_features'], conf['in_features'])
+    if tuple(weight.shape) != shape:
+        raise ValueError(f'{module_dir}: linear.weight {tuple(weight.shape)}'
+                         f', config {shape}')
+    bias = weights['linear.bias'] if conf.get('bias', True) else None
+    return DenseSpec(weight, bias, act)
+
+
 def read_pipeline(model_dir: str) -> SentencePipeline:
     """The modules of ``model_dir/modules.json`` in order: a
-    ``Transformer`` first, then ``Pooling`` and, where listed,
-    ``Normalize``; any other module is refused by name.  Without
-    ``modules.json``: the transformer at ``model_dir``, mean pooling, no
-    normalisation."""
+    ``Transformer`` first, then ``Pooling``, any number of ``Dense`` and,
+    where listed, ``Normalize``; any other module or order is refused by
+    name.  Without ``modules.json``: the transformer at ``model_dir``, mean
+    pooling, no normalisation."""
     modules = os.path.join(model_dir, 'modules.json')
     if not os.path.exists(modules):
         return SentencePipeline(model_dir)
     with open(modules, encoding='utf-8') as f:
         entries = json.load(f)
     kinds = [e['type'].rsplit('.', 1)[-1] for e in entries]
-    if kinds not in (['Transformer', 'Pooling'],
-                     ['Transformer', 'Pooling', 'Normalize']):
+    dense = 0
+    while kinds[2 + dense:3 + dense] == ['Dense']:
+        dense += 1
+    if kinds[:2] != ['Transformer', 'Pooling'] \
+            or kinds[2 + dense:] not in ([], ['Normalize']):
         raise NotImplementedError(
             f'{modules}: modules {kinds} are not ported: the port runs a '
-            'Transformer, then Pooling, then Normalize or nothing')
+            'Transformer, then Pooling, then any Dense, then Normalize or '
+            'nothing')
     where = [os.path.join(model_dir, e.get('path', '')) for e in entries]
     sbert = read_json(os.path.join(where[0], 'sentence_bert_config.json'))
     path = os.path.join(where[1], 'config.json')
@@ -473,7 +551,8 @@ def read_pipeline(model_dir: str) -> SentencePipeline:
     return SentencePipeline(
         where[0], None if mml is None else int(mml),
         bool(sbert.get('do_lower_case', False)), pooling,
-        'Normalize' in kinds)
+        'Normalize' in kinds,
+        tuple(read_dense(d) for d in where[2:2 + dense]))
 
 
 # ---------------------------------------------------------------------------
@@ -483,9 +562,12 @@ def _model_and_tokenizer(model_dir: str, device, state: dict | None):
     config = read_json(os.path.join(model_dir, 'config.json'))
     if not config:
         raise FileNotFoundError(f'no config.json in {model_dir}')
-    model = BertEncoder(config)
+    # built without storage: the checkpoint's tensors become the weights
+    with torch.device('meta'):
+        model = BertEncoder(config)
     tokenizer = load_tokenizer(model_dir, model.model_type)
-    model.load_state_dict(read_state(model_dir) if state is None else state)
+    model.load_state_dict(read_state(model_dir) if state is None else state,
+                          assign=True)
     return tokenizer, model.to(device).eval()
 
 
@@ -527,8 +609,10 @@ def load_sentence_encoder(model_dir: str, device):
 
 def pool(hidden: torch.Tensor, mask: torch.Tensor,
          modes: tuple[str, ...]) -> torch.Tensor:
-    """Sentence Transformers' ``Pooling``: each mode's ``(B, hidden)``
-    vector, concatenated in order."""
+    """Sentence Transformers' ``Pooling`` (5.6's arithmetic): each mode's
+    ``(B, hidden)`` vector, concatenated in order.  ``weightedmean``
+    weighs position ``k`` by ``k + 1``; ``lasttoken`` takes the last
+    position the mask keeps."""
     w = mask[..., None].to(hidden.dtype)
     out = []
     for mode in modes:
@@ -537,21 +621,54 @@ def pool(hidden: torch.Tensor, mask: torch.Tensor,
         elif mode == 'max':
             out.append(hidden.masked_fill(w == 0, float('-inf')).max(1)
                        .values)
+        elif mode in ('mean', 'mean_sqrt_len_tokens'):
+            count = w.sum(1).clamp(min=1e-9)
+            if mode == 'mean_sqrt_len_tokens':
+                count = torch.sqrt(count)
+            out.append((hidden * w).sum(1) / count)
+        elif mode == 'weightedmean':
+            ww = w * torch.arange(1, hidden.shape[1] + 1,
+                                  device=hidden.device).to(hidden.dtype)[
+                                      None, :, None]
+            out.append((hidden * ww).sum(1) / ww.sum(1).clamp(min=1e-9))
         else:
-            out.append((hidden * w).sum(1) / w.sum(1).clamp(min=1e-9))
+            flipped = mask.flip(1)
+            back = flipped.argmax(1)
+            last = hidden.shape[1] - 1 - torch.where(
+                flipped.amax(1) == 0, hidden.shape[1] - 1, back)
+            out.append((hidden * w)[torch.arange(hidden.shape[0],
+                                                 device=hidden.device),
+                                    last])
     return torch.cat(out, dim=-1)
+
+
+def dense_layers(specs: tuple[DenseSpec, ...], device) -> list:
+    """The ``Dense`` modules as functions on ``device``."""
+    layers = []
+    for spec in specs:
+        weight = spec.weight.to(device)
+        bias = None if spec.bias is None else spec.bias.to(device)
+        act = DENSE_ACTIVATIONS[spec.activation]
+        layers.append(lambda x, w=weight, b=bias, f=act:
+                      f(torch.nn.functional.linear(x, w, b)))
+    return layers
 
 
 def encode_with(tokenizer, model, max_length: int, sentences: list[str],
                 batch_size: int, pooling: tuple[str, ...] = ('mean',),
-                norm_floor: float | None = 1e-9) -> np.ndarray:
+                norm_floor: float | None = 1e-9,
+                dense: tuple[DenseSpec, ...] = ()) -> np.ndarray:
     """``(len(sentences), D)`` float32 vectors: the transformer's last
-    hidden state pooled (``pool``), divided by its L2 norm floored at
-    ``norm_floor`` (none when ``None``), ``batch_size`` rows a forward pass
-    on the model's device.  The defaults are the ``flax`` recipe."""
+    hidden state pooled (``pool``), through the ``dense`` modules, divided
+    by its L2 norm floored at ``norm_floor`` (none when ``None``),
+    ``batch_size`` rows a forward pass on the model's device.  The defaults
+    are the ``flax`` recipe."""
     device = model.embeddings.word_embeddings.weight.device
     torch.backends.cuda.matmul.allow_tf32 = False
     width = model.embeddings.word_embeddings.embedding_dim * len(pooling)
+    if dense:
+        width = dense[-1].weight.shape[0]
+    layers = dense_layers(dense, device)
     out = [np.zeros((0, width), np.float32)]
     with torch.no_grad():
         for start in range(0, len(sentences), batch_size):
@@ -560,6 +677,8 @@ def encode_with(tokenizer, model, max_length: int, sentences: list[str],
             ids = torch.from_numpy(ids).to(device)
             mask = torch.from_numpy(mask).to(device)
             emb = pool(model(ids, mask), mask, pooling)
+            for layer in layers:
+                emb = layer(emb)
             if norm_floor is not None:
                 norm = torch.linalg.vector_norm(emb, dim=-1, keepdim=True)
                 emb = emb / norm.clamp(min=norm_floor)
@@ -575,9 +694,9 @@ def encode(sentences: list[str], model_dir: str, batch_size: int,
     """The vectors of ``sentences`` from the model that ``model_dir`` names
     (a directory, or a name in the Hugging Face cache) on ``device``, by
     the recipe of ``backend``: ``flax`` (``load_encoder``), or ``st`` and
-    ``auto`` (``load_sentence_encoder``: its pooling, and ``Normalize``'s
-    L2 norm floored at 1e-12 where the directory lists it).  Logs the
-    rate."""
+    ``auto`` (``load_sentence_encoder``: its pooling, its ``Dense``
+    modules, and ``Normalize``'s L2 norm floored at 1e-12 where the
+    directory lists it).  Logs the rate."""
     if backend not in BACKENDS:
         raise ValueError(f'text encoder backend {backend!r}: use one of '
                          f'{", ".join(BACKENDS)}')
@@ -589,7 +708,7 @@ def encode(sentences: list[str], model_dir: str, batch_size: int,
     else:
         tokenizer, model, max_length, pipe = load_sentence_encoder(path,
                                                                    device)
-        recipe = {'pooling': pipe.pooling,
+        recipe = {'pooling': pipe.pooling, 'dense': pipe.dense,
                   'norm_floor': 1e-12 if pipe.normalize else None}
     t0 = time.perf_counter()
     out = encode_with(tokenizer, model, max_length, sentences, batch_size,

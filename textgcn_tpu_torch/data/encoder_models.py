@@ -1,5 +1,5 @@
 """The text encoder's transformers in plain PyTorch: BERT, RoBERTa,
-DistilBERT and MPNet, one post-LayerNorm encoder under BERT's
+XLM-RoBERTa, DistilBERT and MPNet, one post-LayerNorm encoder under BERT's
 ``state_dict`` names (without the model prefix and the pooler).
 
 ``bert_name`` maps DistilBERT's and MPNet's checkpoint names onto BERT's
@@ -15,12 +15,14 @@ differ only in these:
 
 * positions: ``0..L-1`` for ``bert`` and ``distilbert`` (DistilBERT's
   learned table, or the sinusoidal one of ``sinusoidal_pos_embds`` when
-  the checkpoint holds none); for ``roberta`` and ``mpnet``
+  the checkpoint holds none); for ``roberta``, ``xlm-roberta`` and
+  ``mpnet``
   ``padding_idx + 1 + k`` for the k-th token that is not padding and
   ``padding_idx`` for padding (transformers'
   ``create_position_ids_from_input_ids``; MPNet's ``padding_idx`` is 1);
-* token types: row 0 of ``token_type_embeddings`` is added for ``bert``
-  and ``roberta`` (one row), none for ``distilbert`` and ``mpnet``;
+* token types: row 0 of ``token_type_embeddings`` is added for ``bert``,
+  ``roberta`` and ``xlm-roberta`` (one row), none for ``distilbert`` and
+  ``mpnet``;
 * ``mpnet``'s ``encoder.relative_attention_bias`` table of 32 buckets
   (max distance 128), whose bias is computed once per length, on the CPU
   with transformers' float32 formula, and added to every layer's scores
@@ -28,8 +30,7 @@ differ only in these:
 * DistilBERT's config names its sizes ``dim``, ``n_layers``, ``n_heads``,
   ``hidden_dim`` and ``activation``, and its LayerNorm eps is 1e-12.
 
-``model_type`` ``xlm-roberta`` is refused by name: its tokenizer is
-SentencePiece, which the port does not read yet.
+``xlm-roberta`` is RoBERTa's architecture under another name.
 """
 
 from __future__ import annotations
@@ -48,20 +49,13 @@ ACTIVATIONS = {
     'gelu_pytorch_tanh': lambda x: F.gelu(x, approximate='tanh'),
     'relu': F.relu,
 }
-FAMILIES = ('bert', 'roberta', 'distilbert', 'mpnet')
-QUEUED = {'xlm-roberta': 'its tokenizer is SentencePiece '
-                         '(sentencepiece.bpe.model), which the port does '
-                         'not read yet'}
+FAMILIES = ('bert', 'roberta', 'xlm-roberta', 'distilbert', 'mpnet')
 
 
 def check_model_type(config: dict) -> str:
     """``config['model_type']`` when the port runs it; raises
     ``NotImplementedError`` naming it otherwise."""
     model_type = config.get('model_type')
-    if model_type in QUEUED:
-        raise NotImplementedError(
-            f'text encoder model_type {model_type!r} is not ported yet: '
-            f'{QUEUED[model_type]}')
     if model_type not in FAMILIES:
         raise NotImplementedError(
             f'text encoder model_type {model_type!r} is not ported yet: '
@@ -225,8 +219,10 @@ class BertEncoder(nn.Module):
                 f'position_embedding_type {kind!r} is not ported yet')
         self.max_positions = config.get(
             'max_position_embeddings', 514 if model_type == 'mpnet' else 512)
-        # RoBERTa's and MPNet's positions start after padding_idx
+        # RoBERTa's, XLM-RoBERTa's and MPNet's positions start after
+        # padding_idx
         self.padding_idx = {'roberta': config.get('pad_token_id', 1),
+                            'xlm-roberta': config.get('pad_token_id', 1),
                             'mpnet': 1}.get(model_type)
         self.max_tokens = self.max_positions - (
             0 if self.padding_idx is None else self.padding_idx + 1)
@@ -240,7 +236,7 @@ class BertEncoder(nn.Module):
             with torch.no_grad():
                 self.embeddings.position_embeddings.weight.copy_(
                     sinusoidal_table(self.max_positions, hidden))
-        self.token_types = model_type in ('bert', 'roberta')
+        self.token_types = model_type in ('bert', 'roberta', 'xlm-roberta')
         if self.token_types:
             self.embeddings.token_type_embeddings = nn.Embedding(
                 config.get('type_vocab_size', 2), hidden)
@@ -256,8 +252,8 @@ class BertEncoder(nn.Module):
     def load_state_dict(self, state, strict: bool = True, **kwargs):
         key = 'embeddings.position_embeddings.weight'
         if self.sinusoidal and key not in state:
-            state = {**state, key: self.embeddings.position_embeddings
-                     .weight.detach().clone()}
+            table = self.embeddings.position_embeddings.weight
+            state = {**state, key: sinusoidal_table(*table.shape)}
         return super().load_state_dict(state, strict=strict, **kwargs)
 
     def position_bias(self, length: int) -> torch.Tensor:

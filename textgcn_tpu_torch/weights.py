@@ -21,8 +21,8 @@ The boosted heads' fitted ensemble is carried across by
 estimator (``tree.pkl``), which the port reads duck-typed, never
 importing scikit-learn.
 
-``bert_state_from_flax`` turns a Flax BERT's, RoBERTa's or DistilBERT's
-parameter tree into the ``state_dict`` of the port's text encoder
+``bert_state_from_flax`` turns a Flax BERT's, RoBERTa's, XLM-RoBERTa's or
+DistilBERT's parameter tree into the ``state_dict`` of the port's text encoder
 (``data/encoder_models.py``).
 """
 
@@ -132,9 +132,10 @@ def forest_from_estimator(est):
 
 def bert_state_from_flax(params: dict) -> dict[str, torch.Tensor]:
     """The ``state_dict`` of the port's text encoder
-    (``data.encoder_models``) from a Flax BERT's, RoBERTa's or
-    DistilBERT's parameter tree of numpy arrays (``FlaxBertModel.params``,
-    ``FlaxRobertaModel.params``, ``FlaxDistilBertModel.params``): Dense
+    (``data.encoder_models``) from a Flax BERT's, RoBERTa's, XLM-RoBERTa's
+    or DistilBERT's parameter tree of numpy arrays (``FlaxBertModel
+    .params``, ``FlaxRobertaModel.params``, ``FlaxXLMRobertaModel.params``,
+    ``FlaxDistilBertModel.params``): Dense
     kernels ``(in, out)`` transposed into ``nn.Linear.weight``, LayerNorm
     ``scale`` as ``weight``, Embed ``embedding`` as ``weight``, DistilBERT's
     names mapped onto BERT's (``bert_name``); the pooler left out.  A
