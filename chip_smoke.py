@@ -263,6 +263,19 @@ Phases, each of which passes or ends the run with a non-zero exit:
    text encoded 768 wide on the card, both caches written with unit rows)
    and over the multilingual MiniLM one (384 wide): K1 exactly ``6 + steps
    x 6 + 6`` each;
+9j3a. flax dir (before 9j3'): phase 9j3's weights written with Flax's
+   layout in ``flax_model.msgpack`` (by ``pack_msgpack``; the card's
+   machine has neither ``flax`` nor ``msgpack``), and a copy sharded in
+   three files with ``flax_model.msgpack.index.json``, each beside the
+   same vocabulary and a ``modules.json`` with CLS pooling: ``read_state``
+   of both equals that of phase 9j3's ``model.safetensors`` bit for bit
+   (the msgpack read timed); 64 texts encoded under ``auto`` on the card
+   against the CPU (1e-4); then ``ltr_linear --load_base --freeze`` for 1
+   epoch on a fresh copy of the cut with ``TEXTGCN_TPU_TEXT_ENCODER``
+   unset over the Flax-only directory: ``auto`` runs the Flax recipe (one
+   warning an encode call; ``modules.json`` unread), K1 exactly ``6 +
+   steps x 6 + 6``, and both caches byte-equal to phase 9j3's ``flax``
+   run's;
 9j4. health check: a probe of the card, and the ``Device backend ready``
    line of phase 9j3's first CLI run;
 9j5. cold_report: a 5,000 x 2,000 ``--sharp --cold 0.2`` set, ``lgcn``
@@ -3356,6 +3369,140 @@ def write_minilm(root: str, seed: int = 0) -> str:
     return out
 
 
+def _msgpack_head(n: int, fix: int | None, limit: int, codes) -> bytes:
+    """The type byte of a msgpack value of size (or value) ``n``: ``fix |
+    n`` up to ``limit``, else the first of ``codes`` ((type, bytes of the
+    size)) wide enough, with the size big-endian."""
+    if fix is not None and n <= limit:
+        return bytes([fix | n])
+    for code, width in codes:
+        if n < 1 << (8 * width):
+            return bytes([code]) + n.to_bytes(width, 'big')
+    raise ValueError(f'msgpack: {n} does not fit')
+
+
+def _pack(obj, out: list):
+    if isinstance(obj, dict):
+        out.append(_msgpack_head(len(obj), 0x80, 15, ((0xde, 2), (0xdf, 4))))
+        for key, value in obj.items():
+            _pack(key, out)
+            _pack(value, out)
+    elif isinstance(obj, (list, tuple)):
+        out.append(_msgpack_head(len(obj), 0x90, 15, ((0xdc, 2), (0xdd, 4))))
+        for value in obj:
+            _pack(value, out)
+    elif isinstance(obj, str):
+        raw = obj.encode()
+        out += [_msgpack_head(len(raw), 0xa0, 31,
+                              ((0xd9, 1), (0xda, 2), (0xdb, 4))), raw]
+    elif isinstance(obj, bytes):
+        out += [_msgpack_head(len(obj), None, 0,
+                              ((0xc4, 1), (0xc5, 2), (0xc6, 4))), obj]
+    elif isinstance(obj, int) and 0 <= obj < 1 << 64:
+        out.append(_msgpack_head(obj, 0, 127, ((0xcc, 1), (0xcd, 2),
+                                               (0xce, 4), (0xcf, 8))))
+    elif isinstance(obj, np.ndarray) and obj.nbytes <= 2 ** 30:
+        # Flax's ext 1; an array over flax.serialization.MAX_CHUNK_SIZE
+        # would be chunked, which this writer does not do
+        payload = pack_msgpack((list(obj.shape), obj.dtype.name,
+                                np.ascontiguousarray(obj).tobytes()))
+        fixext = {1: 0xd4, 2: 0xd5, 4: 0xd6, 8: 0xd7, 16: 0xd8}
+        head = (bytes([fixext[len(payload)]]) if len(payload) in fixext
+                else _msgpack_head(len(payload), None, 0,
+                                   ((0xc7, 1), (0xc8, 2), (0xc9, 4))))
+        out += [head, b'\x01', payload]
+    else:
+        raise TypeError(f'msgpack: cannot pack {type(obj).__name__}')
+
+
+def pack_msgpack(obj) -> bytes:
+    """``obj`` in msgpack as ``flax.serialization.msgpack_serialize``
+    writes a parameter tree: dicts with ``str`` keys, lists and tuples,
+    ``str``, ``bytes``, non-negative ``int`` and numpy arrays (Flax's ext
+    1: ``(shape, dtype name, C-order bytes)``).  The card's machine has
+    neither ``flax`` nor ``msgpack``."""
+    out: list[bytes] = []
+    _pack(obj, out)
+    return b''.join(out)
+
+
+def flax_tree(state: dict[str, np.ndarray]) -> dict:
+    """A BERT ``state_dict`` (``random_weights``) as ``FlaxBertModel``'s
+    parameter tree: Dense kernels ``(in, out)``, LayerNorm ``scale`` and
+    ``bias``, Embed ``embedding``."""
+    tree: dict = {}
+    for name, a in state.items():
+        *path, parent, leaf = name.split('.')
+        if leaf == 'weight':
+            if parent == 'LayerNorm':
+                leaf = 'scale'
+            elif parent.endswith('embeddings'):
+                leaf = 'embedding'
+            else:
+                leaf, a = 'kernel', a.T
+        node = tree
+        for key in (*path, parent):
+            node = node.setdefault(key, {})
+        node[leaf] = np.ascontiguousarray(a, np.float32)
+    return tree
+
+
+FLAX_SHARDS = 3
+
+
+def write_flax_minilm(root: str, where: str, state: dict,
+                      shards: int = 1) -> str:
+    """``write_minilm``'s directory with Flax weights only: ``state``
+    (``random_weights`` of ``write_minilm``'s seed) as ``flax_tree`` in
+    ``flax_model.msgpack``, or in ``shards`` files of ``/``-joined names
+    with ``flax_model.msgpack.index.json``, as ``FlaxPreTrainedModel
+    .save_pretrained`` shards; its vocabulary, ``config.json`` and
+    ``tokenizer_config.json``; and a ``modules.json`` with CLS pooling and
+    ``max_seq_length`` 16, which ``auto`` must not read on such a
+    directory.  The directory is ``root/where/minilm-shaped``: named as
+    ``write_minilm``'s, so the LTR loader names its caches the same."""
+    import shutil
+
+    from textgcn_tpu_torch.data.flax_msgpack import flatten, unflatten
+    src = os.path.join(root, 'minilm-shaped')
+    out = os.path.join(root, where, 'minilm-shaped')
+    os.makedirs(os.path.join(out, '1_Pooling'), exist_ok=True)
+    for name in ('config.json', 'tokenizer_config.json', 'vocab.txt'):
+        shutil.copy(os.path.join(src, name), out)
+    for path, conf in (
+            ('modules.json', [
+                {'idx': 0, 'name': '0', 'path': '',
+                 'type': 'sentence_transformers.models.Transformer'},
+                {'idx': 1, 'name': '1', 'path': '1_Pooling',
+                 'type': 'sentence_transformers.models.Pooling'}]),
+            ('sentence_bert_config.json', {'max_seq_length': 16}),
+            ('1_Pooling/config.json', {
+                'word_embedding_dimension': MINILM['hidden_size'],
+                'pooling_mode_cls_token': True,
+                'pooling_mode_mean_tokens': False})):
+        with open(os.path.join(out, path), 'w') as f:
+            json.dump(conf, f)
+    tree = flax_tree(state)
+    if shards == 1:
+        with open(os.path.join(out, 'flax_model.msgpack'), 'wb') as f:
+            f.write(pack_msgpack(tree))
+        return out
+    flat = flatten(tree)
+    names = list(flat)
+    per = -(-len(names) // shards)
+    weight_map = {}
+    for k in range(shards):
+        part = names[k * per:(k + 1) * per]
+        shard = f'flax_model-{k + 1:05d}-of-{shards:05d}.msgpack'
+        with open(os.path.join(out, shard), 'wb') as f:
+            f.write(pack_msgpack(unflatten({n: flat[n] for n in part})))
+        weight_map.update(dict.fromkeys(part, shard))
+    with open(os.path.join(out, 'flax_model.msgpack.index.json'), 'w') as f:
+        json.dump({'metadata': {'total_size': sum(
+            a.nbytes for a in flat.values())}, 'weight_map': weight_map}, f)
+    return out
+
+
 def health_phase(log_path: str, dev) -> dict:
     """The health check: a probe of the card, and the probe line of a CLI
     run's ``log.log``."""
@@ -3491,6 +3638,131 @@ def encoder_phase(root: str, cut_dir: str, base_ck: str, card: str,
                   f'encoder cache {name}: {v.shape}')
     check(len(caches) == 4, f'encoder: caches {caches}')
     log(f'encoder: caches {caches}')
+    return out
+
+
+FLAX_SENTENCES = 64
+
+
+def flax_dir_phase(root: str, cut_dir: str, base_ck: str, card: str,
+                   dev) -> dict:
+    """A Flax-only encoder directory (``write_flax_minilm``: the weights of
+    ``encoder_phase``'s ``write_minilm`` directory, and a copy sharded in
+    ``FLAX_SHARDS`` files): ``read_state`` of each gives the safetensors
+    directory's tensors bit for bit (the msgpack read timed);
+    ``FLAX_SENTENCES`` of the cut's texts encode under ``auto`` on the card
+    against the CPU (``ENCODE_TOL``); then ``ltr_linear --load_base
+    --freeze`` for 1 epoch on a fresh copy of the cut with
+    ``TEXTGCN_TPU_TEXT_ENCODER`` unset (``auto``) and ``--bert_model`` the
+    Flax-only directory: it encodes by the Flax recipe on the card (the
+    directory's ``modules.json`` unread, one warning a call), K1 launches
+    exactly ``6 + steps x 6 + 6``, and the two caches it writes equal
+    ``encoder_phase``'s (``flax`` over ``model.safetensors``) byte for
+    byte."""
+    import shutil
+
+    from textgcn_tpu_torch.data import encoder, text
+    state = random_weights(MINILM, 0)
+    t0 = time.perf_counter()
+    flax_dir = write_flax_minilm(root, 'flax_only', state)
+    sharded = write_flax_minilm(root, 'flax_sharded', state, FLAX_SHARDS)
+    write_s = time.perf_counter() - t0
+    del state
+    mb = os.path.getsize(os.path.join(flax_dir, 'flax_model.msgpack')) / 1e6
+    t0 = time.perf_counter()
+    got = encoder.read_state(flax_dir)
+    read_s = time.perf_counter() - t0
+    for name, path in (('sharded', sharded),
+                       ('safetensors', os.path.join(root, 'minilm-shaped'))):
+        other = encoder.read_state(path)
+        check(sorted(other) == sorted(got)
+              and all(torch.equal(got[k], other[k]) for k in got),
+              f'flax dir: read_state of the Flax-only directory and of the '
+              f'{name} one differ')
+    del got, other
+    shards = [f for f in os.listdir(sharded) if f.endswith('.msgpack')]
+    check(len(shards) == FLAX_SHARDS and encoder.flax_only(flax_dir)
+          and encoder.flax_only(sharded),
+          f'flax dir: {len(shards)} shards; flax_only '
+          f'{encoder.flax_only(flax_dir)}, {encoder.flax_only(sharded)}')
+    out = {'msgpack_mb': mb, 'read_s': read_s, 'read_mb_per_s': mb / read_s,
+           'write_s': write_s}
+    log(f'flax dir: read_state of flax_model.msgpack ({mb:.1f} MB) '
+        f'{read_s:.3f} s ({mb / read_s:.1f} MB/s on the host), bit-equal '
+        f'to the {FLAX_SHARDS} shards\' and to model.safetensors\'; both '
+        f'directories written in {write_s:.3f} s')
+
+    with open(os.path.join(cut_dir, 'reviews_text.tsv')) as f:
+        next(f)
+        sample = [line.split('\t')[2]
+                  for line, _ in zip(f, range(FLAX_SENTENCES))]
+    on_card = encoder.encode(sample, flax_dir, 64, dev, 'auto')
+    on_cpu = encoder.encode(sample, flax_dir, 64, 'cpu', 'auto')
+    err = float(np.abs(on_card - on_cpu).max())
+    out['card_vs_cpu_max_abs_err'] = err
+    log(f'flax dir: {len(sample)} texts under auto on the card against the '
+        f'CPU: max abs err {err:.3e}')
+    check(on_card.shape == (len(sample), MINILM['hidden_size'])
+          and err <= ENCODE_TOL, f'flax dir: card vs CPU {err}')
+
+    data_dir = os.path.join(root, 's1_flax')
+    os.makedirs(data_dir, exist_ok=True)
+    for name in ('train.tsv', 'test.tsv', 'meta_synced.tsv',
+                 'reviews_text.tsv'):
+        shutil.copy(os.path.join(cut_dir, name), data_dir)
+    calls = []
+    real_encode, loader = encoder.encode, text.load_ltr_data
+
+    def counted(sentences, *args, **kwargs):
+        t = time.perf_counter()
+        vectors = real_encode(sentences, *args, **kwargs)
+        calls.append((len(sentences), time.perf_counter() - t))
+        return vectors
+
+    encoder.encode = counted
+    text.load_ltr_data = getattr(loader, 'real', loader)
+    old_env = os.environ.pop(text.ENCODER_ENV, None)
+    argv = ['--model', 'ltr_linear', '--load_base', base_ck, '--freeze',
+            '--epochs', '1', '--evaluate_every', '1', '--bert_model',
+            flax_dir, '--emb_size', str(D), '--n_layers', str(LAYERS),
+            '--batch_size', str(BATCH), '-k', *map(str, KS),
+            '--uid', 'enc-flax-only']
+    try:
+        reset_counts()
+        t0 = time.perf_counter()
+        trainer, run_dir = cli_run(data_dir, argv, 'cuda')
+        cli_s = time.perf_counter() - t0
+        launches = counts()
+    finally:
+        encoder.encode, text.load_ltr_data = real_encode, loader
+        if old_env is not None:
+            os.environ[text.ENCODER_ENV] = old_env
+    steps = trainer.model.num_batches(BATCH)
+    want = dict.fromkeys(_wrappers(), 0)
+    want['spmm_dropout'] = 2 * LAYERS * (steps + 2)
+    check(launches == want, f'flax dir: launches {launches}, expected '
+          f'{want} (base eval + steps + eval, forward only)')
+    n = sum(c[0] for c in calls)
+    s = sum(c[1] for c in calls)
+    with open(os.path.join(run_dir, 'log.log')) as f:
+        warned = f.read().count('auto encodes by the Flax recipe')
+    check(len(calls) == 2 and warned == 2,
+          f'flax dir: {len(calls)} encode calls, {warned} warnings')
+    ref = os.path.join(root, 's1_enc', 'embeddings')
+    new = os.path.join(data_dir, 'embeddings')
+    caches = sorted(os.listdir(new))
+    check(len(caches) == 4 and caches == sorted(os.listdir(ref))
+          and all(same_files(os.path.join(new, c), os.path.join(ref, c))
+                  for c in caches),
+          f'flax dir: caches {caches} differ from the flax run\'s '
+          f'{sorted(os.listdir(ref))}')
+    out.update(launches=launches['spmm_dropout'], encoded=n, encode_s=s,
+               sentences_per_s=n / s, cli_s=cli_s)
+    log(f'flax dir: ltr_linear under auto on the {trainer.data.n_users}-user '
+        f'cut encoded {n} sentences through the Flax-only directory in '
+        f'{s:.3f} s ({n / s:.1f} sentences/s on {card}); cli.main took '
+        f'{cli_s:.3f} s; K1 {launches["spmm_dropout"]} launches; caches '
+        f'{caches} byte-equal to the flax run\'s from model.safetensors')
     return out
 
 
@@ -4323,6 +4595,11 @@ def main():
                                 dev)
         log(f'phase encoder: {time.perf_counter() - t:.3f} s')
         t = time.perf_counter()
+        flax_dir = flax_dir_phase(root, boosted['data_dir'],
+                                  os.path.join(root, 'boost_base.pkl'), card,
+                                  dev)
+        log(f'phase flax dir: {time.perf_counter() - t:.3f} s')
+        t = time.perf_counter()
         families = encoder_families_phase(
             root, boosted['data_dir'], os.path.join(root, 'boost_base.pkl'),
             card, dev)
@@ -4362,6 +4639,8 @@ def main():
                    'spmm_dropout': encoded['encode_launches']},
                'train_ltr_linear_encoder_cached': {
                    'spmm_dropout': encoded['cached_launches']},
+               'train_ltr_linear_flax_only_auto': {
+                   'spmm_dropout': flax_dir['launches']},
                'train_ltr_linear_st_mpnet': {
                    'spmm_dropout':
                    families['ltr_linear_st_mpnet']['launches']},
@@ -4440,8 +4719,10 @@ def main():
         # resumed lgcn --mesh 1x1 run's latest_checkpoint.orbax on one card;
         # serve lgcn --approx_topk 0.95; train ltr_linear --freeze on the
         # 4,096-user cut as the encoder writes its caches, then from them
-        # (forward only), and again with the all-mpnet-base-v2-shaped
-        # and the paraphrase-multilingual-MiniLM-L12-v2-shaped encoders
+        # (forward only), again under auto through a Flax-only
+        # directory of the same weights, and with the
+        # all-mpnet-base-v2-shaped and the
+        # paraphrase-multilingual-MiniLM-L12-v2-shaped encoders
         # under TEXTGCN_TPU_TEXT_ENCODER=st; cold_report (the
         # load's evaluation and one ranking pass); sem_cold_sweep --quick
         # --rows 2 (lgcn and two kg runs, each trained and reported)
@@ -4571,6 +4852,7 @@ def main():
                     'boosted': boosted, 'dcp': dcp,
                     'trace': traced, 'quality': quality,
                     'approx_serve': approx, 'encoder': encoded,
+                    'flax_dir': flax_dir,
                     'encoder_families': families, 'tools': tools,
                     'loader': loader,
                     'health_check': health, 'cold_report': cold,

@@ -26,6 +26,7 @@ import optax
 import pytest
 import torch
 
+from helpers.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 from textgcn_tpu.config import Config as JaxConfig
 from textgcn_tpu.data.core import load_interactions as jax_load
 from textgcn_tpu.models.adv_sampling import AdvSamplModel as JaxAdv

@@ -37,6 +37,7 @@ import pytest
 import torch
 import torch.multiprocessing as mp
 
+from helpers.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 from test_torch_adv import (PAIRS, PAIRS_2, _draws, _jax_loss_given,
                             _models, _t, synthetic_dir)  # noqa: F401
 from test_torch_concat import NAMES, _pair, dummy_copy, ltr_data  # noqa: F401

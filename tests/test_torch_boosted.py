@@ -36,6 +36,7 @@ import pytest
 import torch
 from sklearn.ensemble import GradientBoostingRegressor
 
+from helpers.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 from textgcn_tpu_torch import config as tconfig
 from textgcn_tpu_torch.models import ltr_boosted
 from textgcn_tpu_torch.ops import trees

@@ -16,6 +16,7 @@ import sys
 import numpy as np
 import pytest
 
+from helpers.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 from textgcn_tpu_torch import config as tconfig
 from textgcn_tpu_torch.tools import cold_report
 from textgcn_tpu_torch.tools.make_synthetic import generate

@@ -23,6 +23,7 @@ import pytest
 import torch
 import torch.nn.functional as F
 
+from helpers.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 from test_torch_ltr import (_base_checkpoint, _batch, _configs,
                             _jax_hash_weights)
 from textgcn_tpu.data import text as jax_text

@@ -34,6 +34,7 @@ import pytest
 import torch
 import torch.multiprocessing as mp
 
+from helpers.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 from test_torch_mesh_conv import HELPERS, _join
 from textgcn_tpu_torch import config as tconfig
 from textgcn_tpu_torch.cli import main as port_main
@@ -52,14 +53,6 @@ def _close_port_logger():
     for h in list(logger.handlers):
         h.close()
     logger.handlers.clear()
-
-
-@pytest.fixture(autouse=True)
-def _one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _argv(data):

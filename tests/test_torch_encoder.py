@@ -16,7 +16,8 @@ that holds ``data/dummy``'s words, letters and their ``##`` pieces.
 * ``encode`` equals ``flax_encode`` within 1e-5 absolute and cosine
   1 - 1e-6, from ``model.safetensors`` and from ``pytorch_model.bin``;
   the Flax parameters carried by ``weights.bert_state_from_flax`` give the
-  same vectors.
+  same vectors, and ``read_state`` reads them from ``flax_model.msgpack``
+  bit for bit.
 * ``load_ltr_data`` on a copy of ``data/dummy`` without ``embeddings/``,
   under ``TEXTGCN_TPU_TEXT_ENCODER=flax`` and the tiny model, writes the
   JAX loader's ``.npy`` (1e-5) and ``.meta`` (equal).
@@ -37,6 +38,7 @@ import torch
 from hypothesis import given, settings
 from hypothesis import strategies as st
 
+from helpers.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 from textgcn_tpu_torch.data import encoder
 from textgcn_tpu_torch.data import text as port_text
 from textgcn_tpu_torch.weights import bert_state_from_flax
@@ -244,8 +246,9 @@ def test_both_checkpoint_formats_read_the_same_state(tiny_berts, tmp_path):
 
 def test_flax_parameters_give_the_same_vectors(tmp_path, tiny_berts):
     """Random Flax weights (no torch checkpoint) in both packages: the
-    directory holds ``flax_model.msgpack`` only, which ``read_state``
-    refuses, and ``bert_state_from_flax`` carries the parameters across."""
+    directory holds ``flax_model.msgpack`` only, which ``read_state`` reads
+    as ``bert_state_from_flax`` carries the parameters across, bit for bit
+    (the reader itself: ``tests/test_torch_flax_weights.py``)."""
     import jax
     from transformers import BertConfig, FlaxBertModel
     d = str(tmp_path / 'flax_only')
@@ -256,15 +259,18 @@ def test_flax_parameters_give_the_same_vectors(tmp_path, tiny_berts):
     cfg = BertConfig.from_pretrained(tiny_berts['bin'])
     FlaxBertModel(cfg, seed=3).save_pretrained(d)
     assert os.listdir(d).count('flax_model.msgpack') == 1
-    with pytest.raises(NotImplementedError, match='Flax weights only'):
-        encoder.read_state(d)
     params = jax.tree.map(np.asarray,
                           FlaxBertModel.from_pretrained(d).params)
     state = bert_state_from_flax(params)
     assert sorted(state) == sorted(encoder.read_state(tiny_berts['bin']))
+    read = encoder.read_state(d)
+    assert sorted(read) == sorted(state)
+    assert all(torch.equal(read[k], state[k]) for k in state)
     tok, model, max_length = encoder.load_encoder(d, 'cpu', state=state)
     assert max_length == 32
     got = encoder.encode_with(tok, model, max_length, SENTENCES, 4)
+    np.testing.assert_array_equal(encoder.encode(SENTENCES, d, 4, 'cpu'),
+                                  got)
     _assert_close(got, _flax_encode(SENTENCES, d, 4))
 
 

@@ -43,6 +43,7 @@ import torch
 from hypothesis import given, settings
 from hypothesis import strategies as st
 
+from helpers.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 from textgcn_tpu_torch.data import bpe, encoder
 from textgcn_tpu_torch.weights import bert_state_from_flax
 

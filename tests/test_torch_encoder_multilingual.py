@@ -37,6 +37,7 @@ import numpy as np
 import pytest
 import torch
 
+from helpers.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 from test_torch_tokenizer_json import (SPECIALS, _bert_like, save_fast,
                                        xlmr_unigram)
 from textgcn_tpu_torch.data import encoder

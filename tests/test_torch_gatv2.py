@@ -19,6 +19,7 @@ import pytest
 import torch
 
 from helpers.torch_native import ensure_jax_native
+from helpers.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 from textgcn_tpu import native
 from textgcn_tpu.models.conv import _attention_direction, _leaky
 from textgcn_tpu.ops.pallas_spmm import PallasGraphOp

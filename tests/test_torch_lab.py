@@ -22,6 +22,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 
 from helpers.torch_native import ensure_jax_native  # noqa: E402
+from helpers.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 from textgcn_tpu import native  # noqa: E402
 from textgcn_tpu.ops import pallas_spmm  # noqa: E402
 from textgcn_tpu_torch.tools import gather_lab as tgl  # noqa: E402

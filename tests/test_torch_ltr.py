@@ -28,6 +28,7 @@ import pandas as pd
 import pytest
 import torch
 
+from helpers.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 from textgcn_tpu.config import Config as JaxConfig
 from textgcn_tpu.config import warn_footguns as jax_warn_footguns
 from textgcn_tpu.data import text as jax_text

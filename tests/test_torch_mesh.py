@@ -31,6 +31,7 @@ import torch.distributed as dist
 import torch.multiprocessing as mp
 
 from helpers.torch_native import ensure_jax_native
+from helpers.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 from textgcn_tpu import native
 from textgcn_tpu.config import Config as JaxConfig
 from textgcn_tpu.data.core import load_interactions as jax_load

@@ -38,6 +38,7 @@ import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
 
+from helpers.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 from test_torch_adv import (PAIRS, PAIRS_2, _draws, _jax_loss_given, _models,
                             _t)
 from test_torch_mesh_conv import HELPERS, PAD, SPAWN_TIMEOUT, _join

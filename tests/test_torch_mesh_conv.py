@@ -38,6 +38,7 @@ import pytest
 import torch
 import torch.multiprocessing as mp
 
+from helpers.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 from textgcn_tpu.config import Config as JaxConfig
 from textgcn_tpu.data.core import load_interactions as jax_load
 from textgcn_tpu.models.conv import ConvModel as JaxConvModel

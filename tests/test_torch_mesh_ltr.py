@@ -38,6 +38,7 @@ import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
 
+from helpers.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 from test_torch_ltr import _base_checkpoint, _jax_hash_weights
 from test_torch_mesh_conv import HELPERS, PAD, PAIRS, SPAWN_TIMEOUT, _join
 from textgcn_tpu.config import Config as JaxConfig

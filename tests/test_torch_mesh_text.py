@@ -42,6 +42,7 @@ import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
 
+from helpers.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 from test_torch_ltr import _base_checkpoint, _batch, _jax_hash_weights
 from test_torch_mesh_conv import HELPERS, PAD, SPAWN_TIMEOUT, _join
 from test_torch_mesh_ltr import _assert_same_topk

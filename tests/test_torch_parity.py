@@ -15,6 +15,7 @@ import jax
 import jax.numpy as jnp
 import optax
 
+from helpers.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 from textgcn_tpu.config import Config
 from textgcn_tpu.models.lightgcn import LightGCN
 

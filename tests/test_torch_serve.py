@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+from helpers.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 from textgcn_tpu.ops import metrics as jax_metrics
 from textgcn_tpu.ops.propagate import propagate_rest as jax_rest
 from textgcn_tpu.ops.propagate import representation as jax_repr

@@ -18,6 +18,7 @@ import sys
 
 import pytest
 
+from helpers.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 from textgcn_tpu_torch.tools import make_synthetic as port_tool
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

@@ -22,6 +22,7 @@ import pandas as pd
 import pytest
 import torch
 
+from helpers.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 from test_torch_ltr import (_base_checkpoint, _batch, _configs,
                             _jax_hash_weights, _write_edge_case_data)
 from textgcn_tpu.data import text as jax_text

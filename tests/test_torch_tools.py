@@ -20,6 +20,7 @@ import types
 
 import pytest
 
+from helpers.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 from textgcn_tpu_torch.tools import conv_quality_report as port_report
 from textgcn_tpu_torch.tools import make_dummy as port_dummy
 from textgcn_tpu_torch.tools import sem_cold_sweep as port_sweep

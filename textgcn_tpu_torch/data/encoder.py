@@ -46,13 +46,21 @@ tokenizers' ids from the vocabulary files:
   ``merges.txt`` (``roberta``).
 
 The models are in ``encoder_models.py``, what the tokenizers share in
-``tokenizing.py``.  ``read_state`` reads
-``model.safetensors`` with numpy (F32, F16, BF16), else
-``pytorch_model.bin`` through ``torch.load(weights_only=True)``; keys
+``tokenizing.py``.  ``read_state`` reads the
+weights in the order of each recipe's library (``WEIGHT_FILES``):
+``flax`` as ``FlaxAutoModel`` does, ``flax_model.msgpack`` (or its
+sharded ``.index.json``; ``flax_msgpack`` decodes them) first, then
+torch's files; ``st`` as ``AutoModel`` does, ``model.safetensors`` (read
+with numpy: F32, F16, BF16), its index, ``pytorch_model.bin`` (through
+``torch.load(weights_only=True)``), its index, and a directory with Flax
+weights only is refused with transformers' reason.  Torch keys are taken
 with or without the family's prefix (``bert.``, ``distilbert.``,
-``roberta.``, ``mpnet.``), the pooler and any head ignored.  A Flax-only
-directory is refused (``weights.bert_state_from_flax`` converts a Flax
-tree in code).  ``resolve_model_dir`` takes ``--bert_model`` as a local
+``roberta.``, ``mpnet.``), a Flax tree with or without its base model's
+key; the pooler and any head are ignored.  Under ``auto`` a directory
+whose transformer has no torch weights but whose model directory has
+Flax ones runs the ``flax`` recipe, as the JAX package's ``auto`` does
+when Sentence Transformers fails on it (``encode``).
+``resolve_model_dir`` takes ``--bert_model`` as a local
 directory, or a name looked up in the Hugging Face cache
 (``$HF_HUB_CACHE``, else ``$HF_HOME/hub``, else
 ``~/.cache/huggingface/hub``: ``models--<org>--<name>/snapshots/*/``);
@@ -404,27 +412,99 @@ _RENAMES = (('LayerNorm.gamma', 'LayerNorm.weight'),
             ('LayerNorm.beta', 'LayerNorm.bias'))
 _PREFIXES = ('bert.', 'distilbert.', 'roberta.', 'mpnet.')
 _PARTS = ('embeddings.', 'encoder.', 'transformer.')
+# the base model's key in a Flax tree saved by a model with a head
+_FLAX_PREFIXES = ('bert', 'roberta', 'distilbert')
+FLAX_FILES = ('flax_model.msgpack', 'flax_model.msgpack.index.json')
+TORCH_FILES = ('model.safetensors', 'model.safetensors.index.json',
+               'pytorch_model.bin', 'pytorch_model.bin.index.json')
+# the files each recipe's library reads, in its order: FlaxAutoModel (its
+# Flax files, model.safetensors, then with from_pt=True pytorch_model.bin
+# and its index; it refuses a sharded model.safetensors, which the port
+# reads last), and Sentence Transformers' AutoModel
+WEIGHT_FILES = {
+    'flax': (*FLAX_FILES, 'model.safetensors', 'pytorch_model.bin',
+             'pytorch_model.bin.index.json', 'model.safetensors.index.json'),
+    'st': TORCH_FILES,
+}
 
 
-def read_state(model_dir: str) -> dict[str, torch.Tensor]:
-    """The encoder's ``state_dict`` from ``model.safetensors`` or
-    ``pytorch_model.bin``: the family's prefix dropped, the pooler,
-    ``position_ids``/``token_type_ids`` buffers and any head left out, old
-    ``gamma``/``beta`` names renamed, and DistilBERT's and MPNet's layer
-    names mapped onto BERT's (``encoder_models.bert_name``)."""
-    st = os.path.join(model_dir, 'model.safetensors')
-    pt = os.path.join(model_dir, 'pytorch_model.bin')
-    if os.path.exists(st):
-        raw = read_safetensors(st)
-    elif os.path.exists(pt):
-        raw = torch.load(pt, map_location='cpu', weights_only=True)
-    elif os.path.exists(os.path.join(model_dir, 'flax_model.msgpack')):
-        raise NotImplementedError(
-            f'{model_dir} holds Flax weights only (flax_model.msgpack): the '
-            'port reads model.safetensors or pytorch_model.bin')
+def weights_file(model_dir: str, backend: str) -> str | None:
+    """The first of ``WEIGHT_FILES[backend]`` in ``model_dir``, or None."""
+    for name in WEIGHT_FILES[backend]:
+        if os.path.exists(os.path.join(model_dir, name)):
+            return name
+    return None
+
+
+def _read_torch_file(path: str) -> dict[str, torch.Tensor]:
+    if path.endswith('.safetensors'):
+        return read_safetensors(path)
+    return torch.load(path, map_location='cpu', weights_only=True)
+
+
+def read_index(path: str, read_shard) -> dict:
+    """The tensors of a sharded checkpoint: each shard that the index's
+    ``weight_map`` names read once with ``read_shard``, and each name taken
+    from its shard."""
+    with open(path, encoding='utf-8') as f:
+        weight_map = json.load(f)['weight_map']
+    where = os.path.dirname(path)
+    shards = {s: read_shard(os.path.join(where, s))
+              for s in dict.fromkeys(weight_map.values())}
+    out = {}
+    for name, shard in weight_map.items():
+        if name not in shards[shard]:
+            raise ValueError(f'{path}: {name} is not in its shard {shard}')
+        out[name] = shards[shard][name]
+    return out
+
+
+def read_flax_state(path: str) -> dict[str, torch.Tensor]:
+    """The encoder's ``state_dict`` from a ``flax_model.msgpack`` or its
+    ``.index.json`` (shards of ``/``-joined names), read by ``flax_msgpack``:
+    the base model's key dropped where a model with a head saved the tree,
+    as ``FlaxPreTrainedModel.from_pretrained`` does, then
+    ``weights.bert_state_from_flax``."""
+    from ..weights import bert_state_from_flax
+    from .flax_msgpack import flatten, read_flax_file, unflatten
+    if path.endswith('.json'):
+        tree = unflatten(read_index(path, lambda shard: flatten(
+            read_flax_file(shard))))
     else:
-        raise FileNotFoundError(f'no model.safetensors or pytorch_model.bin '
-                                f'in {model_dir}')
+        tree = read_flax_file(path)
+    for prefix in _FLAX_PREFIXES:
+        if prefix in tree and 'embeddings' not in tree:
+            tree = tree[prefix]
+            break
+    return bert_state_from_flax(tree)
+
+
+def read_state(model_dir: str, backend: str = 'flax'
+               ) -> dict[str, torch.Tensor]:
+    """The encoder's ``state_dict`` from the first file of
+    ``WEIGHT_FILES[backend]`` in ``model_dir``: Flax's (``read_flax_state``)
+    or torch's, a single file or sharded (``read_index``); of torch's the
+    family's prefix dropped, the pooler, ``position_ids``/
+    ``token_type_ids`` buffers and any head left out, old ``gamma``/
+    ``beta`` names renamed, and DistilBERT's and MPNet's layer names mapped
+    onto BERT's (``encoder_models.bert_name``).  ``st`` refuses a
+    directory with Flax weights only, with transformers' reason."""
+    name = weights_file(model_dir, backend)
+    if name is None:
+        if weights_file(model_dir, 'flax'):
+            raise OSError(
+                f'Error no file named pytorch_model.bin found in directory '
+                f'{model_dir} but there is a file for Flax weights. Use '
+                '`from_flax=True` to load this model from those weights. '
+                '(Sentence Transformers cannot load it; '
+                'TEXTGCN_TPU_TEXT_ENCODER=flax or auto reads it)')
+        raise FileNotFoundError(f'none of {", ".join(WEIGHT_FILES[backend])}'
+                                f' in {model_dir}')
+    path = os.path.join(model_dir, name)
+    if name in FLAX_FILES:
+        return read_flax_state(path)
+    raw = (read_index(path, _read_torch_file) if name.endswith('.json')
+           else _read_torch_file(path))
     state = {}
     for name, t in raw.items():
         for prefix in _PREFIXES:
@@ -558,7 +638,8 @@ def read_pipeline(model_dir: str) -> SentencePipeline:
 # ---------------------------------------------------------------------------
 # loading and encoding
 
-def _model_and_tokenizer(model_dir: str, device, state: dict | None):
+def _model_and_tokenizer(model_dir: str, device, state: dict | None,
+                         backend: str):
     config = read_json(os.path.join(model_dir, 'config.json'))
     if not config:
         raise FileNotFoundError(f'no config.json in {model_dir}')
@@ -566,8 +647,9 @@ def _model_and_tokenizer(model_dir: str, device, state: dict | None):
     with torch.device('meta'):
         model = BertEncoder(config)
     tokenizer = load_tokenizer(model_dir, model.model_type)
-    model.load_state_dict(read_state(model_dir) if state is None else state,
-                          assign=True)
+    if state is None:
+        state = read_state(model_dir, backend)
+    model.load_state_dict(state, assign=True)
     return tokenizer, model.to(device).eval()
 
 
@@ -583,7 +665,7 @@ def load_encoder(model_dir: str, device, state: dict | None = None):
             f'{model_dir}: mpnet has no Flax model in transformers, so the '
             "JAX package's flax backend cannot run it: use "
             'TEXTGCN_TPU_TEXT_ENCODER=st')
-    tokenizer, model = _model_and_tokenizer(model_dir, device, state)
+    tokenizer, model = _model_and_tokenizer(model_dir, device, state, 'flax')
     max_length = min(tokenizer.max_length(), model.max_positions,
                      model.max_tokens)
     return tokenizer, model, max_length
@@ -597,7 +679,7 @@ def load_sentence_encoder(model_dir: str, device):
     place)."""
     pipe = read_pipeline(model_dir)
     tokenizer, model = _model_and_tokenizer(pipe.transformer_dir, device,
-                                            None)
+                                            None, 'st')
     tokenizer.lower = pipe.do_lower_case
     if pipe.max_seq_length is not None:
         max_length = pipe.max_seq_length
@@ -689,6 +771,16 @@ def encode_with(tokenizer, model, max_length: int, sentences: list[str],
 BACKENDS = ('flax', 'st', 'auto')
 
 
+def flax_only(model_dir: str) -> bool:
+    """Whether Sentence Transformers fails on ``model_dir`` for want of
+    torch weights (none of ``TORCH_FILES`` in its transformer's directory)
+    while ``FlaxAutoModel`` reads it (``FLAX_FILES``)."""
+    if weights_file(model_dir, 'flax') not in FLAX_FILES:
+        return False
+    return weights_file(read_pipeline(model_dir).transformer_dir,
+                        'st') is None
+
+
 def encode(sentences: list[str], model_dir: str, batch_size: int,
            device, backend: str = 'flax') -> np.ndarray:
     """The vectors of ``sentences`` from the model that ``model_dir`` names
@@ -696,12 +788,22 @@ def encode(sentences: list[str], model_dir: str, batch_size: int,
     the recipe of ``backend``: ``flax`` (``load_encoder``), or ``st`` and
     ``auto`` (``load_sentence_encoder``: its pooling, its ``Dense``
     modules, and ``Normalize``'s L2 norm floored at 1e-12 where the
-    directory lists it).  Logs the rate."""
+    directory lists it).  ``auto`` runs ``flax`` where the transformer's
+    directory holds no torch weights and the model directory Flax ones
+    (``flax_only``), with one warning.  Logs the rate."""
     if backend not in BACKENDS:
         raise ValueError(f'text encoder backend {backend!r}: use one of '
                          f'{", ".join(BACKENDS)}')
     device = torch.device(device)
     path = resolve_model_dir(model_dir)
+    if backend == 'auto' and flax_only(path):
+        log.warning(
+            '%s holds no PyTorch weights (%s) but Flax weights (%s): '
+            'Sentence Transformers cannot load it, so auto encodes by the '
+            "Flax recipe, as the JAX package's auto does after Sentence "
+            'Transformers fails (its modules.json is not read)', path,
+            ', '.join(TORCH_FILES), weights_file(path, 'flax'))
+        backend = 'flax'
     if backend == 'flax':
         tokenizer, model, max_length = load_encoder(path, device)
         recipe = {}

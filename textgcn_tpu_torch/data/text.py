@@ -26,16 +26,19 @@ Encoders (``TEXTGCN_TPU_TEXT_ENCODER``), used when no cache fits:
 
 * ``stub``: the JAX package's deterministic hash-seeded unit vectors, bit
   for bit;
-* ``flax``: the port's encoder (``encoder.py``: BERT, DistilBERT or
-  RoBERTa) over ``--bert_model`` (a local directory, or a name in the
-  Hugging Face cache) on the entry point's device, by the JAX package's
-  Flax recipe (token mean, L2 norm, 512 tokens at most);
+* ``flax``: the port's encoder (``encoder.py``: BERT, DistilBERT,
+  RoBERTa or XLM-RoBERTa) over ``--bert_model`` (a local directory, or a
+  name in the Hugging Face cache; Flax weights read first, as
+  ``FlaxAutoModel`` reads them) on the entry point's device, by the JAX
+  package's Flax recipe (token mean, L2 norm, 512 tokens at most);
 * ``st`` and ``auto`` (the default): the same encoders, MPNet too, with
   Sentence Transformers' semantics read from the directory (its modules,
   pooling, ``Normalize`` and ``max_seq_length``), which the JAX package's
   ``auto`` reaches first wherever sentence-transformers is installed.
-  ``auto`` does not fall back to Flax or to the stub, as the JAX
-  package's cascade does: it raises.
+  On a directory with Flax weights only (``flax_model.msgpack`` or its
+  shards), where Sentence Transformers fails, ``auto`` runs the Flax
+  recipe, as the JAX package's cascade does next (``encoder.flax_only``).
+  Any other failure raises: ``auto`` does not fall back to the stub.
 """
 
 from __future__ import annotations
