@@ -87,12 +87,21 @@ Phases, each of which passes or ends the run with a non-zero exit:
 7b. approx serve: S1 served again with ``--approx_topk 0.95`` (serving
    mode), on one card (12 K1 launches) and with ``--mesh 1x1`` (12 K2
    launches; the single card's ``predictions.tsv`` byte for byte and its
-   metrics): the first batch's served top-40 is the float32 scores
-   rounded to bfloat16, masked, top-k with ties to the lower index,
-   computed on the card; every exact top-40 item is served or tied in
-   bfloat16 with the 40th served value, the mean top-40 recall against
-   phase 7 is at least 0.95 (the per-user minimum logged), and a batch's
-   retrieval is timed in both modes (``approx_phase``);
+   metrics); for the first 4,096 users: the served top-40 is the float32
+   scores rounded to bfloat16, masked, top-k with ties to the lower
+   index, computed on the card, each exact top-40 item is served or tied
+   in bfloat16 with the 40th served value, and the mean top-40 recall
+   against phase 7 is at least 0.95 (the per-user minimum logged); a
+   batch's retrieval is timed in both modes (``approx_phase``);
+7c. jax runs: phase 7's pickle written again as an Orbax directory
+   (``write_orbax_dir``: OCDBT and zarr v2 in 4 row shards, as a TPU
+   v5e-4 run of the JAX package saves it) and served through
+   ``cli.main --ckpt_backend orbax --load``: the host read timed (MB/s)
+   and bit-equal, K1 exactly 12 launches, ``predictions.tsv`` equal to
+   phase 7's byte for byte; then the committed runs that the JAX package
+   wrote (``tests/fixtures/jax_runs``: ``lgcn`` saved by 2 processes x 2
+   devices, ``gat``, ``gbdt``'s ``tree.pkl``) served on the card and the
+   CPU on ``data/dummy``, equal (``jax_runs_phase``);
 8. train lgcn: S1 trained through ``cli.main`` for 2 epochs (batch 2048,
    dropout 0.4, eval every epoch): K1 launches exactly ``steps x 12 + 2
    evals x 6`` (6 forward and 6 backward a step), the loss sums are
@@ -321,6 +330,7 @@ from __future__ import annotations
 import ast
 import csv
 import copy
+import itertools
 import json
 import os
 import pickle
@@ -946,9 +956,11 @@ def serve(data_dir: str, uid: str, argv_extra: list[str], platform: str,
                               *argv_extra], platform)
 
 
-def read_predictions(path: str):
+def read_predictions(path: str, limit: int | None = None):
+    """The rows of a ``predictions.tsv`` (the first ``limit``)."""
     with open(path, newline='') as f:
-        rows = list(csv.reader(f, delimiter='\t'))
+        rows = list(itertools.islice(csv.reader(f, delimiter='\t'),
+                                     None if limit is None else limit + 1))
     check(rows[0] == ['user_id', 'y_pred', 'scores'],
           f'predictions.tsv header {rows[0]}')
     # scores may hold -inf (masked items), which literal_eval refuses
@@ -3148,19 +3160,21 @@ def mesh_slice_phase(data_dir: str, trained: dict, probes: dict, dev,
 # and cold_report
 
 APPROX = 0.95
+APPROX_CHECK_USERS = 4096    # users whose served top-k approx_phase checks
 
 
 def approx_phase(data_dir: str, ck: str, exact_seconds: float) -> dict:
     """S1 served with ``--approx_topk 0.95`` through ``cli.main``, on one
     card (12 K1 launches) and with ``--mesh 1x1`` (12 K2 launches, the
     single card's ``predictions.tsv`` byte for byte and its metrics).
-    Every user's served top-40 (items and 4-decimal values) equals the
-    float32 scores rounded to bfloat16, masked, top-k with ties to the
-    lower index, computed here on the card a batch at a time; against
-    phase 7's exact serve, every user's exact top-40 item is served or
-    tied in bfloat16 with the 40th served value, and the mean top-40 recall is at least
-    0.95 (the per-user minimum is logged: bfloat16 ties at the 40th place
-    swap items).  One batch's retrieval is timed in both modes."""
+    For the first ``APPROX_CHECK_USERS`` users: the served top-40 (items
+    and 4-decimal values) equals the float32 scores rounded to bfloat16,
+    masked, top-k with ties to the lower index, computed here on the card
+    a batch at a time; each exact top-40 item (phase 7's serve) is served
+    or tied in bfloat16 with the 40th served value; the mean top-40
+    recall against phase 7 is at least 0.95 (the per-user minimum is
+    logged: bfloat16 ties at the 40th place swap items).  One batch's
+    retrieval is timed in both modes."""
     from textgcn_tpu_torch.ops.retrieval import (APPROX_TOPK_ENV,
                                                  catalog_scores,
                                                  mask_train_items,
@@ -3204,11 +3218,12 @@ def approx_phase(data_dir: str, ck: str, exact_seconds: float) -> dict:
               f'{v}')
 
     model, data = single.model, single.data
+    checked = min(data.n_users, APPROX_CHECK_USERS)
     preds = read_predictions(os.path.join(runs['single'][1],
-                                          'predictions.tsv'))
+                                          'predictions.tsv'), checked)
     exact = read_predictions(os.path.join(
         os.path.dirname(data_dir), 'runs', os.path.basename(data_dir),
-        'smoke', 'predictions.tsv'))
+        'smoke', 'predictions.tsv'), checked)
     k, n = max(KS), data.n_items
     index = {ext: i for i, ext in data.item_id_map.items()}
     served_i = np.array([[index[e] for e in p[1]] for p in preds])
@@ -3217,8 +3232,8 @@ def approx_phase(data_dir: str, ck: str, exact_seconds: float) -> dict:
     same = tied = True
     with torch.no_grad():
         ur, ir = model.scoring_reprs()
-        for start in range(0, data.n_users, BATCH):
-            stop = min(start + BATCH, data.n_users)
+        for start in range(0, checked, BATCH):
+            stop = min(start + BATCH, checked)
             users = torch.arange(start, stop, device=model.device)
             scores = mask_train_items(
                 catalog_scores(ur[users], ir[:n]).to(torch.bfloat16),
@@ -3237,6 +3252,7 @@ def approx_phase(data_dir: str, ck: str, exact_seconds: float) -> dict:
             tied &= bool(held.all())
     check(same, f'approx serve: a user\'s served top-{k} is not the '
           'bfloat16-rounded float32 scores\' top-k')
+    out['checked_users'] = checked
     recall = np.array([len(set(a[1]) & set(e[1])) / k
                        for a, e in zip(preds, exact)])
     out.update(recall_mean=float(recall.mean()),
@@ -3247,8 +3263,8 @@ def approx_phase(data_dir: str, ck: str, exact_seconds: float) -> dict:
         f'{len(recall)} users: mean {out["recall_mean"]:.6f}, min '
         f'{out["recall_min"]:.4f}, {out["share_below_target"]:.6f} of the '
         f'users below {APPROX}, {out["share_exact"]:.4f} identical sets; '
-        f'every user\'s exact items served or tied in bfloat16 at the '
-        f'{k}th place: {tied}')
+        f'their exact items served or tied in bfloat16 at the {k}th '
+        f'place: {tied}')
     check(tied, 'approx serve: an exact top-k item is neither served nor '
           'tied with the last served value')
     check(out['recall_mean'] >= APPROX,
@@ -3266,6 +3282,337 @@ def approx_phase(data_dir: str, ck: str, exact_seconds: float) -> dict:
     log(f'approx serve: one {BATCH}-user batch\'s scoring, mask and top-{k} '
         f'{ms["approx"]:.4f} ms in serving mode, {ms["exact"]:.4f} ms '
         'exact')
+    return out
+
+
+# --- Orbax directories as the JAX package writes them (phase 7c) ----------
+
+def _crc32c_table() -> list[int]:
+    table = []
+    for i in range(256):
+        c = i
+        for _ in range(8):
+            c = (c >> 1) ^ (0x82F63B78 if c & 1 else 0)
+        table.append(c)
+    return table
+
+
+_CRC32C = _crc32c_table()
+
+
+def crc32c(data: bytes) -> int:
+    """CRC-32C (Castagnoli), in Python: the writer below does not lean on
+    the port's reader for the checksum it checks."""
+    c = 0xFFFFFFFF
+    for b in data:
+        c = (c >> 8) ^ _CRC32C[(c ^ b) & 0xFF]
+    return c ^ 0xFFFFFFFF
+
+
+def varint(n: int) -> bytes:
+    out = bytearray()
+    while True:
+        out.append((n & 0x7F) | (0x80 if n > 0x7F else 0))
+        n >>= 7
+        if not n:
+            return bytes(out)
+
+
+def zstd_raw_frame(data: bytes) -> bytes:
+    """``data`` as one zstd frame of raw blocks (RFC 8878: single segment,
+    an 8-byte content size, no checksum), which any zstd decoder reads."""
+    out = [b'\x28\xb5\x2f\xfd', bytes([0xE0]),
+           len(data).to_bytes(8, 'little')]
+    step = 128 * 1024
+    starts = range(0, len(data), step) if data else [0]
+    for at in starts:
+        block = data[at:at + step]
+        last = at + step >= len(data)
+        out.append(((len(block) << 3) | int(last)).to_bytes(3, 'little'))
+        out.append(block)
+    return b''.join(out)
+
+
+def _ocdbt_file(magic: int, body: bytes) -> bytes:
+    """An OCDBT manifest or node: magic, length, format version 0,
+    compression 0 (none), the body, CRC-32C."""
+    head = magic.to_bytes(4, 'big')
+    tail = varint(0) + varint(0) + body
+    raw = head + (4 + 8 + len(tail) + 4).to_bytes(8, 'little') + tail
+    return raw + crc32c(raw).to_bytes(4, 'little')
+
+
+def _file_table(paths: list[tuple[str, int]]) -> bytes:
+    """A data file table of ``(path, base path length)``, unprefixed."""
+    out = [varint(len(paths))]
+    out += [varint(0) for _ in paths[1:]]
+    out += [varint(len(p.encode())) for p, _ in paths]
+    out += [varint(b) for _, b in paths]
+    out += [p.encode() for p, _ in paths]
+    return b''.join(out)
+
+
+def write_ocdbt(root: str, items: dict[str, bytes], max_inline: int = 1024):
+    """``items`` as an OCDBT store, as one process of an Orbax save leaves
+    it once merged: ``ocdbt.process_0/`` holds a data file of the values
+    above ``max_inline`` bytes, one leaf node of every key and its own
+    manifest; the root manifest refers to the same node through the base
+    path ``ocdbt.process_0/``."""
+    proc = 'ocdbt.process_0'
+    os.makedirs(os.path.join(root, proc, 'd'))
+    keys = sorted(items)
+    data_name, node_name = 'd/' + 'a' * 32, 'd/' + 'b' * 32
+    blob, offsets = [], {}
+    at = 0
+    for k in keys:
+        if len(items[k]) > max_inline:
+            offsets[k] = at
+            blob.append(items[k])
+            at += len(items[k])
+    with open(os.path.join(root, proc, data_name), 'wb') as f:
+        f.write(b''.join(blob))
+    enc = [k.encode() for k in keys]
+    prefix = [0] + [len(os.path.commonprefix([a, b]))
+                    for a, b in zip(enc, enc[1:])]
+    body = [bytes([0]), _file_table([(data_name, 0)]), varint(len(keys))]
+    body += [varint(p) for p in prefix[1:]]
+    body += [varint(len(e) - p) for e, p in zip(enc, prefix)]
+    body += [e[p:] for e, p in zip(enc, prefix)]
+    body += [varint(len(items[k])) for k in keys]
+    body += [varint(int(k in offsets)) for k in keys]
+    body += [varint(0) for k in keys if k in offsets]
+    body += [varint(offsets[k]) for k in keys if k in offsets]
+    body += [items[k] for k in keys if k not in offsets]
+    node = _ocdbt_file(0x0CDB20DE, b''.join(body))
+    with open(os.path.join(root, proc, node_name), 'wb') as f:
+        f.write(node)
+    stats = (varint(len(keys)) + varint(len(node)) + varint(at)
+             + time.time_ns().to_bytes(8, 'little'))
+    for where, path, base in ((os.path.join(root, proc), node_name, 0),
+                              (root, f'{proc}/{node_name}', len(proc) + 1)):
+        body = [os.urandom(16), varint(0), varint(max_inline),
+                varint(100_000_000), bytes([4]), varint(0),
+                _file_table([(path, base)]), varint(1), varint(1),
+                varint(0), varint(0), varint(0), varint(len(node)), stats,
+                varint(0)]
+        with open(os.path.join(where, 'manifest.ocdbt'), 'wb') as f:
+            f.write(_ocdbt_file(0x0CDB3A2A, b''.join(body)))
+
+
+def write_orbax_dir(path: str, state: dict, shards: int = 4):
+    """The JAX package's ``OrbaxCheckpointer.save_latest`` of ``state``
+    (``{'params': {...}, 'epoch', 'model'}``) as a TPU v5e-4 run writes it
+    (``textgcn_tpu/train/checkpoint.py:77-162``): the tree ``{'params':
+    params, 'meta': {'epoch', 'model'}}``; ``_METADATA``; the string leaves
+    in ``_strings.json``; every array a zarr v2 array in an OCDBT store,
+    a table of rows divisible by ``shards`` in ``shards`` row chunks (one
+    per device), the rest one chunk, each chunk a zstd frame of raw
+    blocks.  The card's machine has neither orbax nor tensorstore."""
+    os.makedirs(path)
+    tree = {'params': state['params'],
+            'meta': {k: v for k, v in state.items() if k != 'params'}}
+    items, meta, strings = {}, {}, {}
+
+    def leaf(keys, value):
+        name = '.'.join(str(k) for k, _ in keys)
+        entry = {'key_metadata': [{'key': str(k), 'key_type': t}
+                                  for k, t in keys]}
+        if isinstance(value, str):
+            strings[name] = value
+            entry['value_metadata'] = {'value_type': 'string',
+                                       'skip_deserialize': False}
+        else:
+            arr = np.asarray(value)
+            scalar = not isinstance(value, np.ndarray)
+            chunks = list(arr.shape)
+            if arr.ndim == 2 and arr.shape[0] % shards == 0:
+                chunks[0] //= shards
+            dtype = arr.dtype.str.replace('=', '<')
+            items[f'{name}/.zarray'] = json.dumps({
+                'chunks': chunks, 'compressor': {'id': 'zstd', 'level': 1},
+                'dimension_separator': '.', 'dtype': dtype,
+                'fill_value': None, 'filters': None, 'order': 'C',
+                'shape': list(arr.shape), 'zarr_format': 2},
+                sort_keys=True, separators=(',', ':')).encode()
+            if arr.ndim == 0:
+                items[f'{name}/0'] = zstd_raw_frame(arr.tobytes())
+            else:
+                step = chunks[0]
+                for c in range(arr.shape[0] // step):
+                    key = '.'.join([str(c)] + ['0'] * (arr.ndim - 1))
+                    items[f'{name}/{key}'] = zstd_raw_frame(
+                        arr[c * step:(c + 1) * step].tobytes())
+            entry['value_metadata'] = {
+                'value_type': 'scalar' if scalar else 'jax.Array',
+                'skip_deserialize': False,
+                **({} if scalar else {'write_shape': chunks})}
+        meta[str(tuple(str(k) for k, _ in keys))] = entry
+
+    def walk(keys, node):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                walk(keys + [(k, 2)], v)
+        elif isinstance(node, list):
+            for i, v in enumerate(node):
+                walk(keys + [(i, 1)], v)
+        else:
+            leaf(keys, node)
+
+    walk([], tree)
+    write_ocdbt(path, items)
+    with open(os.path.join(path, '_METADATA'), 'w') as f:
+        json.dump({'tree_metadata': meta, 'use_ocdbt': True,
+                   'use_zarr3': False,
+                   'store_array_data_equal_to_fill_value': True,
+                   'custom_metadata': None}, f)
+    with open(os.path.join(path, '_strings.json'), 'w') as f:
+        json.dump(strings, f)
+
+
+JAX_FIXTURES = os.path.join(REPO, 'tests', 'fixtures', 'jax_runs')
+
+
+def jax_runs_phase(root: str, data_dir: str, ck: str) -> dict:
+    """Runs that the JAX package saves on a TPU, served on the card.
+
+    S1: phase 7's pickle written again by ``write_orbax_dir`` as
+    ``best.orbax`` of a run directory and served through ``cli.main
+    --ckpt_backend orbax --load RUN``: the host read of the directory
+    timed (``DistCheckpointer.load``: OCDBT, zarr and the port's zstd
+    decoder) and bit-equal to the pickle's arrays; K1 launches exactly 12
+    and no other kernel; the metrics and ``predictions.tsv`` equal phase
+    7's pickle serve's bit for bit.
+
+    The committed fixtures (``tests/fixtures/jax_runs``, written by the
+    JAX package itself with ``tests/helpers/make_jax_runs.py``): the
+    ``lgcn`` run (saved by 2 processes x 2 devices) from ``best.orbax``,
+    the ``gat`` run from ``best.orbax`` and the ``gbdt`` run from its
+    ``tree.pkl`` and ``best.pkl``, each served on the card and on the CPU
+    on a copy of ``data/dummy``: the metrics within 1e-6 and the
+    predictions up to ties; K1 (``lgcn``, ``gbdt``) or K3 (``gat``)
+    launches exactly 12 (eval and predict); the ``lgcn`` run's ``best.pkl``
+    twin serves on the card the ``best.orbax`` serve's metrics and
+    ``predictions.tsv`` bit for bit."""
+    import shutil
+    from textgcn_tpu_torch.train.checkpoint import DistCheckpointer
+    with open(ck, 'rb') as f:
+        state = pickle.load(f)
+    run = os.path.join(root, 'jax_orbax_run')
+    t0 = time.perf_counter()
+    write_orbax_dir(os.path.join(run, 'best.orbax'), state)
+    out = {'write_s': time.perf_counter() - t0}
+    from textgcn_tpu_torch import zstd
+    t0 = time.perf_counter()
+    zstd.load()             # built with the host compiler at first use
+    out['zstd_build_s'] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    read = DistCheckpointer().load(run)
+    out['read_s'] = time.perf_counter() - t0
+    nbytes = sum(a.nbytes for a in state['params'].values())
+    out['table_mb'] = nbytes / 1e6
+    out['read_mb_per_s'] = nbytes / 1e6 / out['read_s']
+    for name, table in state['params'].items():
+        check(read['params'][name].dtype == table.dtype
+              and np.array_equal(read['params'][name], table),
+              f'jax runs: the Orbax read of {name} differs from the pickle')
+    check((read['epoch'], read['model']) == (state['epoch'], state['model']),
+          f'jax runs: meta {read["epoch"], read["model"]}')
+    log(f'jax runs: wrote S1 as Orbax (OCDBT + zarr v2, 4 row shards) in '
+        f'{out["write_s"]:.3f} s; the zstd decoder built in '
+        f'{out["zstd_build_s"]:.3f} s; DistCheckpointer.load read '
+        f'{out["table_mb"]:.1f} MB of tables in {out["read_s"]:.3f} s '
+        f'({out["read_mb_per_s"]:.1f} MB/s on the host), bit-equal')
+
+    argv = ['--predict', '--emb_size', str(D), '--n_layers', str(LAYERS),
+            '--batch_size', str(BATCH), '-k', *map(str, KS)]
+    reset_counts()
+    t0 = time.perf_counter()
+    trainer, run_dir = serve(data_dir, 'smoke-orbax',
+                             ['--ckpt_backend', 'orbax', '--load', run,
+                              *argv], 'cuda')
+    out['serve_s'] = time.perf_counter() - t0
+    launches = counts()
+    want = dict.fromkeys(_wrappers(), 0)
+    want['spmm_dropout'] = 2 * LAYERS * 2
+    check(launches == want, f'jax runs: the Orbax serve of S1 launched '
+          f'{launches}, expected {want}')
+    out['launches'] = launches['spmm_dropout']
+    pickle_run = os.path.join(os.path.dirname(run_dir), 'smoke')
+    with open(os.path.join(run_dir, 'predictions.tsv'), 'rb') as f:
+        got = f.read()
+    with open(os.path.join(pickle_run, 'predictions.tsv'), 'rb') as f:
+        check(got == f.read(), 'jax runs: the Orbax serve\'s '
+              'predictions.tsv differs from the pickle serve\'s')
+    log(f'jax runs: --ckpt_backend orbax --load served S1 in '
+        f'{out["serve_s"]:.3f} s, K1 launches {out["launches"]}, '
+        f'predictions.tsv equal to the pickle serve\'s byte for byte; '
+        f'metrics {json.dumps(trainer.last_metrics)}')
+    out['metrics'] = trainer.last_metrics
+
+    dummy = os.path.join(root, 'dummy_jax')
+    shutil.copytree(os.path.join(REPO, 'data', 'dummy'), dummy)
+    common = ['--predict', '--emb_size', '64', '--batch_size', '16', '-k',
+              '3', '5']
+    fixtures = (
+        ('lgcn', ('--model', 'lgcn'), ['--ckpt_backend', 'orbax'],
+         'spmm_dropout'),
+        ('lgcn_pkl', ('--model', 'lgcn'), [], 'spmm_dropout'),
+        ('gat', ('--model', 'gat', '--aggr', 'mean'),
+         ['--ckpt_backend', 'orbax'], 'gat_fwd'),
+        ('gbdt', ('--model', 'gbdt'), [], 'spmm_dropout'))
+    old = os.environ.get('TEXTGCN_TPU_TEXT_ENCODER')
+    os.environ['TEXTGCN_TPU_TEXT_ENCODER'] = 'stub'
+    served = {}
+    try:
+        for name, flags, backend, kernel in fixtures:
+            src = os.path.join(JAX_FIXTURES, name.split('_')[0])
+            runs = {}
+            for platform in ('cuda', 'cpu'):
+                reset_counts()
+                trainer, run_dir = serve(
+                    dummy, f'jax-{name}-{platform}',
+                    [*backend, '--load', src, *common], platform,
+                    model=flags)
+                if platform == 'cuda':
+                    launches = counts()
+                with open(os.path.join(run_dir, 'predictions.tsv'),
+                          'rb') as f:
+                    raw = f.read()
+                runs[platform] = (trainer.last_metrics, read_predictions(
+                    os.path.join(run_dir, 'predictions.tsv')), raw)
+            want = dict.fromkeys(_wrappers(), 0)
+            want[kernel] = 2 * LAYERS * 2
+            check(launches == want, f'jax runs: fixture {name} launched '
+                  f'{launches} on the card, expected {want}')
+            (m_gpu, p_gpu, _), (m_cpu, p_cpu, _) = runs['cuda'], runs['cpu']
+            for metric in m_cpu:
+                check(np.allclose(m_gpu[metric], m_cpu[metric], atol=1e-6,
+                                  rtol=0),
+                      f'jax runs: fixture {name} {metric}: card '
+                      f'{m_gpu[metric]} vs CPU {m_cpu[metric]}')
+            check(same_up_to_ties([r[2] for r in p_gpu],
+                                  [r[1] for r in p_gpu],
+                                  [r[2] for r in p_cpu],
+                                  [r[1] for r in p_cpu], 2e-4),
+                  f'jax runs: fixture {name} predictions differ beyond ties')
+            served[name] = runs['cuda']
+            out[f'fixture_{name}'] = {'launches': launches[kernel],
+                                      'metrics': m_gpu}
+            log(f'jax runs: fixture {name} served on the card == CPU: '
+                f'{m_gpu}; launches {launches[kernel]} {kernel}')
+    finally:
+        if old is None:
+            os.environ.pop('TEXTGCN_TPU_TEXT_ENCODER', None)
+        else:
+            os.environ['TEXTGCN_TPU_TEXT_ENCODER'] = old
+    (m_o, _, raw_o), (m_p, _, raw_p) = served['lgcn'], served['lgcn_pkl']
+    check(raw_o == raw_p and all(np.array_equal(m_o[k], m_p[k])
+                                 for k in m_o),
+          'jax runs: the lgcn fixture\'s best.orbax and best.pkl serve '
+          'differently on the card')
+    log('jax runs: the lgcn fixture\'s best.orbax (2 processes x 2 '
+        'devices) serves its best.pkl twin\'s metrics and predictions.tsv '
+        'bit for bit')
     return out
 
 
@@ -4506,6 +4853,9 @@ def main():
         t = time.perf_counter()
         approx = approx_phase(data_dir, ck, serve_s)
         log(f'phase approx serve: {time.perf_counter() - t:.3f} s')
+        t = time.perf_counter()
+        jax_runs = jax_runs_phase(root, data_dir, ck)
+        log(f'phase jax runs: {time.perf_counter() - t:.3f} s')
 
         trained, timing = {}, {}
         for model in MODEL_FLAGS:
@@ -4635,6 +4985,16 @@ def main():
                    'spmm_dropout': approx['single_launches']},
                'serve_lgcn_approx_mesh': {
                    'spmm_weighted': approx['mesh_launches']},
+               'serve_lgcn_jax_orbax': {
+                   'spmm_dropout': jax_runs['launches']},
+               'serve_jax_fixture_lgcn_orbax': {
+                   'spmm_dropout': jax_runs['fixture_lgcn']['launches']},
+               'serve_jax_fixture_lgcn_pkl': {
+                   'spmm_dropout': jax_runs['fixture_lgcn_pkl']['launches']},
+               'serve_jax_fixture_gat_orbax': {
+                   'gat_fwd': jax_runs['fixture_gat']['launches']},
+               'serve_jax_fixture_gbdt_tree_pkl': {
+                   'spmm_dropout': jax_runs['fixture_gbdt']['launches']},
                'train_ltr_linear_encoder': {
                    'spmm_dropout': encoded['encode_launches']},
                'train_ltr_linear_encoder_cached': {
@@ -4717,7 +5077,10 @@ def main():
         # the 50k x 20k sharp set, or fewer if the early stop ends it);
         # train gcn and graphsage --mesh 1x1 (1 epoch); serve the
         # resumed lgcn --mesh 1x1 run's latest_checkpoint.orbax on one card;
-        # serve lgcn --approx_topk 0.95; train ltr_linear --freeze on the
+        # serve lgcn --approx_topk 0.95; serve lgcn from a JAX Orbax
+        # directory of S1 (--ckpt_backend orbax --load), and the committed
+        # JAX runs on data/dummy (lgcn from best.orbax and from best.pkl,
+        # gbdt from tree.pkl); train ltr_linear --freeze on the
         # 4,096-user cut as the encoder writes its caches, then from them
         # (forward only), again under auto through a Flax-only
         # directory of the same weights, and with the
@@ -4851,7 +5214,8 @@ def main():
                     'mining_ms': mining,
                     'boosted': boosted, 'dcp': dcp,
                     'trace': traced, 'quality': quality,
-                    'approx_serve': approx, 'encoder': encoded,
+                    'approx_serve': approx, 'jax_runs': jax_runs,
+                    'encoder': encoded,
                     'flax_dir': flax_dir,
                     'encoder_families': families, 'tools': tools,
                     'loader': loader,

@@ -17,7 +17,8 @@ trees; without xgboost every head takes that path).  Then:
   (the dummy data's 120 rows make tiny nodes, where two features often
   split alike; from there on the carried case above holds the scoring);
 * ``forest.npz`` round-trips through ``--load RUN --no_train``, a JAX
-  ``tree.pkl`` is refused, and a tree head exports no LTR factors.
+  run's ``tree.pkl`` serves its metrics and predictions through the
+  port's restricted unpickler, and a tree head exports no LTR factors.
 
 The heads on ``--mesh`` are ``tests/test_torch_mesh_boosted.py``'s.
 """
@@ -254,13 +255,32 @@ def test_cli_fit_writes_and_reserves_forest_npz(workdir):
                                    rtol=0, atol=1e-6)
 
 
-def test_jax_tree_pkl_is_refused(workdir, jax_runs):
+@pytest.mark.parametrize('model', JAX_RUNS)
+def test_jax_tree_pkl_serves_jax_metrics_and_predictions(model, workdir,
+                                                         jax_runs):
+    """``--load`` of the JAX run itself (``tree.pkl`` and ``best.pkl``, no
+    ``forest.npz``) restores the JAX fit's trees and serves its metrics
+    and ``predictions.tsv`` bytes."""
     from textgcn_tpu_torch.cli import main as port_main
-    _, jax_dir = jax_runs['gbdt']
+    jt, jax_dir = jax_runs[model]
     assert os.path.exists(os.path.join(jax_dir, 'tree.pkl'))
-    with _cpu_run_in(workdir), pytest.raises(ValueError,
-                                             match='forest_from_estimator'):
-        port_main(_argv('gbdt', 'refused', '--load', jax_dir, '--no_train'))
+    assert not os.path.exists(os.path.join(jax_dir, 'forest.npz'))
+    want = {m: v[-1] for m, v in jt.inner.metrics_logger.items()}
+    with _cpu_run_in(workdir):
+        pt = port_main(_argv(model, f'tree-pkl-{model}', '--load', jax_dir,
+                             '--no_train', '--predict'))
+    carried = forest_from_estimator(jt.model.tree)
+    for a, b in zip(pt.model.forest_state.trees, carried.trees):
+        for k in (*STRUCTURE, 'value', 'impurity'):
+            np.testing.assert_array_equal(getattr(a, k), getattr(b, k))
+    for name, values in want.items():
+        np.testing.assert_allclose(pt.last_metrics[name], values, rtol=0,
+                                   atol=1e-6, err_msg=name)
+    with open(os.path.join(jax_dir, 'predictions.tsv'), 'rb') as f:
+        jax_bytes = f.read()
+    with open(os.path.join(workdir, pt.cfg.save_path, 'predictions.tsv'),
+              'rb') as f:
+        assert f.read() == jax_bytes
 
 
 def test_serving_without_a_forest_raises(workdir):

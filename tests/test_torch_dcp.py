@@ -17,7 +17,9 @@ while the ranks run.
 * In one process, without a process group, the orbax resume is the
   pickle resume bit for bit.
 * A JAX ``.orbax`` directory (the JAX package's ``OrbaxCheckpointer``) is
-  refused; a run directory without ``best.orbax`` loads ``best.pkl``.
+  read by the port's Orbax reader, bit for bit, and served; a ``.orbax``
+  directory that is neither DCP nor Orbax is refused; a run directory
+  without ``best.orbax`` loads ``best.pkl``.
 * A tree round-trips (numpy and torch arrays, scalars, strings, empty
   arrays); a failed save leaves the previous checkpoint in place; the
   boosted heads keep ``forest.npz`` beside the ``.orbax`` directories.
@@ -232,24 +234,48 @@ def test_one_process_orbax_resume_is_the_pickle_resume(runs):
             assert torch.equal(pa[key], pb[key])
 
 
-def test_a_jax_orbax_directory_is_refused(runs, tmp_path, monkeypatch):
+def test_a_jax_orbax_directory_is_read(runs, tmp_path, monkeypatch):
     from textgcn_tpu.train.checkpoint import OrbaxCheckpointer
     rng = np.random.RandomState(2)
     model = runs['single']['full', 'orbax'].model
     run = tmp_path / 'runs' / 'dummy' / 'jax'
+    params = {'user_emb': rng.randn(model.n_users, D).astype(np.float32),
+              'item_emb': rng.randn(model.n_items, D).astype(np.float32)}
     jax_ck = OrbaxCheckpointer()
-    jax_ck.save_latest(str(run), {
-        'params': {'user_emb': rng.randn(model.n_users, D).astype(np.float32),
-                   'item_emb': rng.randn(model.n_items, D).astype(
-                       np.float32)},
-        'epoch': 2, 'model': 'lgcn'})
+    jax_ck.save_latest(str(run), {'params': params, 'epoch': 2,
+                                  'model': 'lgcn'})
     jax_ck.promote_best(str(run))
     assert (run / 'best.orbax').is_dir()
-    with pytest.raises(ValueError, match='no orbax'):
+    want = jax_ck.load(str(run))
+    got = tck.DistCheckpointer().load(str(run))
+    assert sorted(got) == sorted(want) == ['epoch', 'model', 'params']
+    assert (got['epoch'], got['model']) == (want['epoch'], want['model'])
+    for name, table in params.items():
+        assert got['params'][name].dtype == np.float32
+        np.testing.assert_array_equal(got['params'][name], table)
+        np.testing.assert_array_equal(got['params'][name],
+                                      np.asarray(want['params'][name]))
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setenv('TEXTGCN_TPU_PLATFORM', 'cpu')
+    served = port_main([*_argv(runs['data']), '--ckpt_backend', 'orbax',
+                        '--load', str(run), '--no_train', '--uid', 'jax'])
+    for name, table in params.items():
+        np.testing.assert_array_equal(
+            getattr(served.model, name).detach().numpy(), table)
+
+
+def test_a_directory_neither_dcp_nor_orbax_is_refused(runs, tmp_path,
+                                                      monkeypatch):
+    run = tmp_path / 'runs' / 'dummy' / 'odd'
+    (run / 'best.orbax').mkdir(parents=True)
+    (run / 'best.orbax' / 'data.bin').write_bytes(b'not a checkpoint')
+    with pytest.raises(ValueError, match=r'neither a torch\.distributed'
+                       r'\.checkpoint directory .* nor an Orbax checkpoint'):
         tck.DistCheckpointer().load(str(run))
     monkeypatch.chdir(tmp_path)
     monkeypatch.setenv('TEXTGCN_TPU_PLATFORM', 'cpu')
-    with pytest.raises(ValueError, match=r'has no \.metadata'):
+    with pytest.raises(ValueError, match=r'has no \.metadata\) nor an '
+                       r'Orbax checkpoint \(it has no _METADATA'):
         port_main([*_argv(runs['data']), '--ckpt_backend', 'orbax',
                    '--load', str(run), '--no_train', '--uid', 'refused'])
 

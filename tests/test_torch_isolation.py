@@ -22,7 +22,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, 'textgcn_tpu_torch')
 FORBIDDEN = ('jax', 'jaxlib', 'textgcn_tpu', 'pandas', 'sklearn', 'tqdm',
              'optax', 'flax', 'orbax', 'transformers',
-             'sentence_transformers', 'safetensors', 'tokenizers', 'regex')
+             'sentence_transformers', 'safetensors', 'tokenizers', 'regex',
+             'tensorstore', 'zstandard', 'msgpack', 'xgboost')
 EXAMPLES = os.path.join(REPO, 'examples')
 
 

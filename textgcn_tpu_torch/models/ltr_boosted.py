@@ -54,10 +54,12 @@ from ..parallel.sharded import (ranks_agree, shard_columns,
                                 sharded_topk_of_scores)
 from ..train.checkpoint import FOREST_NAME, load_forest, run_dir, save_forest
 from ..train.trainer import Trainer
+from ..weights import forest_from_tree_pkl
 from .ltr import LTRLinear
 
 log = logging.getLogger('textgcn_tpu_torch')
 
+TREE_PKL = 'tree.pkl'       # the JAX package's pickled estimator
 XGBOOST_WARNING = ('xgboost not available; using the least-squares '
                    'GradientBoostingRegressor (ops.trees.fit_gbrt) instead')
 
@@ -331,24 +333,25 @@ class BoostedTrainer(Trainer):
             save_forest(self.cfg.save_path, state)
 
     def load(self, load_path: str):
-        """Restore a run's ``forest.npz``, then ``Trainer.load`` (its
-        evaluation scores through the restored trees).  A run without one
-        evaluates its tables with plain scoring.  The JAX package's
-        ``tree.pkl`` (a pickled scikit-learn estimator) is refused.  Every
-        rank of a mesh reads the file."""
+        """Restore a run's fitted ensemble, then ``Trainer.load`` (its
+        evaluation scores through the restored trees): the port's
+        ``forest.npz`` first, else the JAX package's ``tree.pkl`` (a
+        pickled scikit-learn estimator, read by
+        ``weights.forest_from_tree_pkl`` without scikit-learn).  A run
+        with neither evaluates its tables with plain scoring.  Every rank
+        of a mesh reads the file."""
         folder = run_dir(load_path)
         forest = os.path.join(folder, FOREST_NAME)
+        tree_pkl = os.path.join(folder, TREE_PKL)
         if os.path.exists(forest):
             self.model.forest_state = load_forest(forest)
             log.info('Restored the fitted tree ensemble from %s', forest)
             return super().load(load_path)
-        if os.path.exists(os.path.join(folder, 'tree.pkl')):
-            raise ValueError(
-                f'{folder} holds the JAX package\'s tree.pkl (a pickled '
-                f'scikit-learn estimator) and no {FOREST_NAME}: the port '
-                'does not unpickle it. Load the estimator where '
-                'scikit-learn is installed and convert it with '
-                'textgcn_tpu_torch.weights.forest_from_estimator, or refit')
+        if os.path.exists(tree_pkl):
+            self.model.forest_state = forest_from_tree_pkl(tree_pkl)
+            log.info('Restored the fitted tree ensemble from %s (the JAX '
+                     'package\'s pickled estimator)', tree_pkl)
+            return super().load(load_path)
         model = self.model
         head = model.score_with_head
         model.score_with_head = False

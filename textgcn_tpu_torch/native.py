@@ -9,7 +9,9 @@ uses it unless ``TEXTGCN_TPU_NATIVE=0``.
 
 Build: ``$CXX`` (default ``c++``) with ``-O3 -std=c++17 -shared -fPIC``
 into ``build/native/`` beside the package (listed in ``.gitignore``), the
-library named by a digest of the source, the compiler and the flags.  The
+library named by its source and a digest of the source, the compiler and
+the flags; ``build(source)`` builds the package's other host library,
+``csrc/zstd_decode.cpp`` (``zstd.py``), the same way.  The
 compiler writes a temporary file that is moved into place with
 ``os.replace`` under an ``flock`` on ``build/native/.lock``, so processes
 that start together build once and load the same library.  A failed build
@@ -52,18 +54,21 @@ def compiler() -> str:
     return os.environ.get('CXX') or 'c++'
 
 
-def library_path() -> str:
-    with open(SOURCE, 'rb') as f:
+def library_path(source: str = SOURCE) -> str:
+    with open(source, 'rb') as f:
         digest = hashlib.sha256(f.read())
     digest.update(' '.join((compiler(), *CXX_FLAGS)).encode())
-    return os.path.join(BUILD_DIR, f'graphbuild-{digest.hexdigest()[:16]}.so')
+    stem = os.path.splitext(os.path.basename(source))[0]
+    return os.path.join(BUILD_DIR, f'{stem}-{digest.hexdigest()[:16]}.so')
 
 
-def build() -> str:
-    """The library's path, compiled first if it is not there (once across
-    processes: under an ``flock``).  Raises ``RuntimeError`` with the
-    compiler's output when the build fails."""
-    target = library_path()
+def build(source: str = SOURCE) -> str:
+    """The path of ``source``'s library (``graphbuild.cpp``'s unless
+    another host source of ``csrc/`` is named), compiled first if it is
+    not there (once across processes: under an ``flock``).  Raises
+    ``RuntimeError`` with the compiler's output when the build fails."""
+    target = library_path(source)
+    what = os.path.basename(source)
     if os.path.exists(target):
         return target
     os.makedirs(BUILD_DIR, exist_ok=True)
@@ -72,18 +77,18 @@ def build() -> str:
         if os.path.exists(target):
             return target
         tmp = f'{target}.{os.getpid()}.tmp'
-        cmd = [compiler(), *CXX_FLAGS, '-o', tmp, SOURCE]
+        cmd = [compiler(), *CXX_FLAGS, '-o', tmp, source]
         try:
             run = subprocess.run(cmd, capture_output=True, text=True,
                                  timeout=300)
         except OSError as e:
-            raise RuntimeError(f'the native reader cannot be built: '
+            raise RuntimeError(f'{what} cannot be built: '
                                f'{" ".join(cmd)}: {e}') from e
         if run.returncode or not os.path.exists(tmp):
             if os.path.exists(tmp):
                 os.remove(tmp)
             raise RuntimeError(
-                f'the native reader cannot be built: {" ".join(cmd)} '
+                f'{what} cannot be built: {" ".join(cmd)} '
                 f'exited with {run.returncode}:\n{run.stdout}{run.stderr}')
         os.replace(tmp, target)
     return target

@@ -27,9 +27,13 @@ numpy arrays: each process reads every rank's rows, drops the phantom
 rows recorded with them (the padding depends on the number of ranks), and
 the trainer keeps the rows it owns, so a checkpoint of W ranks loads at
 any W and in one process.  ``load`` of a run directory prefers
-``best.orbax`` and falls back to ``best.pkl``.  A directory without DCP's
-``.metadata`` (an Orbax checkpoint of the JAX package) is refused: the
-GPU machine has no orbax.
+``best.orbax`` and falls back to ``best.pkl``.  A load goes by what the
+directory holds: DCP's ``.metadata`` is read as above; Orbax's
+``_METADATA`` (a checkpoint that the JAX package's own Orbax backend
+wrote, on a TPU or a mesh of processes) is read by ``orbax_reader``
+without orbax, and ``load`` returns what the JAX package's
+``OrbaxCheckpointer.load`` does: the ``meta`` keys and ``params``.  Any
+other directory is refused with both formats named.
 
 The boosted heads write their fitted ensemble beside it as
 ``forest.npz`` (``save_forest``, ``load_forest``): every tree's node
@@ -54,6 +58,7 @@ import torch.distributed as dist
 from ..ops.trees import GBRTState, Tree
 from ..parallel.multihost import barrier, is_primary
 from ..weights import RowShard
+from . import orbax_reader
 
 # the classes a numpy-array pickle needs (numpy 1.x and 2.x module names)
 _ALLOWED = {
@@ -281,17 +286,18 @@ class DistCheckpointer:
     # --- loading --------------------------------------------------------------
 
     def _restore(self, path: str):
-        """The tree saved in the DCP directory ``path``, read by this
-        process alone."""
+        """The tree saved in the DCP or Orbax directory ``path``, read by
+        this process alone."""
+        if os.path.isdir(path) and orbax_reader.is_orbax_dir(path) and \
+                not os.path.exists(os.path.join(path, DCP_METADATA)):
+            return orbax_reader.restore(path)
         import torch.distributed.checkpoint as dcp
         if not os.path.isdir(path) or not os.path.exists(
                 os.path.join(path, DCP_METADATA)):
             raise ValueError(
-                f'{path} is no torch.distributed.checkpoint directory (it '
-                f'has no {DCP_METADATA}): an .orbax directory written by the '
-                'JAX package\'s Orbax backend cannot be read here, since '
-                'the GPU machine has no orbax. Save it again with the JAX '
-                'package\'s --ckpt_backend pickle and load best.pkl')
+                f'{path} is neither a torch.distributed.checkpoint '
+                f'directory (it has no {DCP_METADATA}) nor an Orbax '
+                f'checkpoint (it has no {orbax_reader.METADATA})')
         meta = dcp.FileSystemReader(path).read_metadata()
         tensors = {key: torch.empty(tuple(m.size), dtype=m.properties.dtype)
                    for key, m in meta.state_dict_metadata.items()}
@@ -316,7 +322,12 @@ class DistCheckpointer:
                 path, PickleCheckpointer.best_name)
         if path.endswith('.pkl'):
             return PickleCheckpointer().load(path)
-        return self._restore(path)
+        tree = self._restore(path)
+        if orbax_reader.is_orbax_dir(path):
+            out = dict(tree.get('meta', {}))
+            out['params'] = tree['params']
+            return out
+        return tree
 
 
 FOREST_NAME = 'forest.npz'

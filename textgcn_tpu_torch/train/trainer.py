@@ -403,7 +403,8 @@ class Trainer:
         """Restore params, Adam state, generators, metrics history and the
         epoch from a run directory; ``fit`` then continues at the next
         epoch as the uninterrupted run would have.  Refuses files of two
-        epochs, another trajectory config and other Adam shapes."""
+        epochs, another trajectory config, other Adam shapes and the JAX
+        package's resume state (its RNG keys have no torch counterpart)."""
         log.info('Resuming from %s', run_dir)
         ck = self._checkpointer
         if not os.path.isdir(run_dir):
@@ -416,6 +417,12 @@ class Trainer:
                 '--no_resume_state; use --load for a tables-only warm start')
         state = ck.load(os.path.join(run_dir, ck.latest_name))
         rs = ck.load_resume(run_dir)
+        if 'adam' not in rs and 'key_data' in rs and 'opt_leaves' in rs:
+            raise ValueError(
+                f'{run_dir} holds the JAX package\'s resume state (key_data '
+                'and opt_leaves, no adam): the JAX package\'s RNG keys '
+                'cannot be continued in torch, so --resume of a JAX run is '
+                f'refused; --load {run_dir} warm-starts from the same run')
         if int(rs['epoch']) != int(state.get('epoch', -1)):
             raise ValueError(
                 f'resume_state (epoch {int(rs["epoch"])}) does not match '

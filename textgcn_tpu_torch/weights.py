@@ -17,9 +17,10 @@ transposes into and out of ``nn.Linear.weight`` (``(fan_out, fan_in)``).
 cooperative checkpoint writes.
 
 The boosted heads' fitted ensemble is carried across by
-``forest_from_estimator``: the JAX package pickles a scikit-learn
-estimator (``tree.pkl``), which the port reads duck-typed, never
-importing scikit-learn.
+``forest_from_estimator`` (a scikit-learn estimator object, read
+duck-typed) and ``forest_from_tree_pkl`` (the JAX package's ``tree.pkl``,
+the pickled estimator, read by a restricted unpickler that builds inert
+stand-ins for scikit-learn's classes); neither imports scikit-learn.
 
 ``bert_state_from_flax`` turns a Flax BERT's, RoBERTa's, XLM-RoBERTa's or
 DistilBERT's parameter tree into the ``state_dict`` of the port's text encoder
@@ -28,6 +29,9 @@ DistilBERT's parameter tree into the ``state_dict`` of the port's text encoder
 
 from __future__ import annotations
 
+import io
+import pickle
+import pickletools
 from typing import NamedTuple
 
 import numpy as np
@@ -128,6 +132,167 @@ def forest_from_estimator(est):
                 np.asarray(t.n_node_samples, np.int64).copy())
            for t in trees]
     return GBRTState(out, base, scale, int(est.n_features_in_))
+
+
+# the globals of a pickled GradientBoostingRegressor (scikit-learn 1.9,
+# numpy 2) besides numpy's arrays: each gets an inert stand-in
+TREE_PKL_GLOBALS = {
+    ('sklearn.ensemble._gb', 'GradientBoostingRegressor'),
+    ('sklearn.tree._classes', 'DecisionTreeRegressor'),
+    ('sklearn.tree._tree', 'Tree'),
+    ('sklearn.dummy', 'DummyRegressor'),
+    ('sklearn._loss.loss', 'HalfSquaredError'),
+    ('sklearn._loss.link', 'IdentityLink'),
+    ('sklearn._loss.link', 'Interval'),
+    ('sklearn._loss._loss', 'CyHalfSquaredError'),
+    ('numpy.random._pickle', '__randomstate_ctor'),
+    ('numpy.random._pickle', '__bit_generator_ctor'),
+    ('numpy.random._mt19937', 'MT19937'),
+    ('numpy.random.bit_generator', '__pyx_unpickle_SeedSequence'),
+    ('numpy.random.bit_generator', 'SeedSequence'),
+}
+_STRING_OPS = {'SHORT_BINUNICODE', 'BINUNICODE', 'BINUNICODE8', 'UNICODE',
+               'SHORT_BINSTRING', 'BINSTRING', 'STRING'}
+_QUIET_OPS = {'PROTO', 'FRAME', 'MEMOIZE', 'PUT', 'BINPUT', 'LONG_BINPUT',
+              'STOP'}
+
+
+class _Inert:
+    """A stand-in for a scikit-learn or ``numpy.random`` global of a
+    ``tree.pkl``: built or called, it keeps its arguments and state and
+    runs nothing; a key of a dict state reads as an attribute."""
+
+    def __new__(cls, *args, **kwargs):
+        obj = object.__new__(cls)
+        obj.args = args
+        return obj
+
+    def __init__(self, *args, **kwargs):
+        pass
+
+    def __setstate__(self, state):
+        self.state = state
+
+    def __getattr__(self, name):
+        state = self.__dict__.get('state')
+        if isinstance(state, dict) and name in state:
+            return state[name]
+        raise AttributeError(f'{type(self).__name__} has no {name!r}')
+
+
+class _InertTree(_Inert):
+    """``sklearn.tree._tree.Tree``: reduce arguments ``(n_features,
+    n_classes, n_outputs)``, state ``nodes`` (a structured array read by
+    field name), ``values`` and ``node_count``."""
+
+    def _field(self, name):
+        nodes = self.state['nodes']
+        if nodes.dtype.names is None or name not in nodes.dtype.names:
+            raise ValueError(f'tree.pkl: Tree nodes have no {name!r} field '
+                             f'(fields {nodes.dtype.names})')
+        if len(nodes) != int(self.state['node_count']):
+            raise ValueError(f'tree.pkl: {len(nodes)} nodes, node_count '
+                             f'{self.state["node_count"]}')
+        return nodes[name]
+
+    children_left = property(lambda self: self._field('left_child'))
+    children_right = property(lambda self: self._field('right_child'))
+    feature = property(lambda self: self._field('feature'))
+    threshold = property(lambda self: self._field('threshold'))
+    impurity = property(lambda self: self._field('impurity'))
+    n_node_samples = property(lambda self: self._field('n_node_samples'))
+
+    @property
+    def value(self):
+        values = np.asarray(self.state['values'])
+        if len(self.args) != 3 or int(self.args[2]) != 1 or \
+                values.shape[0] != len(self._field('left_child')) or \
+                values.size != values.shape[0]:
+            raise ValueError(f'tree.pkl: a Tree of {self.args[2:]} outputs '
+                             f'and values of shape {values.shape}: one '
+                             'regression output per node is read')
+        return values
+
+
+def _refuse(module: str, name: str, path: str):
+    what = f'{module}.{name}'
+    if module.split('.')[0] == 'xgboost':
+        raise pickle.UnpicklingError(
+            f'{path} holds an xgboost model ({what}): the port reads the '
+            'GradientBoostingRegressor the JAX package pickles, and xgboost '
+            'is not installed where it runs; refit the head')
+    raise pickle.UnpicklingError(
+        f'{path} refers to {what}: a tree.pkl may name numpy arrays and '
+        "the classes of a scikit-learn GradientBoostingRegressor only")
+
+
+def _tree_pkl_globals(data: bytes, path: str) -> list[tuple[str, str]]:
+    """Every global the pickle names, found by reading its opcodes
+    (nothing is built); raises for one it cannot name."""
+    out, recent, memo = [], [], {}
+    for op, arg, _ in pickletools.genops(data):
+        name = op.name
+        if name == 'MEMOIZE':
+            memo[len(memo)] = recent[-1] if recent else None
+        elif name in ('PUT', 'BINPUT', 'LONG_BINPUT'):
+            memo[arg] = recent[-1] if recent else None
+        elif name in _QUIET_OPS:
+            continue
+        elif name in _STRING_OPS:
+            recent.append(arg if isinstance(arg, str) else None)
+        elif name in ('GET', 'BINGET', 'LONG_BINGET'):
+            recent.append(memo.get(arg))
+        elif name == 'STACK_GLOBAL':
+            pair = recent[-2:]
+            if len(pair) != 2 or not all(isinstance(x, str) for x in pair):
+                raise pickle.UnpicklingError(
+                    f'{path}: a global at opcode {name} whose module and '
+                    'name are not plain strings')
+            out.append(tuple(pair))
+            recent.append(None)
+        elif name in ('GLOBAL', 'INST'):
+            out.append(tuple(arg.split(' ', 1)))
+            recent.append(None)
+        elif name in ('EXT1', 'EXT2', 'EXT4', 'PERSID', 'BINPERSID'):
+            raise pickle.UnpicklingError(f'{path}: opcode {name} is not '
+                                         'read')
+        else:
+            recent.append(None)
+    return out
+
+
+def forest_from_tree_pkl(path: str):
+    """The port's ensemble (``ops.trees.GBRTState``) of the JAX package's
+    ``tree.pkl`` (a pickled ``GradientBoostingRegressor``), equal to
+    ``forest_from_estimator(pickle.load(...))`` and made without
+    scikit-learn.  The file's globals are read from its opcodes first:
+    any but numpy's array globals and ``TREE_PKL_GLOBALS`` raises
+    ``pickle.UnpicklingError`` naming it before anything is built.  Those
+    are then unpickled as inert stand-ins (``_Inert``), so no code from the
+    file runs, and each ``Tree`` is read from its ``nodes`` and
+    ``values``."""
+    from .train.checkpoint import _ArrayUnpickler
+    with open(path, 'rb') as f:
+        data = f.read()
+
+    class _Unpickler(_ArrayUnpickler):
+        def find_class(self, module, name):
+            if (module, name) in TREE_PKL_GLOBALS:
+                base = _InertTree if name == 'Tree' else _Inert
+                return type(name, (base,), {'__module__': module})
+            try:
+                return super().find_class(module, name)
+            except pickle.UnpicklingError:
+                _refuse(module, name, path)
+
+    probe = _Unpickler(io.BytesIO(b''))
+    for module, name in _tree_pkl_globals(data, path):
+        probe.find_class(module, name)
+    est = _Unpickler(io.BytesIO(data)).load()
+    if type(est).__name__ != 'GradientBoostingRegressor':
+        raise ValueError(f'{path} holds a {type(est).__name__}, not a '
+                         'GradientBoostingRegressor')
+    return forest_from_estimator(est)
 
 
 def bert_state_from_flax(params: dict) -> dict[str, torch.Tensor]:
