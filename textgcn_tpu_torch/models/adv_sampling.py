@@ -34,6 +34,7 @@ import torch.nn.functional as F
 
 from ..ops.retrieval import catalog_scores, mask_train_items, mining_top_k
 from ..parallel.sharded import all_reduce_sum
+from ..utils.profiling import span
 from .lightgcn import LightGCN
 
 POS_SAMPLES = 5
@@ -56,11 +57,12 @@ class AdvSamplModel(LightGCN):
     def sample_batches(self, generator: torch.Generator, batch_size: int):
         """One permuted epoch of user rows (``bucket_len`` a user) as a
         list of ``(users,)`` batches, the last one ragged."""
-        users = torch.arange(self.n_users, device=self.device
-                             ).repeat_interleave(self.bucket_len)
-        perm = torch.randperm(self.iterable_len, generator=generator,
-                              device=self.device)
-        return [(b,) for b in torch.split(users[perm], batch_size)]
+        with span('train.sample_epoch'):
+            users = torch.arange(self.n_users, device=self.device
+                                 ).repeat_interleave(self.bucket_len)
+            perm = torch.randperm(self.iterable_len, generator=generator,
+                                  device=self.device)
+            return [(b,) for b in torch.split(users[perm], batch_size)]
 
     def loss(self, batch, *, generator: torch.Generator | None = None,
              w_pairs=None):
@@ -83,13 +85,19 @@ class AdvSamplModel(LightGCN):
         """``(negs, neg_valid)``, ``(B, n_hard_negs)``: the top-scoring
         candidates of each user that are no train item, scored in float32
         and rounded to bfloat16; ``neg_valid`` is False where fewer
-        candidates were left."""
-        scores = catalog_scores(users_repr[users], items_repr)
-        scores = mask_train_items(scores.to(torch.bfloat16),
-                                  self.pos_padded[users], self.n_items)
-        scores = scores.masked_fill(~keep, -torch.inf)
-        top, negs = mining_top_k(scores, self.n_hard_negs)
-        return negs, top > -torch.inf
+        candidates were left.  Spans: ``mining``, and in it
+        ``mining.scores``, ``mining.mask`` and ``mining.topk``."""
+        with span('mining'):
+            with span('mining.scores'):
+                scores = catalog_scores(users_repr[users], items_repr)
+            with span('mining.mask'):
+                scores = mask_train_items(scores.to(torch.bfloat16),
+                                          self.pos_padded[users],
+                                          self.n_items)
+                scores = scores.masked_fill(~keep, -torch.inf)
+            with span('mining.topk'):
+                top, negs = mining_top_k(scores, self.n_hard_negs)
+            return negs, top > -torch.inf
 
     def loss_given(self, users, keep, ridx, w_rank, w_loss):
         """The loss with the random draws given: ``keep`` (B, n_items) the

@@ -37,6 +37,7 @@ from ..ops.sampling import (batch_epoch, num_batches, positive_keys,
                             sample_epoch)
 from ..ops.spmm import GraphOp
 from ..parallel.sharded import all_gather_rows, sharded_topk
+from ..utils.profiling import span
 from ..weights import RowShard
 from .losses import bpr_loss, reg_loss
 
@@ -288,8 +289,10 @@ class LightGCN(nn.Module):
     def sample_batches(self, generator: torch.Generator, batch_size: int):
         """One permuted epoch as a list of ``(users, pos, negs)`` batches,
         drawn on the device from ``generator``."""
-        users, pos, negs = sample_epoch(
-            generator, self.pos_padded, self.pos_degree,
-            bucket_len=self.bucket_len, neg_samples=self.cfg.neg_samples,
-            n_items=self.n_items, keys=self.pos_keys)
-        return batch_epoch(users, pos, negs, batch_size=batch_size)
+        with span('train.sample_epoch'):
+            users, pos, negs = sample_epoch(
+                generator, self.pos_padded, self.pos_degree,
+                bucket_len=self.bucket_len,
+                neg_samples=self.cfg.neg_samples, n_items=self.n_items,
+                keys=self.pos_keys)
+            return batch_epoch(users, pos, negs, batch_size=batch_size)

@@ -27,6 +27,8 @@ import os
 
 import torch
 
+from ..utils.profiling import span
+
 ADV_TOPK_ENV = 'TEXTGCN_TPU_ADV_TOPK'
 APPROX_TOPK_ENV = 'TEXTGCN_TPU_APPROX_TOPK'
 # the JAX package's mining target when the variable names none it can use
@@ -85,15 +87,21 @@ def score_and_topk(users_emb: torch.Tensor, items_emb: torch.Tensor,
 
     In serving mode (``approx``, or the environment's target) the scores
     are rounded to bfloat16 and the exact top-k of them is taken with ties
-    to the lower index."""
-    scores = catalog_scores(users_emb, items_emb[:n_items])
+    to the lower index.  Spans: ``retrieve.scores``, ``retrieve.mask``
+    (with the cast), ``retrieve.topk``."""
+    with span('retrieve.scores'):
+        scores = catalog_scores(users_emb, items_emb[:n_items])
     if serving_mode(approx):
-        scores = mask_train_items(scores.to(torch.bfloat16),
-                                  batch_pos_padded, n_items)
-        vals, idx = top_k_lower_index(scores, k)
-        return vals.float(), idx
-    scores = mask_train_items(scores, batch_pos_padded, n_items)
-    return torch.topk(scores, k, dim=1)
+        with span('retrieve.mask'):
+            scores = mask_train_items(scores.to(torch.bfloat16),
+                                      batch_pos_padded, n_items)
+        with span('retrieve.topk'):
+            vals, idx = top_k_lower_index(scores, k)
+            return vals.float(), idx
+    with span('retrieve.mask'):
+        scores = mask_train_items(scores, batch_pos_padded, n_items)
+    with span('retrieve.topk'):
+        return torch.topk(scores, k, dim=1)
 
 
 def adv_recall_target() -> float | None:

@@ -84,7 +84,7 @@ from ..data.core import InteractionData
 from ..ops import metrics as metrics_mod
 from ..parallel.multihost import is_primary
 from ..parallel.sharded import all_reduce_sum
-from ..utils.profiling import StepTimer
+from ..utils.profiling import StepTimer, span
 from ..weights import RowShard, params_from_jax, params_to_jax
 from .checkpoint import make_checkpointer
 
@@ -129,6 +129,7 @@ class Trainer:
         self._last_eval_epoch: int | None = None
         self._start_epoch = 1           # advanced by resume()
         self._stop_requested = False    # set by the SIGTERM handler
+        self._requests = 0              # _predict_users calls, for spans
         # on a mesh, the stepped parameters every rank holds whole
         self._replicated = [p for n, p in self._adam_entries()
                             if model.mesh is not None
@@ -141,11 +142,14 @@ class Trainer:
         """One Adam step on ``batch`` with the dropout salts ``w_pairs``;
         returns the loss and its components, detached, on the device."""
         self.optimizer.zero_grad(set_to_none=True)
-        loss, aux = self.model.loss(batch, w_pairs=w_pairs)
-        loss.backward()
-        if self._replicated:
-            self._sum_replicated_grads()
-        self.optimizer.step()
+        with span('train.forward'):
+            loss, aux = self.model.loss(batch, w_pairs=w_pairs)
+        with span('train.backward'):
+            loss.backward()
+            if self._replicated:
+                self._sum_replicated_grads()
+        with span('train.adam'):
+            self.optimizer.step()
         return loss.detach(), {c: v.detach() for c, v in aux.items()}
 
     def _sum_replicated_grads(self):
@@ -164,25 +168,27 @@ class Trainer:
         ``salt_pairs_per_step`` draws of the (to_user, to_item) pairs, as
         a tuple of them when it takes more than one."""
         model = self.model
-        draws = tuple(model.graph_op.weights(self.salt_generator,
-                                             model.dropout)
-                      for _ in range(model.salt_pairs_per_step))
+        with span('train.salts'):
+            draws = tuple(model.graph_op.weights(self.salt_generator,
+                                                 model.dropout)
+                          for _ in range(model.salt_pairs_per_step))
         return draws[0] if len(draws) == 1 else draws
 
     def epoch_step(self, step: int, batch):
         """Step ``step`` of an epoch: its salts (``step_salts``), under
         ``--refresh_every N`` the rest recomputed with the first pair of
         them when ``step % N == 0`` (the model keeps it until the epoch
-        ends), then ``train_step``."""
+        ends), then ``train_step``; all in the span ``train.step``."""
         model = self.model
-        w_pairs = self.step_salts()
-        refresh = self.cfg.refresh_every
-        if refresh and step % refresh == 0:
-            first = w_pairs if model.salt_pairs_per_step == 1 \
-                else w_pairs[0]
-            with torch.no_grad():
-                model.cached_rest = model.propagate_rest(w_pairs=first)
-        return self.train_step(batch, w_pairs)
+        with span('train.step', (step,)):
+            w_pairs = self.step_salts()
+            refresh = self.cfg.refresh_every
+            if refresh and step % refresh == 0:
+                first = w_pairs if model.salt_pairs_per_step == 1 \
+                    else w_pairs[0]
+                with span('train.refresh'), torch.no_grad():
+                    model.cached_rest = model.propagate_rest(w_pairs=first)
+            return self.train_step(batch, w_pairs)
 
     def train_epoch(self) -> dict[str, torch.Tensor]:
         """Sample an epoch, step through its batches; the sums of the loss
@@ -509,23 +515,30 @@ class Trainer:
     def _predict_users(self, users: np.ndarray):
         """Top-max(k) over the catalogue for ``users``: numpy (n, max_k)
         indices and values.  One propagation, then batches of
-        ``batch_size`` users."""
+        ``batch_size`` users; all in the span ``serve.request``, whose
+        inputs are the request's sequence number and its cohort size."""
         bs, max_k = self.cfg.batch_size, max(self.k)
-        users = torch.as_tensor(np.asarray(users, np.int64),
-                                device=self.model.device)
-        vals, idx = [], []
-        with torch.no_grad():
-            reprs = self.model.scoring_reprs()
-            for start in range(0, len(users), bs):
-                v, i = self.model.topk_for_users(
-                    reprs, users[start:start + bs], max_k)
-                vals.append(v)
-                idx.append(i)
-        if not vals:
-            return (np.zeros((0, max_k), np.int64),
-                    np.zeros((0, max_k), np.float32))
-        return (torch.cat(idx).cpu().numpy(),
-                torch.cat(vals).cpu().numpy())
+        users = np.asarray(users, np.int64)
+        self._requests += 1
+        with span('serve.request', (self._requests, len(users))):
+            with span('serve.upload'):
+                users = torch.as_tensor(users, device=self.model.device)
+            vals, idx = [], []
+            with torch.no_grad():
+                with span('serve.propagate'):
+                    reprs = self.model.scoring_reprs()
+                for start in range(0, len(users), bs):
+                    with span('serve.retrieve'):
+                        v, i = self.model.topk_for_users(
+                            reprs, users[start:start + bs], max_k)
+                    vals.append(v)
+                    idx.append(i)
+            if not vals:
+                return (np.zeros((0, max_k), np.int64),
+                        np.zeros((0, max_k), np.float32))
+            with span('serve.fetch'):
+                return (torch.cat(idx).cpu().numpy(),
+                        torch.cat(vals).cpu().numpy())
 
     def predict(self, users, save: bool = False, with_scores: bool = False):
         """Ranked items (+ scores) for a user id list; with ``save``,

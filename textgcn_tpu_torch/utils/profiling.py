@@ -1,14 +1,21 @@
 """Tracing and profiling: counterpart of ``textgcn_tpu/utils/profiling.py``.
 
 * ``trace``: a ``torch.profiler`` trace of the block into ``logdir``
-  (``--trace DIR`` wraps ``Trainer.fit``), CPU activity and, on the
-  card, CUDA activity, written as ``trace_rank<r>.pt.trace.json``: Chrome
+  (``--trace DIR`` wraps ``Trainer.fit``), CPU activity with the
+  operators' input shapes and the spans' inputs and, on the card, CUDA
+  activity, written as ``trace_rank<r>.pt.trace.json``: Chrome
   trace JSON that TensorBoard's PyTorch profiler plugin also reads.  On
   the card there is no fallback: a profiler that cannot record CUDA
   activity raises rather than write a trace of the host alone;
 * ``StepTimer``: rolling wall-clock stats, one tick per epoch (the
   trainer's examples/s);
-* ``profile``: the reference's cProfile decorator.
+* ``profile``: the reference's cProfile decorator;
+* ``span``: a named range of the program's own (``train.step``,
+  ``train.forward``, ``mining.topk``, ``serve.request``, ...; the list is
+  ``docs/TORCH.md``'s "Tracing").  While a ``torch.profiler`` records, a
+  span is a ``record_function`` range in the profiler's event stream: on
+  the clock of the kernels it launches, nested by time on its thread, in
+  ``trace``'s Chrome trace.  Otherwise it costs one check and does nothing.
 """
 
 from __future__ import annotations
@@ -27,6 +34,42 @@ log = logging.getLogger('textgcn_tpu_torch')
 
 # the Chrome trace categories of work that ran on the card
 DEVICE_CATEGORIES = ('kernel', 'gpu_memcpy', 'gpu_memset')
+
+# whether a torch profiler is recording, read once a span
+_recording = torch._C._autograd._profiler_enabled
+
+
+class _Range:
+    """A ``record_function`` range entered with integer inputs: the
+    profiler keeps them as the range's ``Concrete Inputs`` when it records
+    shapes (``record_function``'s string ``args`` it keeps as empty)."""
+
+    __slots__ = ('name', 'args', 'handle')
+
+    def __init__(self, name: str, args: tuple[int, ...]):
+        self.name, self.args = name, args
+
+    def __enter__(self):
+        self.handle = torch.autograd._record_function_with_args_enter(
+            self.name, *self.args)
+        return self
+
+    def __exit__(self, *exc):
+        torch.autograd._record_function_with_args_exit(self.handle)
+        return False
+
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str, args: tuple[int, ...] | None = None):
+    """The context of the program's span ``name``: a ``record_function``
+    range while a torch profiler records, with ``args`` (integers: a
+    step's index; a request's sequence number and cohort size) as its
+    inputs; else one shared no-op context."""
+    if not _recording():
+        return _NO_SPAN
+    return _Range(name, args or ())
 
 
 def trace_path(logdir: str, rank: int = 0) -> str:
@@ -64,7 +107,7 @@ def trace(logdir: str, device: torch.device | str = 'cpu'):
         activities.append(ProfilerActivity.CUDA)
     path = trace_path(logdir, _rank())
     os.makedirs(logdir, exist_ok=True)
-    with torch_profile(activities=activities) as prof:
+    with torch_profile(activities=activities, record_shapes=True) as prof:
         yield path
         if on_card:
             torch.cuda.synchronize(device)
