@@ -23,6 +23,11 @@ Phases, each of which passes or ends the run with a non-zero exit:
    calls) with CUDA events; then holds K1 against ``spmm_plain`` at the
    widths that take its other instances (``K1_WIDTHS``: float4 rows of 8,
    16 and 32 lanes, float2 rows, two column strips), to_user at keep 0.6;
+   then on the benchmark's Amazon-Book graph (``lgcn-amazon-book``'s
+   draw, rows of up to 4,896 edges, which K1 splits into chunks): both
+   directions at keep 1 and 0.6, forward and backward, within the same
+   tolerance of ``spmm_plain``, two launches bit-equal, every launch split,
+   each timed beside its bound (``book_kernel_phase``);
 3b. K2 kernel: partitions each direction of the S1 graph by source range
    into W = 1 and W = 4 shards on the one card, as the mesh path does
    (``parallel.sharded_spmm.build_shard``), and holds K2
@@ -81,7 +86,8 @@ Phases, each of which passes or ends the run with a non-zero exit:
 7. serve: S1 (60,000 users x 25,000 items, ~545k edges, d = 64, 3 layers)
    served through ``textgcn_tpu_torch.cli.main`` from a JAX-format pickle
    (tables padded to 4096 rows): K1 launches exactly 12 times (eval and
-   predict, 3 layers x 2 directions each), ``predictions.tsv`` has one row
+   predict, 3 layers x 2 directions each), none of them with a split
+   schedule (S1's rows are short), ``predictions.tsv`` has one row
    per user, the metrics are finite, and the served top-40 of 256 users
    equals the top-40 of a plain-SpMM propagation on the card up to ties;
 7b. approx serve: S1 served again with ``--approx_topk 0.95`` (serving
@@ -361,6 +367,9 @@ GAT_BWD_TOL = 1e-4
 # (vec, per) (ops/gat.att_layout) (2, 1), (2, 2), (2, 4), (4, 2), (2, 8)
 # and (4, 4): with S1's (4, 1), every instance they build
 K1_WIDTHS = (32, 48, 62, 128, 256)
+# the benchmark's skewed graph, where K1 splits its long rows
+BOOK_CONFIG = os.path.join(REPO, 'portbench', 'configs',
+                           'lgcn-amazon-book.json')
 K2_WIDTHS = (14, 30) + K1_WIDTHS
 ATT_WIDTHS = (30, 62, 126, 128, 254, 256)
 STEP_TOL = 1e-4
@@ -593,6 +602,91 @@ def kernel_phase(data, dev) -> dict:
               f'K1 at d={d} disagrees with spmm_plain (max abs err '
               f'{err:.3e})')
     return result
+
+
+def book_graph():
+    """``lgcn-amazon-book``'s train graph, as the benchmark draws it
+    (``portbench.graphgen``; rows of up to 4,896 edges), with the
+    program's weights ``1/sqrt(deg_u * deg_i)``: ``(user, item, w,
+    n_users, n_items)``."""
+    from portbench import graphgen
+    with open(BOOK_CONFIG) as f:
+        inter = graphgen.generate(json.load(f)['dataset'])
+    eu, ei = inter.train_user, inter.train_item
+    du = 1.0 / np.sqrt(np.bincount(eu, minlength=inter.n_users)[eu])
+    di = 1.0 / np.sqrt(np.bincount(ei, minlength=inter.n_items)[ei])
+    return eu, ei, (du * di).astype(np.float32), inter.n_users, inter.n_items
+
+
+def book_kernel_phase(dev) -> dict:
+    """K1 where its split schedule engages: on the Amazon-Book graph, both
+    directions at keep 1 and 0.6, forward and backward (``GraphOp``'s
+    autograd: the backward is K1 on the transpose) against
+    ``spmm_plain`` within TOL; two launches give the same bits; every
+    launch ran the schedule; each direction timed at both keeps beside
+    its bound."""
+    from textgcn_tpu_torch.ops.spmm import (GraphOp, edge_mask,
+                                            spmm_dropout_cuda, spmm_plain)
+    t0 = time.perf_counter()
+    eu, ei, w, n_users, n_items = book_graph()
+    op = GraphOp(eu, ei, w, n_users, n_items, dev)
+    log(f'book kernel: graph {len(eu)} train edges, {n_users} x {n_items}, '
+        f'drawn and built in {time.perf_counter() - t0:.3f} s')
+    gen = torch.Generator().manual_seed(25)
+    res = {'max_abs_err': 0.0}
+    launches = spmm_dropout_cuda.launches
+    split = spmm_dropout_cuda.split_launches
+    for direction in ('to_user', 'to_item'):
+        fwd, bwd = op.csr_pair(direction)
+        x = torch.randn(fwd.n_src, D, generator=gen).to(dev)
+        g = torch.randn(fwd.n_dst, D, generator=gen).to(dev)
+        lengths = fwd.rowptr[1:] - fwd.rowptr[:-1]
+        row = {'max_row': int(lengths.max()), 'split_rows': fwd.split_rows,
+               'chunks': fwd.chunks,
+               'split_edge_share': fwd.split_edge_share}
+        for keep in (1.0, KEEP_DROPOUT):
+            pair = (SALT, keep)
+            xg = x.clone().requires_grad_()
+            out = getattr(op, direction)(xg, pair)
+            out.backward(g)
+            again = spmm_dropout_cuda(fwd, x, *pair)
+            want = spmm_plain(fwd, x, *pair)
+            want_g = spmm_plain(bwd, g, *pair)
+            torch.cuda.synchronize()
+            for part, got, ref in (('forward', out.detach(), want),
+                                   ('backward', xg.grad, want_g)):
+                err = float((got - ref).abs().max())
+                res['max_abs_err'] = max(res['max_abs_err'], err)
+                log(f'book kernel {direction} {part} keep={keep:.7g}: '
+                    f'max_abs_err={err:.3e}')
+                check(torch.allclose(got, ref, atol=TOL, rtol=TOL),
+                      f'K1 on the book graph, {direction} {part} keep={keep}'
+                      f', disagrees with spmm_plain (max abs err {err:.3e})')
+            check(torch.equal(out.detach(), again),
+                  f'K1 on the book graph, {direction} keep={keep}: two '
+                  'launches give different bits')
+            t = time_ms({'kernel': lambda: spmm_dropout_cuda(fwd, x, *pair)},
+                        ['kernel', 'kernel'])
+            n_kept = int(edge_mask(fwd, SALT, keep)[2].sum())
+            b, by = bound_ms(fwd, D, n_kept)
+            key = 'keep_1' if keep >= 1.0 else 'keep_0_6'
+            row[f'ms_{key}'] = t['kernel']
+            row[f'bound_ms_{key}'] = b
+            log(f'timing book {direction} (E={fwd.n_edges}, max row '
+                f'{row["max_row"]}, {fwd.split_rows} split rows in '
+                f'{fwd.chunks} chunks, {fwd.split_edge_share:.4f} of the '
+                f'edges; kept {n_kept}, d={D}) keep={keep:.7g}: kernel '
+                f'{t["kernel"]:.4f} ms, bound {b:.4f} ms ({by}, '
+                f'{100 * b / t["kernel"]:.2f}%)')
+        res[direction] = row
+    n = spmm_dropout_cuda.launches - launches
+    check(spmm_dropout_cuda.split_launches - split == n > 0,
+          f'K1 ran its split schedule in '
+          f'{spmm_dropout_cuda.split_launches - split} of {n} launches on '
+          'the book graph')
+    log('clocks after timing (sm, max sm, power, temperature): '
+        + nvidia_smi('clocks.sm,clocks.max.sm,power.draw,temperature.gpu'))
+    return res
 
 
 def k2_phase(data, dev) -> dict:
@@ -1066,10 +1160,13 @@ def serve_phase(data_dir: str, ck: str) -> tuple[int, float]:
             str(LAYERS), '--batch_size', str(BATCH),
             '-k', *map(str, KS)]
     reset_counts()
+    split = spmm_dropout_cuda.split_launches
     t0 = time.perf_counter()
     trainer, run_dir = serve(data_dir, 'smoke', argv, 'cuda')
     seconds = time.perf_counter() - t0
     launches = spmm_dropout_cuda.launches
+    check(spmm_dropout_cuda.split_launches == split,
+          'K1 split a row of S1, whose rows are all short')
     check(sum(counts().values()) == launches,
           f'serving lgcn launched attention kernels: {counts()}')
     log(f'serve: cli.main took {seconds:.3f} s; K1 launches {launches}')
@@ -4823,6 +4920,7 @@ def main():
 
         t = time.perf_counter()
         k1 = kernel_phase(data, dev)
+        k1['book'] = book_kernel_phase(dev)
         log(f'phase kernel: {time.perf_counter() - t:.3f} s')
 
         t = time.perf_counter()
@@ -5100,6 +5198,9 @@ def main():
         'bound_ms': k1['bound_ms'],
         'bound_by': k1['bound_by'],
         'library_ms': k1['library_ms'],
+        # the Amazon-Book graph's rows, split: per direction its split
+        # rows and chunks, and one launch's ms and bound at each keep
+        'book': k1['book'],
         **shard_fields('spmm_dropout'),
     }, {
         'name': 'spmm_weighted',

@@ -236,3 +236,163 @@ def test_build_helper_names_sources_and_targets():
     assert path == cuda_build.library_path('spmm_dropout.cu')
     assert 'arch=compute_90a,code=sm_90a' in cuda_build.NVCC_FLAGS
     assert not any('fast_math' in f for f in cuda_build.NVCC_FLAGS)
+
+
+def _long_rowptr(seed: int) -> np.ndarray:
+    """A rowptr whose lengths mix empty, short, exactly-``SPLIT_LEN`` and
+    long rows, some of equal length."""
+    rng = np.random.RandomState(seed)
+    L = tspmm.SPLIT_LEN
+    length = np.concatenate([
+        rng.randint(0, L + 1, 200), [0, L, L + 1, 2 * L, 2 * L + 1, 5 * L,
+                                     3 * L + 7, 3 * L + 7],
+        rng.randint(L + 1, 12 * L, 30)])
+    rng.shuffle(length)
+    return np.concatenate([[0], np.cumsum(length)])
+
+
+@pytest.mark.parametrize('split_len', [1, 3, 64, tspmm.SPLIT_LEN])
+@pytest.mark.parametrize('seed', [0, 1])
+def test_split_schedule_covers_long_rows_in_chunks(split_len, seed):
+    """Each row longer than ``split_len`` edges: its edges exactly once,
+    in CSR order, in chunks of at most ``split_len``, the heaviest rows
+    first (ties in row order); shorter rows have no chunks."""
+    rowptr = _long_rowptr(seed)
+    length = np.diff(rowptr)
+    work, first = tspmm.split_schedule(rowptr, split_len)
+    assert work.dtype == first.dtype == np.int32 and work.shape[1] == 4
+    long_rows = np.flatnonzero(length > split_len)
+    assert first[0] == 0 and first[-1] == len(work)
+    assert len(first) == len(long_rows) + 1
+    rows = []
+    for j in range(len(first) - 1):
+        chunk = work[first[j]:first[j + 1]]
+        row = int(chunk[0, 0])
+        rows.append(row)
+        assert (chunk[:, 0] == row).all() and (chunk[:, 3] == j).all()
+        assert chunk[0, 1] == rowptr[row] and chunk[-1, 2] == rowptr[row + 1]
+        assert (chunk[1:, 1] == chunk[:-1, 2]).all()   # consecutive
+        size = chunk[:, 2] - chunk[:, 1]
+        assert (size > 0).all() and (size <= split_len).all()
+        assert (size[:-1] == split_len).all()
+    assert sorted(rows) == long_rows.tolist()
+    assert rows == sorted(rows, key=lambda r: (-length[r], r))
+    covered = np.zeros(rowptr[-1], np.int64)
+    for _, b, e, _ in work:
+        covered[b:e] += 1
+    in_long = np.repeat(length > split_len, length)
+    assert (covered == in_long).all()
+
+
+def test_split_schedule_of_short_rows_is_empty():
+    work, first = tspmm.split_schedule(np.arange(0, 4 * 257, 4))
+    assert work.shape == (0, 4) and first.tolist() == [0]
+    work, _ = tspmm.split_schedule([0, tspmm.SPLIT_LEN])
+    assert work.shape == (0, 4)
+
+
+def _skewed_graph():
+    """A small Chung-Lu draw of the benchmark's generator: rows of up to
+    ~900 edges each way."""
+    from portbench import graphgen
+    inter = graphgen.generate(dict(
+        n_users=3000, n_items=4000, n_interactions=150_000,
+        popularity_exponent=0.5, train_share=0.8, graph_seed=0))
+    w = np.random.RandomState(0).rand(len(inter.train_user))
+    return (inter.train_user, inter.train_item, w.astype(np.float32),
+            inter.n_users, inter.n_items)
+
+
+def test_split_schedule_empty_on_s1_and_the_tests_graphs(graph):
+    """S1 (rows of at most 47 edges) and the tests' graphs get no
+    schedule: K1 walks every row as before."""
+    from tools.scale_bench import synth_edges
+    eu, ei, w = synth_edges(60000, 25000, 10, 0)
+    s1 = tspmm.GraphOp(eu, ei, w, 60000, 25000, 'cpu')
+    *_, port_op, _ = graph
+    for op in (s1, port_op):
+        for csr in (op.l_i2u, op.l_u2i):
+            assert csr.split is None
+            assert (csr.split_rows, csr.chunks, csr.split_edge_share) == (
+                0, 0, 0.0)
+
+
+def test_split_schedule_on_a_skewed_graph():
+    eu, ei, w, nu, ni = _skewed_graph()
+    op = tspmm.GraphOp(eu, ei, w, nu, ni, 'cpu')
+    for csr, dst in ((op.l_i2u, eu), (op.l_u2i, ei)):
+        length = np.bincount(dst, minlength=csr.n_dst)
+        long_rows = length > tspmm.SPLIT_LEN
+        sp = csr.split
+        assert sp is not None and sp.split_len == tspmm.SPLIT_LEN
+        assert csr.split_rows == long_rows.sum() > 0
+        assert csr.chunks == sum(-(-length[long_rows] // tspmm.SPLIT_LEN))
+        assert csr.split_edge_share == pytest.approx(
+            length[long_rows].sum() / len(dst))
+        work, first = tspmm.split_schedule(csr.rowptr.numpy())
+        assert np.array_equal(sp.work.numpy(), work)
+        assert np.array_equal(sp.first.numpy(), first)
+        assert sp.arrivals.dtype == torch.int32
+        assert not sp.arrivals.any() and sp.partials == {}
+
+
+def test_k1_wrapper_passes_the_schedule(monkeypatch, graph):
+    """K1's wrapper hands the kernel a skewed CSR's schedule (its tensors,
+    chunk count and split length, and a (chunks, d) partials buffer made
+    once per width) and nothing for a CSR without one; ``split_launches``
+    counts only the former.  The launch is intercepted, so the wrapper
+    runs on CPU tensors up to it."""
+    seen = []
+
+    def launch(*args):
+        seen.append(args)
+        return 0
+
+    monkeypatch.setattr(tspmm, '_check_cuda', lambda name, x: None)
+    monkeypatch.setattr(tspmm, '_kernel_fn', lambda: launch)
+    monkeypatch.setattr(torch.cuda, 'current_stream',
+                        lambda device=None: types.SimpleNamespace(
+                            cuda_stream=0))
+    eu, ei, w, nu, ni = _skewed_graph()
+    skewed = tspmm.GraphOp(eu, ei, w, nu, ni, 'cpu').l_i2u
+    plain = graph[4].l_i2u
+    try:
+        for d in (64, 64, 32):
+            tspmm.spmm_dropout_cuda(skewed, torch.randn(ni, d), 5, 0.6)
+            work, first, arrivals, partials = seen[-1][5:9]
+            sp = skewed.split
+            assert (work, first, arrivals) == (
+                sp.work.data_ptr(), sp.first.data_ptr(),
+                sp.arrivals.data_ptr())
+            assert partials == sp.partials[d].data_ptr()
+            assert sp.partials[d].shape == (skewed.chunks, d)
+            assert seen[-1][9:13] == (nu, skewed.chunks, tspmm.SPLIT_LEN, d)
+        assert sorted(sp.partials) == [32, 64]
+        tspmm.spmm_dropout_cuda(plain, torch.randn(N_ITEMS, D), 5, 0.6)
+        assert seen[-1][5:9] == (None,) * 4
+        assert seen[-1][9:13] == (N_USERS, 0, 0, D)
+        assert tspmm.spmm_dropout_cuda.launches == 4
+        assert tspmm.spmm_dropout_cuda.split_launches == 3
+    finally:
+        tspmm.spmm_dropout_cuda.launches = 0
+        tspmm.spmm_dropout_cuda.split_launches = 0
+
+
+@pytest.mark.parametrize('direction', ['to_user', 'to_item'])
+def test_plain_path_on_a_skewed_graph_matches_dense_oracle(direction):
+    """The CPU path ignores the schedule: a skewed graph's long rows sum
+    every kept edge, against a float64 numpy product."""
+    eu, ei, w, nu, ni = _skewed_graph()
+    op = tspmm.GraphOp(eu, ei, w, nu, ni, 'cpu')
+    dst, src, n_dst, n_src = ((eu, ei, nu, ni) if direction == 'to_user'
+                              else (ei, eu, ni, nu))
+    x = np.random.RandomState(3).randn(n_src, D).astype(np.float32)
+    salt, keep = SALTS[4], float(np.float32(0.6))
+    scale = tspmm.edge_dropout_scale(torch.from_numpy(eu),
+                                     torch.from_numpy(ei), salt,
+                                     keep).numpy()
+    want = np.zeros((n_dst, D), np.float64)
+    np.add.at(want, dst, x[src].astype(np.float64)
+              * (w * scale)[:, None].astype(np.float64))
+    got = getattr(op, direction)(torch.from_numpy(x), (salt, keep))
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-4, rtol=1e-5)

@@ -47,12 +47,37 @@
 //   * each output element is acc = fmaf(w_e / keep, x[col_e][c], acc) over
 //     the row's kept edges in CSR order, as K2 (spmm_weighted.cu) adds: at
 //     keep = 1 (and with the mask multiplied into K2's weights at any keep)
-//     the two give the same bits. No row's edges are split;
+//     the two give the same bits on every row of at most split_len edges;
 //   * the sums stay in registers and each output row is written once: no
-//     atomics, zeros for rows without edges;
+//     float atomics, zeros for rows without edges;
 //   * any even d: float4 when d % 4 == 0 and x is 16-byte aligned, else
 //     float2 (the wrapper picks; ops/spmm.k1_layout), and a d wider than
 //     kLanes * kVec loops over column strips.
+//
+// What bounds it on a skewed graph: its heaviest row. A group walks its
+// row as one chain of rounds, each an L2 round trip (~0.3 us for two
+// gathers on the H100). Amazon-Book's train graph (52,643 users, 91,599
+// items, 2.39M edges) has rows of 4,896 (to_user) and 3,590 (to_item)
+// edges: their ~2,450 rounds (0.65 ms at keep 1) outlast the rest of the
+// graph, ~0.125 ms of gathers, several times over (PERF.md, section 6).
+// So rows longer than split_len edges (ops/spmm.SPLIT_LEN, 128: of 128,
+// 256 and 512 the fastest on that graph, as 128 edges is 64 rounds, under
+// the ~0.09-0.11 ms the rest then takes) are split by a schedule the host
+// builds once from rowptr (ops/spmm.split_schedule), independent of the
+// salt and keep, and run by the kernel's kSplit instance:
+//   * the grid's first work items are the chunks, heaviest rows first, each
+//     at most split_len consecutive edges of one row; the rows follow, and
+//     a split row's own group leaves at once;
+//   * a chunk's group walks its edges exactly as a row's group does (same
+//     hash, ballot, kept-edge walk and fmaf), writes the partial row to
+//     the chunk's slot, fences and adds 1 to its row's arrival counter (an
+//     int atomic); the group that arrives last sums the row's partials in
+//     chunk order, whichever group that is, writes out[row] and resets the
+//     counter to 0, so a launch needs no memset and the next one finds 0;
+//   * the sum of a split row is the same bits from launch to launch, but
+//     grouped by chunk: there K1 and K2 part (within f32 rounding). A graph
+//     without such rows (S1: at most 47 edges) has no schedule and runs the
+//     other instance, the row path alone, with its bits and its time.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared, without
 // --use_fast_math: 1.0f / keep must round as IEEE division does.
@@ -90,6 +115,9 @@ template <> struct Vec<2> {
   static __device__ __forceinline__ T fma(float w, T v, T acc) {
     return make_float2(fmaf(w, v.x, acc.x), fmaf(w, v.y, acc.y));
   }
+  static __device__ __forceinline__ T add(T a, T b) {
+    return make_float2(a.x + b.x, a.y + b.y);
+  }
 };
 template <> struct Vec<4> {
   using T = float4;
@@ -100,17 +128,43 @@ template <> struct Vec<4> {
     return make_float4(fmaf(w, v.x, acc.x), fmaf(w, v.y, acc.y),
                        fmaf(w, v.z, acc.z), fmaf(w, v.w, acc.w));
   }
+  static __device__ __forceinline__ T add(T a, T b) {
+    return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
+  }
 };
 
-template <int kVec, int kLanes>
+// Reads of the partial rows other groups wrote in this launch: from L2,
+// past this SM's L1, which does not see their stores, and kept after the
+// fence that precedes them.
+__device__ __forceinline__ float2 load_l2(const float2* p) {
+  float2 v;
+  asm volatile("ld.global.cg.v2.f32 {%0, %1}, [%2];"
+               : "=f"(v.x), "=f"(v.y) : "l"(p) : "memory");
+  return v;
+}
+__device__ __forceinline__ float4 load_l2(const float4* p) {
+  float4 v;
+  asm volatile("ld.global.cg.v4.f32 {%0, %1, %2, %3}, [%4];"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w) : "l"(p)
+               : "memory");
+  return v;
+}
+
+// kSplit: the instance for a CSR with a split schedule; the other runs the
+// row path alone
+template <int kVec, int kLanes, bool kSplit>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32, kMinBlocks)
 spmm_dropout_kernel(const int32_t* __restrict__ rowptr,
                     const int32_t* __restrict__ col,
                     const float* __restrict__ w,
                     const float* __restrict__ x,
                     float* __restrict__ out,
-                    int n_dst, int d, uint32_t salt, float keep,
-                    int dst_is_user) {
+                    const int4* __restrict__ work,
+                    const int32_t* __restrict__ first,
+                    int32_t* __restrict__ arrivals,
+                    float* __restrict__ partials,
+                    int n_dst, int n_chunks, int split_len, int d,
+                    uint32_t salt, float keep, int dst_is_user) {
   using V = typename Vec<kVec>::T;
   constexpr int kGroups = 32 / kLanes;
   const int lane = threadIdx.x & 31;
@@ -118,12 +172,27 @@ spmm_dropout_kernel(const int32_t* __restrict__ rowptr,
   const int shift = lane - sub;   // the group's first lane
   const unsigned group_mask =
       kLanes == 32 ? 0xffffffffu : ((1u << kLanes) - 1u) << shift;
-  const int row =
+  const int item =
       (blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5)) * kGroups +
       shift / kLanes;
-  if (row >= n_dst) return;  // the whole group leaves together
-  const int begin = rowptr[row];
-  const int end = rowptr[row + 1];
+  // the work items: the chunks first, heaviest rows first, then the rows
+  int row, begin, end, split = -1;
+  float* dst;   // the group's output row: out[row] or the chunk's partial
+  if (kSplit && item < n_chunks) {
+    const int4 chunk = work[item];   // (row, begin, end, split row)
+    row = chunk.x;
+    begin = chunk.y;
+    end = chunk.z;
+    split = chunk.w;
+    dst = partials + static_cast<size_t>(item) * d;
+  } else {
+    row = item - n_chunks;
+    if (row >= n_dst) return;  // the whole group leaves together
+    begin = rowptr[row];
+    end = rowptr[row + 1];
+    if (kSplit && end - begin > split_len) return;  // its chunks write it
+    dst = out + static_cast<size_t>(row) * d;
+  }
   const bool drop = keep < 1.0f;
   const float inv_keep = 1.0f / keep;
   const uint32_t r = static_cast<uint32_t>(row);
@@ -178,22 +247,48 @@ spmm_dropout_kernel(const int32_t* __restrict__ rowptr,
         }
       }
     }
-    if (active) {
-      *reinterpret_cast<V*>(out + static_cast<size_t>(row) * d + c) = acc;
-    }
+    if (active) *reinterpret_cast<V*>(dst + c) = acc;
   }
+  if (!kSplit || split < 0) return;
+
+  // A chunk: arrive at its row's counter once its partial is visible; the
+  // last group to arrive sums the row's partials in chunk order.
+  __threadfence();
+  __syncwarp(group_mask);
+  int arrived = 0;
+  if (sub == 0) arrived = atomicAdd(arrivals + split, 1);
+  arrived = __shfl_sync(group_mask, arrived, 0, kLanes);
+  const int lo = first[split], hi = first[split + 1];
+  if (arrived != hi - lo - 1) return;
+  __threadfence();
+  for (int c = kVec * sub; c < d; c += kLanes * kVec) {
+    V acc = load_l2(reinterpret_cast<const V*>(
+        partials + static_cast<size_t>(lo) * d + c));
+#pragma unroll 4
+    for (int k = lo + 1; k < hi; ++k) {
+      acc = Vec<kVec>::add(acc, load_l2(reinterpret_cast<const V*>(
+                                    partials + static_cast<size_t>(k) * d +
+                                    c)));
+    }
+    *reinterpret_cast<V*>(out + static_cast<size_t>(row) * d + c) = acc;
+  }
+  if (sub == 0) arrivals[split] = 0;   // ready for the next launch
 }
 
-template <int kVec, int kLanes>
+template <int kVec, int kLanes, bool kSplit>
 cudaError_t launch(const int32_t* rowptr, const int32_t* col, const float* w,
-                   const float* x, float* out, int n_dst, int d,
+                   const float* x, float* out, const int4* work,
+                   const int32_t* first, int32_t* arrivals, float* partials,
+                   int n_dst, int n_chunks, int split_len, int d,
                    uint32_t salt, float keep, int dst_is_user,
                    cudaStream_t stream) {
-  constexpr int kRowsPerBlock = kWarpsPerBlock * (32 / kLanes);
-  const int blocks = (n_dst + kRowsPerBlock - 1) / kRowsPerBlock;
-  spmm_dropout_kernel<kVec, kLanes><<<blocks, kWarpsPerBlock * 32, 0,
-                                      stream>>>(
-      rowptr, col, w, x, out, n_dst, d, salt, keep, dst_is_user);
+  constexpr int kItemsPerBlock = kWarpsPerBlock * (32 / kLanes);
+  const int items = n_chunks + n_dst;
+  const int blocks = (items + kItemsPerBlock - 1) / kItemsPerBlock;
+  spmm_dropout_kernel<kVec, kLanes, kSplit><<<blocks, kWarpsPerBlock * 32,
+                                              0, stream>>>(
+      rowptr, col, w, x, out, work, first, arrivals, partials, n_dst,
+      n_chunks, split_len, d, salt, keep, dst_is_user);
   return cudaGetLastError();
 }
 
@@ -206,30 +301,42 @@ cudaError_t launch(const int32_t* rowptr, const int32_t* col, const float* w,
 // shapes: rowptr (n_dst + 1), col and w (rowptr[n_dst]), x (n_src, d) and
 // out (n_dst, d), all contiguous on `device`, d even and > 0, n_dst > 0;
 // and picked vec in {2, 4} (4: d % 4 == 0, x and out 16-byte aligned) and
-// lanes in {8, 16, 32}, the lanes that share a row.
+// lanes in {8, 16, 32}, the lanes that share a row. The split schedule:
+// n_chunks work items (row, begin, end, split row) in `work`, 16-byte
+// aligned; `first` (split rows + 1) each split row's chunk range;
+// `arrivals` (split rows) counters that are 0 and are left 0; `partials`
+// (n_chunks, d), aligned as out; every row longer than split_len edges has
+// its chunks. With n_chunks = 0 the four may be null and split_len is not
+// read. Launches that share a schedule run in stream order.
 extern "C" int spmm_dropout_f32(const int32_t* rowptr, const int32_t* col,
                                 const float* w, const float* x, float* out,
-                                int n_dst, int d, uint32_t salt, float keep,
-                                int dst_is_user, int vec, int lanes,
-                                int device, void* stream) {
+                                const void* work, const int32_t* first,
+                                int32_t* arrivals, float* partials,
+                                int n_dst, int n_chunks, int split_len, int d,
+                                uint32_t salt, float keep, int dst_is_user,
+                                int vec, int lanes, int device,
+                                void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int key = vec * 100 + lanes;
-  switch (key) {
-    case 208: err = launch<2, 8>(rowptr, col, w, x, out, n_dst, d, salt,
-                                 keep, dst_is_user, s); break;
-    case 216: err = launch<2, 16>(rowptr, col, w, x, out, n_dst, d, salt,
-                                  keep, dst_is_user, s); break;
-    case 232: err = launch<2, 32>(rowptr, col, w, x, out, n_dst, d, salt,
-                                  keep, dst_is_user, s); break;
-    case 408: err = launch<4, 8>(rowptr, col, w, x, out, n_dst, d, salt,
-                                 keep, dst_is_user, s); break;
-    case 416: err = launch<4, 16>(rowptr, col, w, x, out, n_dst, d, salt,
-                                  keep, dst_is_user, s); break;
-    case 432: err = launch<4, 32>(rowptr, col, w, x, out, n_dst, d, salt,
-                                  keep, dst_is_user, s); break;
+  const int4* items = static_cast<const int4*>(work);
+#define K1_LAUNCH(V, L)                                                     \
+  (n_chunks > 0                                                             \
+       ? launch<V, L, true>(rowptr, col, w, x, out, items, first, arrivals, \
+                            partials, n_dst, n_chunks, split_len, d, salt,  \
+                            keep, dst_is_user, s)                           \
+       : launch<V, L, false>(rowptr, col, w, x, out, items, first,          \
+                             arrivals, partials, n_dst, 0, split_len, d,    \
+                             salt, keep, dst_is_user, s))
+  switch (vec * 100 + lanes) {
+    case 208: err = K1_LAUNCH(2, 8); break;
+    case 216: err = K1_LAUNCH(2, 16); break;
+    case 232: err = K1_LAUNCH(2, 32); break;
+    case 408: err = K1_LAUNCH(4, 8); break;
+    case 416: err = K1_LAUNCH(4, 16); break;
+    case 432: err = K1_LAUNCH(4, 32); break;
     default: err = cudaErrorInvalidValue;
   }
+#undef K1_LAUNCH
   return static_cast<int>(err);
 }

@@ -17,7 +17,13 @@ source splits, tables padded to 4096 rows) is not carried over: each
 direction is one destination-sorted CSR over the real rows.
 
 * ``spmm_dropout_cuda`` launches the hand-written CUDA kernel
-  (``csrc/spmm_dropout.cu``) and counts its launches in ``.launches``.
+  (``csrc/spmm_dropout.cu``) and counts its launches in ``.launches``;
+  ``.split_launches`` counts those that ran a CSR's split schedule.
+* ``build_csr`` also builds each direction's split schedule once
+  (``split_schedule``): the rows longer than ``SPLIT_LEN`` edges, cut into
+  chunks that K1 walks in parallel and sums in a fixed order.  It depends
+  on ``rowptr`` alone, so every salt, keep, pass and step reuses it; a
+  graph without such rows has none, and ``CSR.split`` is None.
 * ``spmm_plain`` is the same function in plain torch; the CPU path and the
   on-card comparison use it.
 * ``spmm`` picks by the tensor's device: the plain version for a CPU
@@ -45,7 +51,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import os
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
@@ -59,6 +65,23 @@ _U32 = 0xFFFFFFFF
 KERNEL_SOURCE = 'spmm_dropout.cu'
 WEIGHTED_SOURCE = 'spmm_weighted.cu'
 XDTYPE_ENV = 'TEXTGCN_TPU_PALLAS_XDTYPE'
+# K1 walks a row longer than this many edges in chunks of at most as many,
+# one group each (csrc/spmm_dropout.cu; the pick: PERF.md, section 6)
+SPLIT_LEN = 128
+
+
+@dataclass(frozen=True, eq=False)
+class SplitSchedule:
+    """K1's chunks of the rows longer than ``split_len`` edges, on the
+    card.  Chunk ``i`` is its own slot in ``partials``; the chunks of split
+    row ``j`` are ``first[j]:first[j + 1]``, in CSR order."""
+    work: torch.Tensor      # (chunks, 4) int32: row, begin, end, split row
+    first: torch.Tensor     # (split rows + 1,) int32
+    arrivals: torch.Tensor  # (split rows,) int32, 0 between launches
+    split_len: int
+    split_edges: int        # the edges of the split rows
+    # the chunks' partial rows, (chunks, d) float32 for each d launched
+    partials: dict = field(default_factory=dict)
 
 
 @dataclass(frozen=True)
@@ -69,6 +92,7 @@ class CSR:
     w: torch.Tensor        # (E,) float32
     n_src: int
     dst_is_user: bool      # which endpoint feeds the user slot of the hash
+    split: SplitSchedule | None = None   # None: no row is split
 
     @property
     def n_dst(self) -> int:
@@ -77,6 +101,41 @@ class CSR:
     @property
     def n_edges(self) -> int:
         return self.col.numel()
+
+    @property
+    def split_rows(self) -> int:
+        return 0 if self.split is None else self.split.arrivals.numel()
+
+    @property
+    def chunks(self) -> int:
+        return 0 if self.split is None else self.split.work.shape[0]
+
+    @property
+    def split_edge_share(self) -> float:
+        """The share of the edges that lie in split rows."""
+        if self.split is None:
+            return 0.0
+        return self.split.split_edges / self.n_edges
+
+
+def split_schedule(rowptr: np.ndarray, split_len: int = SPLIT_LEN):
+    """K1's split schedule of a CSR's ``rowptr``, as numpy int32 arrays
+    ``(work, first)``: every row longer than ``split_len`` edges, heaviest
+    first (ties in row order), cut into consecutive chunks of at most
+    ``split_len`` edges in CSR order; ``work[i]`` = (row, begin, end,
+    split row j) of chunk ``i``, and row j's chunks are ``first[j]:first[j
+    + 1]``."""
+    rowptr = np.asarray(rowptr, np.int64)
+    length = np.diff(rowptr)
+    rows = np.flatnonzero(length > split_len)
+    rows = rows[np.argsort(-length[rows], kind='stable')]
+    first = np.zeros(len(rows) + 1, np.int64)
+    np.cumsum(-(-length[rows] // split_len), out=first[1:])
+    j = np.repeat(np.arange(len(rows)), np.diff(first))
+    begin = rowptr[rows[j]] + (np.arange(first[-1]) - first[j]) * split_len
+    end = np.minimum(begin + split_len, rowptr[rows[j] + 1])
+    work = np.stack([rows[j], begin, end, j], axis=1)
+    return work.astype(np.int32).reshape(-1, 4), first.astype(np.int32)
 
 
 def build_csr(dst: np.ndarray, src: np.ndarray, w: np.ndarray, n_dst: int,
@@ -89,11 +148,21 @@ def build_csr(dst: np.ndarray, src: np.ndarray, w: np.ndarray, n_dst: int,
     order = np.lexsort((src, dst))
     rowptr = np.zeros(n_dst + 1, np.int64)
     np.cumsum(np.bincount(dst, minlength=n_dst), out=rowptr[1:])
+    work, first = split_schedule(rowptr, SPLIT_LEN)
+    split = None
+    if len(work):
+        split = SplitSchedule(
+            work=torch.from_numpy(work).to(device),
+            first=torch.from_numpy(first).to(device),
+            arrivals=torch.zeros(len(first) - 1, dtype=torch.int32,
+                                 device=device),
+            split_len=SPLIT_LEN,
+            split_edges=int((work[:, 2] - work[:, 1]).sum()))
     return CSR(
         rowptr=torch.from_numpy(rowptr.astype(np.int32)).to(device),
         col=torch.from_numpy(src[order].astype(np.int32)).to(device),
         w=torch.from_numpy(np.asarray(w, np.float32)[order]).to(device),
-        n_src=int(n_src), dst_is_user=dst_is_user)
+        n_src=int(n_src), dst_is_user=dst_is_user, split=split)
 
 
 def hash_dropout_salts(generator: torch.Generator | None = None,
@@ -216,8 +285,8 @@ def _kernel_fn():
     from .. import cuda_build
     fn = cuda_build.load(KERNEL_SOURCE).spmm_dropout_f32
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [vp, vp, vp, vp, vp, ci, ci, ctypes.c_uint32,
-                   ctypes.c_float, ci, ci, ci, ci, vp]
+    fn.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci,
+                   ctypes.c_uint32, ctypes.c_float, ci, ci, ci, ci, vp]
     fn.restype = ci
     return fn
 
@@ -250,7 +319,10 @@ def _check_cuda(name: str, x: torch.Tensor):
 
 def spmm_dropout_cuda(csr: CSR, x: torch.Tensor, salt: int,
                       keep: float) -> torch.Tensor:
-    """Launch K1 on PyTorch's current stream; ``out`` is allocated here.
+    """Launch K1 on PyTorch's current stream; ``out`` is allocated here,
+    and a split schedule's partial rows at the first launch of each ``d``.
+    Launches on one CSR share its schedule's counters and partials, so they
+    run in stream order, as PyTorch's one current stream orders them.
 
     Raises on anything the kernel does not take: a tensor off the card,
     another dtype, a non-contiguous or misaligned ``x``, an odd ``d``.
@@ -267,18 +339,32 @@ def spmm_dropout_cuda(csr: CSR, x: torch.Tensor, salt: int,
     fn = _kernel_fn()
     stream = torch.cuda.current_stream(x.device).cuda_stream
     vec, lanes = k1_layout(d, x.data_ptr() % 16 == 0)
+    sp = csr.split
+    if sp is None:
+        work = first = arrivals = partials = None
+        n_chunks = split_len = 0
+    else:
+        buf = sp.partials.get(d)
+        if buf is None:
+            buf = sp.partials[d] = torch.empty(
+                (sp.work.shape[0], d), dtype=torch.float32, device=x.device)
+        work, first, arrivals, partials = (
+            t.data_ptr() for t in (sp.work, sp.first, sp.arrivals, buf))
+        n_chunks, split_len = sp.work.shape[0], sp.split_len
     rc = fn(csr.rowptr.data_ptr(), csr.col.data_ptr(), csr.w.data_ptr(),
-            x.data_ptr(), out.data_ptr(), csr.n_dst, d, int(salt),
-            float(keep), int(csr.dst_is_user), vec, lanes,
-            x.device.index or 0, stream)
+            x.data_ptr(), out.data_ptr(), work, first, arrivals, partials,
+            csr.n_dst, n_chunks, split_len, d, int(salt), float(keep),
+            int(csr.dst_is_user), vec, lanes, x.device.index or 0, stream)
     if rc:
         raise RuntimeError(f'spmm_dropout kernel launch failed: CUDA error '
                            f'{rc}')
     spmm_dropout_cuda.launches += 1
+    spmm_dropout_cuda.split_launches += sp is not None
     return out
 
 
 spmm_dropout_cuda.launches = 0
+spmm_dropout_cuda.split_launches = 0
 
 
 def spmm(csr: CSR, x: torch.Tensor, salt: int, keep: float) -> torch.Tensor:
