@@ -27,7 +27,11 @@ Phases, each of which passes or ends the run with a non-zero exit:
    draw, rows of up to 4,896 edges, which K1 splits into chunks): both
    directions at keep 1 and 0.6, forward and backward, within the same
    tolerance of ``spmm_plain``, two launches bit-equal, every launch split,
-   each timed beside its bound (``book_kernel_phase``);
+   each timed beside its bound (``book_kernel_phase``); and K3 and K4 on
+   the same graph, both directions at keep 1 and 0.6, held as phase 4
+   holds them and timed beside the benchmark's bounds
+   (``book_attention_phase``; ten times phase 4's tolerances, for rows
+   a hundred times longer);
 3b. K2 kernel: partitions each direction of the S1 graph by source range
    into W = 1 and W = 4 shards on the one card, as the mesh path does
    (``parallel.sharded_spmm.build_shard``), and holds K2
@@ -359,6 +363,13 @@ SALT = 0x9E3779B9            # high bit set: exercises the uint32 hash path
 KEEP_DROPOUT = float(np.float32(1.0 - 0.4))   # float32(1 - p), p = 0.4
 TOL = 1e-5
 GAT_BWD_TOL = 1e-4
+# K3 and K4 on the Amazon-Book graph against their plain versions: phase
+# 4's tolerances were set for S1's rows of at most 47 edges; these hold up
+# to 4,896, and the rounding of a float32 sum, in the kernel's order and in
+# the plain version's (index_add's atomics on the card), grows as the
+# square root of its length: sqrt(4896 / 47) ~ 10.  K3's num at keep 1
+# read 1.14 and 2.42 of phase 4's own in two runs (PERF.md, section 6)
+BOOK_ATT_SCALE = 10.0
 # widths that take the redesigned kernels' other instances, held against
 # their plain versions on one direction at keep 0.6: K1 and K2 (vec,
 # lanes) (ops/spmm.k1_layout) (4, 8), (4, 16) with idle lanes, (2, 32),
@@ -624,7 +635,8 @@ def book_kernel_phase(dev) -> dict:
     autograd: the backward is K1 on the transpose) against
     ``spmm_plain`` within TOL; two launches give the same bits; every
     launch ran the schedule; each direction timed at both keeps beside
-    its bound."""
+    its bound.  Then K3 and K4 on the same graph
+    (``book_attention_phase``)."""
     from textgcn_tpu_torch.ops.spmm import (GraphOp, edge_mask,
                                             spmm_dropout_cuda, spmm_plain)
     t0 = time.perf_counter()
@@ -684,6 +696,85 @@ def book_kernel_phase(dev) -> dict:
           f'K1 ran its split schedule in '
           f'{spmm_dropout_cuda.split_launches - split} of {n} launches on '
           'the book graph')
+    log('clocks after timing (sm, max sm, power, temperature): '
+        + nvidia_smi('clocks.sm,clocks.max.sm,power.draw,temperature.gpu'))
+    res['attention'] = book_attention_phase(op, dev)
+    return res
+
+
+def book_attention_phase(op, dev) -> dict:
+    """K3 and K4 where no group shares a long row: on the Amazon-Book
+    graph's CSRs (``op``; the kernels read only their structure), both
+    directions at keep 1 and 0.6, with phase 4's unit-scale inputs: K3
+    against ``gat_att_plain`` (its ``m`` bit for bit), K4, fed K3's ``m``,
+    against ``gat_bwd_plain``, each within phase 4's tolerance times
+    ``BOOK_ATT_SCALE`` (the share of phase 4's own is logged); every
+    launch counted as walking a long row; each timed beside the
+    benchmark's least time of one launch (``portbench.work_gat``)."""
+    from portbench import work_gat
+    from textgcn_tpu_torch.ops import gat
+    gen = torch.Generator().manual_seed(26)
+    res = {'gat_fwd': {'max_abs_err': 0.0, 'tol_share': 0.0},
+           'gat_bwd': {'max_abs_err': 0.0, 'tol_share': 0.0}}
+    counts = [(f.launches, f.long_row_launches)
+              for f in (gat.gat_fwd_cuda, gat.gat_bwd_cuda)]
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=gen).to(dev)
+
+    for direction in ('to_user', 'to_item'):
+        fwd, bwd = op.csr_pair(direction)
+        n_src, n_dst = fwd.n_src, fwd.n_dst
+        ins = (rand(n_src, D), rand(n_src), rand(n_dst))
+        g_num, g_den = rand(n_dst, D), rand(n_dst)
+        for keep in (1.0, KEEP_DROPOUT):
+            got = gat.gat_fwd_cuda(fwd, *ins, SALT, keep)
+            want = gat.gat_att_plain(fwd, *ins, SALT, keep)
+            m = got[2]
+            got_b = gat.gat_bwd_cuda(bwd, *ins, m, g_num, g_den, SALT, keep)
+            want_b = gat.gat_bwd_plain(bwd, *ins, m, g_num, g_den, SALT,
+                                       keep)
+            torch.cuda.synchronize()
+            key = 'keep_1' if keep >= 1.0 else 'keep_0_6'
+            for name, a, b, tol, work, csr in (
+                    ('gat_fwd', got, want, TOL, work_gat.k3, fwd),
+                    ('gat_bwd', got_b, want_b, GAT_BWD_TOL, work_gat.k4,
+                     bwd)):
+                errs = [float((x - y).abs().max()) for x, y in zip(a, b)]
+                share = tol_share(zip(a, b), tol, (False,) * 3)
+                r = res[name]
+                r['max_abs_err'] = max(r['max_abs_err'], *errs)
+                r['tol_share'] = max(r['tol_share'], share)
+                log(f'book {name} {direction} keep={keep:.7g}: max_abs_err '
+                    + ', '.join(f'{out} {e:.3e} of {float(y.abs().max()):.3g}'
+                                for out, e, y in zip(OUTPUTS[name], errs, b))
+                    + f'; {share:.3f} of phase 4\'s tolerance')
+                check(all(agree(x, y, BOOK_ATT_SCALE * tol, False)
+                          for x, y in zip(a, b)),
+                      f'{name} on the book graph, {direction} keep={keep}, '
+                      f'disagrees with its plain version ({errs})')
+                check(name != 'gat_fwd' or torch.equal(a[2], b[2]),
+                      f'K3 on the book graph, {direction} keep={keep}: m is '
+                      'not the max of the kept logits bit for bit')
+                extra = () if name == 'gat_fwd' else (m, g_num, g_den)
+                kernel = getattr(gat, f'{name}_cuda')
+                t = time_ms({'kernel': lambda kernel=kernel, csr=csr,
+                             extra=extra: kernel(csr, *ins, *extra, SALT,
+                                                 keep)},
+                            ['kernel', 'kernel'])['kernel']
+                w = work(n_src, n_dst, fwd.n_edges, D, keep)
+                bound = w.least_s() * 1e3
+                r[f'{direction}_ms_{key}'] = t
+                r[f'{direction}_bound_ms_{key}'] = bound
+                log(f'timing book {name} {direction} (E={fwd.n_edges}, max '
+                    f'row {int((csr.rowptr[1:] - csr.rowptr[:-1]).max())}, '
+                    f'd={D}) keep={keep:.7g}: kernel {t:.4f} ms, bound '
+                    f'{bound:.4f} ms ({100 * bound / t:.2f}%)')
+    for (n0, long0), f in zip(counts, (gat.gat_fwd_cuda, gat.gat_bwd_cuda)):
+        n, long_rows = f.launches - n0, f.long_row_launches - long0
+        check(n > 0 and long_rows == n,
+              f'{f.__name__}: {long_rows} of its {n} launches on the book '
+              'graph counted as walking a long row')
     log('clocks after timing (sm, max sm, power, temperature): '
         + nvidia_smi('clocks.sm,clocks.max.sm,power.draw,temperature.gpu'))
     return res

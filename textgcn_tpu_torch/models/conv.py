@@ -57,6 +57,7 @@ from ..ops.gat import gat_direction, gatv2_direction
 from ..ops.propagate import salt_pairs
 from ..ops.spmm import edge_mask, kept_degree
 from ..parallel.sharded import all_gather_rows
+from ..utils.profiling import span
 from .lightgcn import LightGCN
 
 PORTED_CONVS = ('gcn', 'graphsage', 'gat', 'gatv2')
@@ -226,12 +227,14 @@ class ConvModel(LightGCN):
                 param.copy_(loaded[name])
 
     def _layer_combine(self, step):
-        """Run ``step(lp, u, i) -> (u, i)`` per layer; the layer mean, or
-        the last layer under ``--single``."""
+        """Run ``step(lp, u, i) -> (u, i)`` per layer, each in the span
+        ``conv.layer`` with the layer's index; the layer mean, or the last
+        layer under ``--single``."""
         u, i = self.user_emb, self.item_emb
         acc_u, acc_i = u, i
-        for lp in self.convs:
-            u, i = step(lp, u, i)
+        for k, lp in enumerate(self.convs):
+            with span('conv.layer', (k,)):
+                u, i = step(lp, u, i)
             acc_u = acc_u + u
             acc_i = acc_i + i
         if self.single:

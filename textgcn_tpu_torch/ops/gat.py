@@ -25,11 +25,15 @@ slot flips with the layout.
 
 * ``gat_fwd_cuda`` launches K3 (``csrc/gat_fwd.cu``) and ``gat_bwd_cuda``
   launches K4 (``csrc/gat_bwd.cu``); each counts its launches in
-  ``.launches``.
+  ``.launches``, and in ``.long_row_launches`` those over a CSR with a row
+  longer than ``spmm.SPLIT_LEN`` edges, which one group walks alone
+  (``CSR.split_rows``, known since the CSR was built).
 * ``gat_att_plain`` and ``gat_bwd_plain`` are the same functions in plain
   torch; the CPU path and the on-card comparison use them.
 * ``gat_direction`` folds in the never-dropped self loop outside the
-  autograd boundary, exactly as ``pallas_gat.py:615-637`` does.
+  autograd boundary, exactly as ``pallas_gat.py:615-637`` does.  It runs
+  in the span ``conv.attention`` and K4 in ``conv.attention.backward``
+  (``utils/profiling.span``).
 
 The GATv2 half (``gatv2_att_fused``, ``_g2s_fwd``/``_g2s_bwd``,
 ``gatv2_direction``) has a d-dim logit per edge and two tables,
@@ -70,6 +74,7 @@ import functools
 import torch
 from torch.autograd.function import once_differentiable
 
+from ..utils.profiling import span
 from .spmm import CSR, _check_args, edge_mask, round_to
 
 NEG = -2.0 ** 100    # masked-logit sentinel of the JAX package
@@ -200,10 +205,12 @@ def gat_fwd_cuda(csr: CSR, h_src: torch.Tensor, s_src: torch.Tensor,
             csr.n_dst, d, csr, salt, keep, dev,
             layout=_pick_layout(d, (h_src, num)))
     gat_fwd_cuda.launches += 1
+    gat_fwd_cuda.long_row_launches += csr.split_rows > 0
     return num, den, m
 
 
 gat_fwd_cuda.launches = 0
+gat_fwd_cuda.long_row_launches = 0
 
 
 def att_layout(d: int, aligned16: bool) -> tuple[int, int]:
@@ -256,10 +263,12 @@ def gat_bwd_cuda(csr_t: CSR, h_src: torch.Tensor, s_src: torch.Tensor,
             n_src, d, csr_t, salt, keep, dev,
             layout=_pick_layout(d, (h_src, g_num, dh)))
     gat_bwd_cuda.launches += 1
+    gat_bwd_cuda.long_row_launches += csr_t.split_rows > 0
     return dh, ds, dd
 
 
 gat_bwd_cuda.launches = 0
+gat_bwd_cuda.long_row_launches = 0
 
 
 def _by_device(t: torch.Tensor, cpu_fn, cuda_fn):
@@ -291,9 +300,10 @@ class _GatAttention(torch.autograd.Function):
     def backward(ctx, g_num, g_den, _g_m):
         h_src, s_src, d_dst, m = ctx.saved_tensors
         fn = _by_device(h_src, gat_bwd_plain, gat_bwd_cuda)
-        dh, ds, dd = fn(ctx.bwd, h_src, s_src, d_dst, m,
-                        round_to(g_num.contiguous(), ctx.x_dtype),
-                        g_den.contiguous(), ctx.salt, ctx.keep)
+        with span('conv.attention.backward'):
+            dh, ds, dd = fn(ctx.bwd, h_src, s_src, d_dst, m,
+                            round_to(g_num.contiguous(), ctx.x_dtype),
+                            g_den.contiguous(), ctx.salt, ctx.keep)
         return dh, ds, dd, None, None, None, None, None
 
 
@@ -323,10 +333,13 @@ def gat_direction(op, direction: str, h_src, h_dst, s_src, s_dst, d_dst,
                   salt: int, keep: float) -> torch.Tensor:
     """One GAT direction with the never-dropped self loop: the (n_dst, d)
     softmax-weighted sum over surviving incoming edges plus the self loop
-    (logit ``leaky(s_dst + d_dst)``, message ``h_dst``)."""
-    num, den, m_edge = gat_att(op, direction, h_src, s_src, d_dst, salt,
-                               keep)
-    return _fold_self_loop(num, den, m_edge, leaky(s_dst + d_dst), h_dst)
+    (logit ``leaky(s_dst + d_dst)``, message ``h_dst``); in the span
+    ``conv.attention``."""
+    with span('conv.attention'):
+        num, den, m_edge = gat_att(op, direction, h_src, s_src, d_dst, salt,
+                                   keep)
+        return _fold_self_loop(num, den, m_edge, leaky(s_dst + d_dst),
+                               h_dst)
 
 
 # --- GATv2 -------------------------------------------------------------------
